@@ -17,9 +17,9 @@ Every numeric decision is bit-pinned to the reference (phe/encoding.py,
 vendored alt-base suites): exponent selection from the float's least
 significant mantissa bit (or an explicit precision) floored in base-BASE,
 mantissa rounding as exact round-half-even rational arithmetic, and the
-int/int division on decode (upstream issue 62). All of it is exact host
-integer math — the device engine only ever sees finished residues, packed
-into limb tensors by phe_tpu_torch.batch.
+int/int division on decode (the reference's exact-decode fix). All of
+it is exact host integer math — the device engine only ever sees finished
+residues, packed into limb tensors by phe_tpu_torch.batch.
 """
 
 import fractions
@@ -141,7 +141,7 @@ class EncodedNumber(object):
         """Back to an int (exponent >= 0, exact) or float.
 
         Negative exponents divide int by int so precision survives until
-        the single final conversion to float (upstream issue 62 / PR 73).
+        the single final conversion to float, as the reference decodes.
         """
         mantissa = self._signed_mantissa()
         if self.exponent >= 0:
