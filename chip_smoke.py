@@ -108,11 +108,17 @@ def bound_ms(nbytes, int8_macs=0, int32_ops=0):
 
 
 def mont_mul_bound(rows, L, shared):
-    """Schoolbook Montgomery product: T = a*b (L^2), q (L(L+1)/2), q*M (L^2)
-    limb multiply-adds per row; a, b, M, M' read and the output written."""
-    macs = rows * (2 * L * L + L * (L + 1) // 2)
-    nbytes = 8 * (rows * L * (2 if shared else 3) + (3 if shared else 2) * L)
-    return bound_ms(nbytes, int32_ops=macs)
+    """Montgomery product at its cheapest, as the TPU kernel computes it:
+    REDC as two int8 digit matmuls against key constants (q = T_lo M'
+    against [2L, 2L], q M against [4L, 2L]: 12 L^2 int8 multiply-adds per
+    row); a*b as L^2 int32 multiply-adds, or, with b shared, as one more
+    digit matmul against a [4L, 2L] matrix of b (8 L^2 int8). Bytes: the
+    int64 operand rows read and the output written; the digit matrices
+    (one int8 byte per multiply-add of a row) read once."""
+    per_row = (20 if shared else 12) * L * L
+    nbytes = 8 * rows * L * (2 if shared else 3) + per_row
+    return bound_ms(nbytes, int8_macs=rows * per_row,
+                    int32_ops=0 if shared else rows * L * L)
 
 
 def ladder_bound(rows, k, n_windows, window):

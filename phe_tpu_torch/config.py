@@ -9,10 +9,8 @@ hand-written kernels are compiled to:
                 the CPU. The CPU is used only when the caller asks for it
                 (the tests do), and then every kernel wrapper takes its
                 plain PyTorch version.
-  PHE_TPU_TORCH_BUILD_DIR
-                directory for the compiled kernel library (default
-                ``build/kernels`` inside the package's checkout, which
-                ``.gitignore`` lists).
+  build_dir()   ``build/kernels`` in the checkout that holds the package,
+                which ``.gitignore`` lists: the compiled kernel libraries.
 """
 
 import os
@@ -34,8 +32,5 @@ def resolve_device(device=None):
 
 
 def build_dir():
-    """Directory the CUDA kernel library is compiled into."""
-    return os.environ.get(
-        "PHE_TPU_TORCH_BUILD_DIR",
-        os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels"),
-    )
+    """Directory the CUDA kernel libraries are compiled into."""
+    return os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")

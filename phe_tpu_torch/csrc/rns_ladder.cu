@@ -72,6 +72,13 @@ __device__ __forceinline__ unsigned int ld(const int64_t* p, int i) {
       __ldg(reinterpret_cast<const long long*>(p) + i));
 }
 
+// The system's constant rows, each int64 [cpad], and the ladder's entry
+// and exit constants.
+struct Rows {
+  const int64_t *m, *mu, *t14, *sig1, *sig2, *d1, *d2, *e1, *negmb, *one_dom;
+  const int64_t *entry, *exitc;
+};
+
 struct Ladder {
   int k, cpad, K1;  // K1 = k + 8: rows of each extension's output
   const int64_t *m, *mu, *t14, *sig1, *sig2, *d1, *d2, *e1, *negmb;
@@ -197,8 +204,7 @@ struct Ladder {
 __global__ void __launch_bounds__(kMaxThreads)
 rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
                   unsigned int* __restrict__ table, int B, int k, int cpad,
-                  const int64_t* __restrict__ consts,
-                  const int64_t* __restrict__ mbinv,
+                  Rows rows, const int64_t* __restrict__ mbinv,
                   const int* __restrict__ w1p, const int* __restrict__ w2p,
                   const int64_t* __restrict__ digits, int n_windows,
                   int window) {
@@ -207,18 +213,18 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   ld_.k = k;
   ld_.cpad = cpad;
   ld_.K1 = k + 8;
-  ld_.m = consts;
-  ld_.mu = consts + cpad;
-  ld_.t14 = consts + 2 * cpad;
-  ld_.sig1 = consts + 3 * cpad;
-  ld_.sig2 = consts + 4 * cpad;
-  ld_.d1 = consts + 5 * cpad;
-  ld_.d2 = consts + 6 * cpad;
-  ld_.e1 = consts + 7 * cpad;
-  ld_.negmb = consts + 8 * cpad;
-  const int64_t* one_dom = consts + 9 * cpad;
-  const int64_t* entry = consts + 10 * cpad;
-  const int64_t* exitc = consts + 11 * cpad;
+  ld_.m = rows.m;
+  ld_.mu = rows.mu;
+  ld_.t14 = rows.t14;
+  ld_.sig1 = rows.sig1;
+  ld_.sig2 = rows.sig2;
+  ld_.d1 = rows.d1;
+  ld_.d2 = rows.d2;
+  ld_.e1 = rows.e1;
+  ld_.negmb = rows.negmb;
+  const int64_t* one_dom = rows.one_dom;
+  const int64_t* entry = rows.entry;
+  const int64_t* exitc = rows.exitc;
   ld_.mbinv = static_cast<unsigned int>(mbinv[0]);
   ld_.w1p = w1p;
   ld_.w2p = w2p;
@@ -263,7 +269,9 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   }
   __syncthreads();
   for (int wi = 0; wi < n_windows; ++wi) {
-    const int d = static_cast<int>(digits[wi]);
+    // Digits come from the host schedule, in [0, 2^window); the mask keeps
+    // any other value inside this element's table.
+    const int d = static_cast<int>(digits[wi]) & ((1 << window) - 1);
     for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
     ld_.montmul(kYTable, tab, tstride, d, nullptr);
   }
@@ -281,29 +289,32 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
 }  // namespace
 
 // x, out: [B, cpad] int64 stored residues; table: uint32 scratch of
-// ceil(B / 8) * 8 * 2^window * cpad words; consts: [12, cpad] int64 rows
-// m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom, entry, exit;
-// mbinv: [1] int64; w1p, w2p: [2k/4, 3(k+8)] int32 packed int8 matrices;
-// digits: [n_windows] int64. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
-extern "C" int phe_rns_ladder(const int64_t* x, int64_t* out,
-                              unsigned int* table, int B, int k, int cpad,
-                              const int64_t* consts, const int64_t* mbinv,
-                              const int* w1p, const int* w2p,
-                              const int64_t* digits, int n_windows,
-                              int window, cudaStream_t stream) {
+// ceil(B / 8) * 8 * 2^window * cpad words; m ... one_dom: the system's
+// [cpad] int64 constant rows; entry, exitc: [cpad] int64 entry and exit
+// constants; mbinv: [1] int64; w1p, w2p: [2k/4, 3(k+8)] int32 packed int8
+// matrices; digits: [n_windows] int64. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
+extern "C" int phe_rns_ladder(
+    const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
+    int cpad, const int64_t* m, const int64_t* mu, const int64_t* t14,
+    const int64_t* sig1, const int64_t* sig2, const int64_t* d1,
+    const int64_t* d2, const int64_t* e1, const int64_t* neg_mb,
+    const int64_t* one_dom, const int64_t* entry, const int64_t* exitc,
+    const int64_t* mbinv, const int* w1p, const int* w2p,
+    const int64_t* digits, int n_windows, int window, cudaStream_t stream) {
   const size_t smem = kElems * (2 * cpad * sizeof(unsigned int) + 2 * k) +
                       kElems * sizeof(unsigned int);
   cudaError_t err = cudaFuncSetAttribute(
       rns_ladder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = k + 8;
-  int threads = (rows + 31) / 32 * 32;
+  const Rows rows{m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom,
+                  entry, exitc};
+  int threads = (k + 8 + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const int blocks = (B + kElems - 1) / kElems;
   rns_ladder_kernel<<<blocks, threads, smem, stream>>>(
-      x, out, table, B, k, cpad, consts, mbinv, w1p, w2p, digits, n_windows,
+      x, out, table, B, k, cpad, rows, mbinv, w1p, w2p, digits, n_windows,
       window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,11 +12,19 @@ bit-equal: the same integers at every step.
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from phe_tpu_torch.ops import _build
 from phe_tpu_torch.ops import rns
 
 launches = {"rns_ladder": 0}
+
+# The system's [cpad] int64 rows the kernel reads, in its argument order.
+_ROWS = ("m", "mu", "t14", "sig1", "sig2", "d1", "d2", "e1", "neg_mb",
+         "one_dom")
+# Per system, keyed by its w_ext1 tensor: both extension matrices packed
+# for the kernel, built at the system's first launch.
+_packed = WeakIdKeyDictionary()
 
 
 def _lib():
@@ -24,7 +32,8 @@ def _lib():
     fn = lib.phe_rns_ladder
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * (len(_ROWS) + 6)
             + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -33,9 +42,45 @@ def _lib():
     return fn, lib.phe_rns_ladder_elems()
 
 
-def _packed(w):
+def _pack(w):
     """int8 [3K, 2k] -> int32 [2k/4, 3K]: row r's 4-digit words, column-wise."""
     return w.contiguous().view(torch.int32).t().contiguous()
+
+
+def _columns(sys_):
+    """(w_ext1, w_ext2) packed for the kernel, once per system."""
+    cols = _packed.get(sys_.w_ext1)
+    if cols is None:
+        cols = _packed[sys_.w_ext1] = (_pack(sys_.w_ext1), _pack(sys_.w_ext2))
+    return cols
+
+
+def _digits_on(digits, window, dev):
+    """The digit schedule as contiguous int64 [n_windows] on dev.
+
+    A schedule from the host is range-checked before its upload. One
+    already on the card was built by mg.exponent_digits at this window, so
+    its digits lie in [0, 2^window): checking them would sync with the
+    host at every launch. The kernel masks each digit to the window.
+    """
+    if not (isinstance(digits, torch.Tensor) and digits.device == dev):
+        host = torch.as_tensor(digits, dtype=torch.int64, device="cpu")
+        if not bool(((host >= 0) & (host < (1 << window))).all()):
+            raise ValueError("digits must lie in [0, 2^window)")
+        digits = host.to(dev)
+    if digits.dtype != torch.int64 or digits.dim() != 1:
+        raise ValueError("digits must be 1-D int64, got %s %s"
+                         % (digits.dtype, tuple(digits.shape)))
+    return digits.contiguous()
+
+
+def _row(t, name, C, dev):
+    if t.device != dev or t.dtype != torch.int64 or tuple(t.shape) != (C,):
+        raise ValueError("%s must be int64 [%d] on %s, got %s %s on %s"
+                         % (name, C, dev, t.dtype, tuple(t.shape), t.device))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+    return t.data_ptr()
 
 
 def _launch(x_res, digits, sys_, window, exit_res, entry_res):
@@ -49,33 +94,27 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res):
         raise TypeError("x_res must be contiguous int64")
     if not 1 <= window <= 8:
         raise ValueError("window must be in [1, 8], got %d" % window)
-    digits = torch.as_tensor(digits, dtype=torch.int64, device=dev).contiguous()
-    if digits.dim() != 1:
-        raise ValueError("digits must be 1-D, got shape %s" % (digits.shape,))
-    if not bool(((digits >= 0) & (digits < (1 << window))).all()):
-        raise ValueError("digits must lie in [0, 2^window)")
-    for name in ("m", "mbinv_r", "w_ext1", "w_ext2"):
-        if getattr(sys_, name).device != dev:
-            raise ValueError("sys_.%s is not on %s" % (name, dev))
+    digits = _digits_on(digits, window, dev)
     entry = sys_.r2_dom if entry_res is None else entry_res
     exitc = sys_.scale if exit_res is None else exit_res
-    consts = torch.stack([
-        sys_.m, sys_.mu, sys_.t14, sys_.sig1, sys_.sig2, sys_.d1, sys_.d2,
-        sys_.e1, sys_.neg_mb, sys_.one_dom, entry, exitc,
-    ]).to(torch.int64).contiguous()
-    w1p, w2p = _packed(sys_.w_ext1), _packed(sys_.w_ext2)
-    mbinv = sys_.mbinv_r.contiguous()
+    rows = [_row(getattr(sys_, f), "sys_." + f, C, dev) for f in _ROWS]
+    rows += [_row(entry, "entry_res", C, dev), _row(exitc, "exit_res", C, dev),
+             _row(sys_.mbinv_r, "sys_.mbinv_r", 1, dev)]
+    for name in ("w_ext1", "w_ext2"):
+        if getattr(sys_, name).device != dev:
+            raise ValueError("sys_.%s is not on %s" % (name, dev))
     B = x_res.shape[0]
     out = torch.empty_like(x_res)
     if B == 0:
         return out
+    w1p, w2p = _columns(sys_)
     fn, elems = _lib()
     table = torch.empty(
         (-(-B // elems) * elems, 1 << window, C), dtype=torch.int32, device=dev
     )
     rc = fn(
         x_res.data_ptr(), out.data_ptr(), table.data_ptr(), B, k, C,
-        consts.data_ptr(), mbinv.data_ptr(), w1p.data_ptr(), w2p.data_ptr(),
+        *rows, w1p.data_ptr(), w2p.data_ptr(),
         digits.data_ptr(), digits.shape[0], window, _build.stream_handle(dev),
     )
     if rc != 0:

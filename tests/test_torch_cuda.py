@@ -107,6 +107,23 @@ def test_ladder_kernel_bit_equal_to_plain(dev, window):
     assert [v % N for v in out] == [pow(x, pub.n, N) * E % N for x in xs]
 
 
+def test_ladder_wrapper_checks(dev):
+    pub, _ = pt.generate_paillier_keypair(n_length=128)
+    sys_ = rns.build_rns(pub.nsquare, dev)
+    x = torch.zeros((3, sys_.cpad), dtype=torch.int64, device=dev)
+    digits = rns.rns_pow_digits(pub.n, pub.n.bit_length(), 4)
+    with pytest.raises(ValueError, match="2\\^window"):
+        cuda_rns.ladder(x, [0, 16], sys_, window=4)
+    with pytest.raises(ValueError, match="exit_res"):
+        cuda_rns.ladder(x, digits, sys_, window=4,
+                        exit_res=sys_.scale.cpu())
+    with pytest.raises(TypeError, match="int64"):
+        cuda_rns.ladder(x.int(), digits, sys_, window=4)
+    on_card = torch.as_tensor(digits, device=dev)
+    assert torch.equal(cuda_rns.ladder(x, on_card, sys_, window=4),
+                       cuda_rns.ladder(x, digits, sys_, window=4))
+
+
 def test_round_trip_on_the_card_goes_through_the_kernels(dev):
     pub, priv = pt.generate_paillier_keypair(n_length=256)
     values = [0, 1, -1, 3.5, -2.5e-3, 1 << 60, -(1 << 100), 1e6]

@@ -161,3 +161,21 @@ def test_ladder_wrapper_dispatch(small):
     assert cuda_rns.launches == before  # the plain version launches nothing
     with pytest.raises(ValueError, match="no RNS ladder"):
         cuda_rns.ladder(x.to("meta"), digits, sys_)
+
+
+def test_ladder_wrapper_host_preparation(small):
+    """What the kernel's wrapper prepares on the host, checked on the CPU:
+    the packed extension matrices (built once per system) and the digit
+    schedule's range check before upload."""
+    pub, N, Lin, sys_, conv, jsys, jconv = small
+    w1p, w2p = cuda_rns._columns(sys_)
+    assert cuda_rns._columns(sys_)[0] is w1p  # cached per system
+    for packed, w in ((w1p, sys_.w_ext1), (w2p, sys_.w_ext2)):
+        assert packed.dtype == torch.int32 and packed.is_contiguous()
+        assert torch.equal(packed.t().contiguous().view(torch.int8), w)
+    digits = rns.rns_pow_digits(pub.n, pub.n.bit_length(), 5)
+    got = cuda_rns._digits_on(digits, 5, CPU)
+    assert got.dtype == torch.int64 and torch.equal(got, torch.as_tensor(digits))
+    for bad in ([3, 16], [-1, 2]):
+        with pytest.raises(ValueError, match="2\\^window"):
+            cuda_rns._digits_on(np.array(bad), 4, CPU)
