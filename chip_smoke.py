@@ -17,10 +17,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    checked bit-equal against the plain version, which is too slow for the
    whole batch, and four rows against Python pow. The tolerance is zero
    everywhere: this is exact integer arithmetic.
+   The per-element-exponent kernels run at their path's shapes too: the
+   RNS ladder at k = 304, window 4, over 65,536 rows of 64-bit schedules
+   (bit-equal to its plain version on the first 1,024 rows, four rows
+   against Python pow); the limb-engine modexp at L = 296 over 16,384
+   rows of 320-bit schedules (value-equal on 1,024 rows, four against
+   Python pow); its shared-exponent form with the exponent n on one row
+   and on 128 rows.
 3. The main path at 16,384 ciphertexts: EncryptedBatch.encrypt of seeded
    uniform floats in +-1e6, then decrypt, with every kernel's launch count
    read around it; a pinned-r batch against the host's raw_encrypt; one
    secure export round trip; encrypt and decrypt ops/s.
+4. The arithmetic path, each step with the counts zeroed just before it
+   and read just after, checked exactly against the host and timed on the
+   host clock: add at equal exponents over 524,288 rows and aligned over
+   65,536, add_scalars aligned, mul_scalars with mixed-sign floats over
+   65,536 rows, sum and dot at mixed exponents, encrypted
+   logistic-regression scoring of 1,024 examples x 21 weights, federated
+   aggregation of 5 x 16,384 gradients, and short-obfuscated encryption.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is the device record. Kernel times are
@@ -37,9 +51,16 @@ import numpy as np
 import torch
 
 BATCH = 16384  # encrypt and decrypt batch (the repo's headline workload)
+ADD_ROWS = 524288  # bench.py's add batch
+MUL_ROWS = 65536  # bench.py's mul batch
 SEED = 20261016
 PLAIN_CHUNK = 2048  # rows per plain Montgomery product (bounds its memory)
 PLAIN_LADDER_ROWS = 128  # rows of the plain ladder check (>= 64)
+PLAIN_VEC_ROWS = 1024  # rows of the plain per-element modexp checks
+SHARED_POW_ROWS = 128  # rows of the shared-exponent modexp's second check
+SHORT_BITS = 320  # short obfuscation's exponent bits
+LR_EXAMPLES, LR_FEATURES = 1024, 20
+FL_CLIENTS = 5  # phe_tpu/models/federated.py's default
 
 # Fixed 2048-bit key (the repository's benchmark key).
 P = int(
@@ -121,18 +142,407 @@ def mont_mul_bound(rows, L, shared):
                     int32_ops=0 if shared else rows * L * L)
 
 
-def ladder_bound(rows, k, n_windows, window):
+def ladder_bound(rows, k, n_windows, window, vec=False):
     """RNS ladder: per Montgomery product and element, two base extensions
     of 3(k+8) x 2k int8 multiply-adds, and the channel arithmetic: about
     cpad + 31k + 65(k+8) int32 operations (channel product; sigma with its
     Barrett reduction and digits; q^ and u~ with two digit recombinations
-    and three Barrett reductions; S, the beta fold and its reduction)."""
+    and three Barrett reductions; S, the beta fold and its reduction).
+    Bytes: the int64 residue rows in and out, the constant rows, the
+    digits (int64 [n_windows], or int8 [rows, n_windows] with vec) and
+    both extension matrices, each read once."""
     cpad, K1 = 2 * k + 8, k + 8
     products = 2 + (2**window - 2) + n_windows * (window + 1)
     int8 = rows * products * 2 * (3 * K1) * (2 * k)
     int32 = rows * products * (cpad + 31 * k + 65 * K1)
-    nbytes = 8 * (2 * rows * cpad + 12 * cpad + n_windows) + 2 * 3 * K1 * 2 * k
+    digit_bytes = rows * n_windows if vec else 8 * n_windows
+    nbytes = (8 * (2 * rows * cpad + 12 * cpad) + digit_bytes
+              + 2 * 3 * K1 * 2 * k)
     return bound_ms(nbytes, int8_macs=int8, int32_ops=int32)
+
+
+def mont_pow_bound(rows, L, products, digit_bytes):
+    """Windowed limb-engine modexp: `products` two-operand Montgomery
+    products per row, each counted as mont_mul_bound counts one (12 L^2
+    int8 multiply-adds for REDC, L^2 int32 for a*b). Bytes: the int64 base
+    rows in and out, M, M' and R mod M, the digits and the REDC digit
+    matrices, each read once."""
+    nbytes = 8 * (2 * rows * L + 3 * L) + digit_bytes + 12 * L * L
+    return bound_ms(nbytes, int8_macs=rows * products * 12 * L * L,
+                    int32_ops=rows * products * L * L)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def _counters():
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+
+    return cuda_modexp.launches, cuda_rns.launches
+
+
+def reset_launches():
+    for counts in _counters():
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches():
+    """The non-zero launch counts of every kernel wrapper."""
+    return {k: v for counts in _counters() for k, v in counts.items() if v}
+
+
+def run_step(fn, totals):
+    """One main-path step: counts zeroed just before it, read just after.
+
+    Returns (result, host seconds, launch counts) and adds the counts to
+    totals. fn's device work ends in a synchronise before the clock stops.
+    """
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    for key, v in counts.items():
+        totals[key] = totals.get(key, 0) + v
+    return out, seconds, counts
+
+
+def expect_launches(step, counts, want):
+    check(counts == want, "%s launched %s, expected %s"
+          % (step, json.dumps(counts), json.dumps(want)))
+
+
+def tree_depth(rows):
+    """Montgomery-product launches of a tree fold over rows (batch._tree_fold)."""
+    return (rows - 1).bit_length()
+
+
+def inverse_launches(rows, chunk):
+    """(mont_mul, mont_mul_const) launches of EncryptedBatch.inverse_mont
+    over rows bucketed rows: per chunk, the log-depth scan's levels and the
+    exclusive product, then the total's export, its inverse's packing and
+    the finishing product."""
+    mm = mc = 0
+    for lo in range(0, rows, chunk):
+        mm += tree_depth(min(chunk, rows - lo)) + 1
+        mc += 3
+    return mm, mc
+
+
+def check_vec_kernels(pub, dev, rng):
+    """Phase 2, the per-element-exponent kernels against their plain
+    versions at the arithmetic path's shapes; {kernel name: record}."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.ops import rns
+    from phe_tpu_torch.utils import limbs as hl
+
+    dc = pub.device_context(dev)
+    st, ctx, L, N = dc.rns_state(), dc.ctx, dc.L, pub.nsquare
+    R = 1 << (14 * L)
+    R_inv = pow(R, -1, N)
+    few = PLAIN_VEC_ROWS
+    out = {}
+
+    def host_timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    def canonical_err(got, ref):
+        """max |canonical(got) - canonical(ref)| over the limbs, on the card:
+        both are < 1.01 M, so their canonical forms are the values mod M."""
+        return int((mg.export_canonical(got, ctx)
+                    - mg.export_canonical(ref, ctx)).abs().max())
+
+    # rns_ladder_vec: mul_scalars' shape (65,536 rows of 64-bit schedules,
+    # window 4) on Montgomery-domain operands, entry M_A^2 R^-1, exit R.
+    rows = MUL_ROWS
+    xs = [rng.randrange(0, N) for _ in range(rows)]
+    es = [rng.getrandbits(64) for _ in range(rows - 3)] + [0, 1, (1 << 64) - 1]
+    digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
+    n_windows = digits.shape[1]
+    x_res = rns.to_rns(mg._tensor(hl.ints_to_limbs(xs, L), dev), st.conv,
+                       st.rsys).contiguous()
+    run = lambda x, d: cuda_rns.ladder_vec(x, d, st.rsys,
+                                           entry_res=st.entry_mont,
+                                           exit_res=st.exit_r)
+    got = run(x_res, digits)
+    head, dhead = x_res[:few].contiguous(), digits[:few].contiguous()
+    ref, plain_ms = host_timed(lambda: rns.ladder_vec_plain(
+        head, dhead, st.rsys, entry_res=st.entry_mont, exit_res=st.exit_r))
+    check(torch.equal(got[:few], ref), "rns_ladder_vec: kernel residues "
+          "differ from the plain version")
+    tail = list(range(4)) + [rows - 3, rows - 2, rows - 1]
+    vals = hl.limbs_to_ints(rns.from_rns(got[tail], st.rsys).cpu().numpy())
+    for i, v in zip(tail, vals):
+        check(v % N == pow(xs[i] * R_inv, es[i], N) * R % N,
+              "rns_ladder_vec: value differs from Python pow")
+    ms = cuda_ms(lambda: run(x_res, digits), 1, warm=False)
+    ms_few = cuda_ms(lambda: run(head, dhead), 1)
+    bms, by = ladder_bound(rows, st.rsys.k, n_windows, 4, vec=True)
+    select_ms = 1e3 * (rows * n_windows * 16 * st.rsys.cpad * 4
+                       / HBM_BYTES_PER_S)
+    print("rns_ladder_vec k=%d windows=%d: bit-equal on %d rows, Python pow "
+          "on %d; kernel %.3f ms at %d rows (%.3f ms at %d), plain %.3f ms "
+          "at %d, bound %.3f ms at %d (%s); the table select's reads alone "
+          "%.3f ms at HBM rate"
+          % (st.rsys.k, n_windows, few, len(tail), ms, rows, ms_few, few,
+             plain_ms, few, bms, rows, by, select_ms))
+    out["rns_ladder_vec"] = dict(
+        k=st.rsys.k, rows=rows, max_abs_err=int((got[:few] - ref).abs().max()),
+        ms=ms, plain_ms=plain_ms, plain_rows=few, ms_at_plain_rows=ms_few,
+        bound_ms=bms, bound_by=by, select_bytes_ms=select_ms)
+    del x_res, got, ref
+
+    # mont_pow: short obfuscation's h^a, 320-bit exponents, window 4.
+    rows = BATCH
+    xs = [rng.randrange(0, 2 * N) for _ in range(rows)]
+    es = ([rng.getrandbits(SHORT_BITS) for _ in range(rows - 2)]
+          + [0, (1 << SHORT_BITS) - 1])
+    base = mg._tensor(hl.ints_to_limbs(xs, L), dev)
+    digits = torch.as_tensor(tbatch._digits_rows(es, SHORT_BITS), device=dev)
+    n_windows = digits.shape[1]
+    got = cuda_modexp.mont_pow(base, digits, ctx)
+    ref, plain_ms = host_timed(lambda: mg.mont_pow_plain(
+        base[:few], digits[:few], ctx))
+    err = canonical_err(got[:few], ref)
+    check(err == 0, "mont_pow: kernel value mod M differs from the plain "
+          "version")
+    g = hl.limbs_to_ints(got.cpu().numpy())
+    check(int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+          and all(100 * v < 101 * N for v in g),
+          "mont_pow: limbs outside [0, 2^14] or value not below 1.01 M")
+    for i in list(range(4)) + [rows - 2, rows - 1]:
+        check(g[i] % N == pow(xs[i] * R_inv, es[i], N) * R % N,
+              "mont_pow: value differs from Python pow")
+    ms = cuda_ms(lambda: cuda_modexp.mont_pow(base, digits, ctx), 1,
+                 warm=False)
+    products = (2**4 - 2) + n_windows * 5
+    bms, by = mont_pow_bound(rows, L, products, rows * n_windows)
+    print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
+          "6; kernel %.3f ms at %d rows, plain %.3f ms at %d, bound %.3f ms "
+          "(%s, %d products a row)"
+          % (L, n_windows, few, ms, rows, plain_ms, few, bms, by, products))
+    out["mont_pow"] = dict(L=L, rows=rows, max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, plain_rows=few, bound_ms=bms,
+                           bound_by=by, products=products)
+    del base, got, ref
+
+    # mont_pow_shared: h = x^n, one row per key (window 5), and 128 rows.
+    rows = SHARED_POW_ROWS
+    xs = [rng.randrange(0, 2 * N) for _ in range(rows)]
+    base = mg._tensor(hl.ints_to_limbs(xs, L), dev)
+    ndig = dc.n_digits
+    run = lambda b: cuda_modexp.mont_pow_shared(b, ndig, ctx, window=5)
+    got, one = run(base), run(base[:1].contiguous())
+    ref1, plain_ms = host_timed(lambda: mg.mont_pow_shared_plain(
+        base[:1], ndig, ctx, window=5))
+    ref, plain_ms_rows = host_timed(lambda: mg.mont_pow_shared_plain(
+        base, ndig, ctx, window=5))
+    err = max(canonical_err(one, ref1), canonical_err(got, ref),
+              canonical_err(got[:1], one))
+    check(err == 0, "mont_pow_shared: kernel value mod M differs from the "
+          "plain version")
+    g = hl.limbs_to_ints(got.cpu().numpy())
+    check(int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+          and all(100 * v < 101 * N for v in g),
+          "mont_pow_shared: limbs outside [0, 2^14] or value not below 1.01 M")
+    for i in range(4):
+        check(g[i] % N == pow(xs[i] * R_inv, pub.n, N) * R % N,
+              "mont_pow_shared: value differs from Python pow")
+    ms = cuda_ms(lambda: run(base[:1].contiguous()), 3)
+    ms_rows = cuda_ms(lambda: run(base), 1, warm=False)
+    products = (2**5 - 2) + len(ndig) * 6
+    bms, by = mont_pow_bound(1, L, products, 8 * len(ndig))
+    print("mont_pow_shared L=%d windows=%d: value-equal on 1 and %d rows, "
+          "Python pow on 4; kernel %.3f ms at 1 row (%.3f ms at %d), plain "
+          "%.3f ms at 1 row (%.3f ms at %d), bound %.4f ms at 1 row (%s, "
+          "%d products)" % (L, len(ndig), rows, ms, ms_rows, rows, plain_ms,
+                            plain_ms_rows, rows, bms, by, products))
+    out["mont_pow_shared"] = dict(
+        L=L, rows=1, max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_rows=1,
+        ms_at_128_rows=ms_rows, plain_ms_at_128_rows=plain_ms_rows,
+        bound_ms=bms, bound_by=by, products=products)
+    return out
+
+
+def arithmetic_path(pub, priv, dev, card, totals):
+    """Phase 4: the homomorphic algebra and the two applications through
+    their entry points, each step checked exactly against the host.
+    Returns {step: rate}."""
+    from fractions import Fraction
+
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.models import (
+        EncryptedScorer,
+        FederatedClient,
+        aggregate_encrypted_gradients,
+    )
+
+    g = np.random.default_rng(SEED + 4)
+    dc = pub.device_context(dev)
+    nsq = pub.nsquare
+    chunk = EncryptedBatch._INVERSE_CHUNK
+    rates = {}
+
+    def floats(lo, hi, rows):
+        return [float(v) for v in g.uniform(lo, hi, rows)]
+
+    def report(step, rows, seconds, counts):
+        rates[step] = rows / seconds
+        print("%s: %d rows in %.4f s, %.1f rows/s; launches %s [%s]"
+              % (step, rows, seconds, rows / seconds, json.dumps(counts),
+                 card))
+
+    def decrypt_all(batch):
+        """Decrypt in BATCH-row slices (the decrypt ladders' scratch grows
+        with the rows)."""
+        out = []
+        for lo in range(0, len(batch), BATCH):
+            part = EncryptedBatch(pub, batch.mont[lo : lo + BATCH],
+                                  batch.exponents[lo : lo + BATCH])
+            out += part.decrypt(priv)
+        return out
+
+    def exact_sum(terms):
+        return float(sum(terms, Fraction(0)))
+
+    # add at equal exponents: one list for both operands (bench.py's add).
+    xs = floats(-1e6, 1e6, ADD_ROWS)
+    ct = EncryptedBatch.encrypt(pub, xs, obfuscation="none", device=dev)
+    ct2 = EncryptedBatch.encrypt(pub, xs, obfuscation="none", device=dev)
+    s, sec, n = run_step(lambda: ct + ct2, totals)
+    expect_launches("add", n, {"mont_mul": 1})
+    report("add, equal exponents", ADD_ROWS, sec, n)
+    check(decrypt_all(s) == [x + x for x in xs], "add: decrypt(x + x) != x + x")
+    idx = sorted(random.Random(SEED).sample(range(ADD_ROWS),
+                                              min(256, ADD_ROWS)))
+    c1, c2 = dc.export_ints(ct.mont[idx]), dc.export_ints(ct2.mont[idx])
+    check(dc.export_ints(s.mont[idx]) == [a * b % nsq for a, b in zip(c1, c2)],
+          "add: ciphertexts differ from the host's c1 c2 mod n^2")
+    del ct, ct2, s
+
+    # add with alignment on both sides, add_scalars, mul_scalars.
+    xa, yb = floats(-1e6, 1e6, MUL_ROWS), floats(-1e-3, 1e-3, MUL_ROWS)
+    a = EncryptedBatch.encrypt(pub, xa, obfuscation="none", device=dev)
+    b = EncryptedBatch.encrypt(pub, yb, obfuscation="none", device=dev)
+    s, sec, n = run_step(lambda: a + b, totals)
+    expect_launches("add aligned", n, {"rns_ladder_vec": 2, "mont_mul": 1})
+    report("add, aligned", MUL_ROWS, sec, n)
+    check(decrypt_all(s) == [x + y for x, y in zip(xa, yb)],
+          "aligned add: decrypt(x + y) != x + y")
+    sc = floats(-1e-3, 1e-3, MUL_ROWS)
+    s, sec, n = run_step(lambda: a + sc, totals)
+    expect_launches("add_scalars", n, {"rns_ladder_vec": 1,
+                                       "mont_mul_const": 1, "mont_mul": 1})
+    report("add_scalars, aligned", MUL_ROWS, sec, n)
+    check(decrypt_all(s) == [x + y for x, y in zip(xa, sc)],
+          "add_scalars: decrypt(x + s) != x + s")
+    sc = floats(-100.0, 100.0, MUL_ROWS)
+    s, sec, n = run_step(lambda: a * sc, totals)
+    mm, mc = inverse_launches(a.mont.shape[0], chunk)
+    expect_launches("mul_scalars", n, {"rns_ladder_vec": 1, "mont_mul": mm,
+                                       "mont_mul_const": mc})
+    report("mul_scalars, mixed sign", MUL_ROWS, sec, n)
+    check(decrypt_all(s) == [x * y for x, y in zip(xa, sc)],
+          "mul_scalars: decrypt(x * s) != x * s")
+    del a, b, s
+
+    # sum and dot at mixed exponents.
+    xs = [float(v) for v in 10.0 ** g.uniform(-3, 6, BATCH)
+          * g.choice([-1.0, 1.0], BATCH)]
+    e = EncryptedBatch.encrypt(pub, xs, obfuscation="none", device=dev)
+    s, sec, n = run_step(e.sum, totals)
+    expect_launches("sum", n, {"rns_ladder_vec": 1,
+                               "mont_mul": tree_depth(BATCH)})
+    report("sum, mixed exponents", BATCH, sec, n)
+    check(s.decrypt(priv) == [exact_sum(map(Fraction, xs))],
+          "sum: not the exactly rounded sum")
+    w = floats(-100.0, 100.0, BATCH)
+    s, sec, n = run_step(lambda: e.dot(w), totals)
+    mm, mc = inverse_launches(e.mont.shape[0], chunk)
+    expect_launches("dot", n, {"rns_ladder_vec": 2,
+                               "mont_mul": mm + tree_depth(BATCH),
+                               "mont_mul_const": mc})
+    report("dot, mixed exponents and signs", BATCH, sec, n)
+    check(s.decrypt(priv) == [exact_sum(Fraction(x) * Fraction(y)
+                                        for x, y in zip(xs, w))],
+          "dot: not the exactly rounded dot product")
+    del e, s
+
+    # Encrypted logistic-regression scoring (models/logreg.py).
+    coef = g.normal(size=LR_FEATURES)
+    intercept = float(g.normal())
+    X = g.normal(size=(LR_EXAMPLES, LR_FEATURES))
+    scorer = EncryptedScorer.from_model(pub, coef, intercept, device=dev)
+    s, sec, n = run_step(lambda: scorer.encrypted_scores(X), totals)
+    D = LR_FEATURES + 1
+    mm, mc = inverse_launches(scorer.weights.mont.shape[0], chunk)
+    expect_launches("LR scoring", n, {"rns_ladder_vec": 1,
+                                      "mont_mul": mm + tree_depth(D),
+                                      "mont_mul_const": mc})
+    report("LR scoring, %d x %d grid" % (LR_EXAMPLES, D), LR_EXAMPLES * D,
+           sec, n)
+    weights = [Fraction(float(v)) for v in coef] + [Fraction(intercept)]
+    check(s.decrypt(priv) == [
+        exact_sum(Fraction(x) * wt for x, wt in zip(list(row) + [1.0],
+                                                    weights))
+        for row in X.tolist()], "LR scoring: not the exactly rounded X w + b")
+
+    # Federated aggregation (models/federated.py), per-client magnitudes
+    # 1e-6 ... 1e6, so the exponents align.
+    clients = [
+        FederatedClient("client%d" % c, g.normal(size=(4, BATCH)),
+                        g.normal(size=4) * 10.0 ** (3 * c - 6), pub,
+                        device=dev)
+        for c in range(FL_CLIENTS)
+    ]
+    grads = [c.gradient() for c in clients]
+    encrypted = [c.encrypted_gradient() for c in clients]
+    s, sec, n = run_step(lambda: aggregate_encrypted_gradients(encrypted),
+                         totals)
+    check(n.get("mont_mul") == tree_depth(FL_CLIENTS)
+          and 1 <= n.get("rns_ladder_vec", 0) <= FL_CLIENTS
+          and set(n) == {"mont_mul", "rns_ladder_vec"},
+          "FL aggregation launched %s" % json.dumps(n))
+    report("FL aggregation, %d x %d" % (FL_CLIENTS, BATCH),
+           FL_CLIENTS * BATCH, sec, n)
+    check(decrypt_all(s) == [exact_sum(Fraction(float(gr[d])) for gr in grads)
+                             for d in range(BATCH)],
+          "FL aggregation: not the exactly rounded column sums")
+    del encrypted, s
+
+    # Short-obfuscated encryption: the key's first batch also draws h.
+    xs = floats(-1e6, 1e6, BATCH)
+    enc = lambda: EncryptedBatch.encrypt(pub, xs, obfuscation="short",
+                                         device=dev)
+    check(dc._h_mont is None, "short obfuscation's h was drawn before")
+    first, sec, n = run_step(enc, totals)
+    expect_launches("short encrypt, first batch", n, {
+        "mont_mul_const": 2, "mont_pow_shared": 1, "mont_pow": 1,
+        "mont_mul": 1})
+    report("short encrypt, first batch", BATCH, sec, n)
+    second, sec, n = run_step(enc, totals)
+    expect_launches("short encrypt", n, {"mont_mul_const": 1, "mont_pow": 1,
+                                         "mont_mul": 1})
+    report("short encrypt", BATCH, sec, n)
+    check(first.decrypt(priv) == xs and second.decrypt(priv) == xs,
+          "short encrypt: decrypt(encrypt(x)) != x")
+    nude = EncryptedBatch.encrypt(pub, xs[:64], obfuscation="none",
+                                  device=dev).ciphertext_ints(False)
+    for batch in (first, second):
+        got = dc.export_ints(batch.mont[:64])
+        check(all(x != y for x, y in zip(got, nude)),
+              "short encrypt: a ciphertext equals its nude encryption")
+    return rates
 
 
 def main():
@@ -282,6 +692,7 @@ def main():
         check_ladder(rsys_p, conv_p, L2, pdc.consts.dp_digits, E_p,
                      priv.psquare),
     ]
+    vec_checks = check_vec_kernels(pub, dev, rng)
 
     # -- 3. the main path --------------------------------------------------
     vals_rng = np.random.default_rng(SEED)
@@ -289,21 +700,19 @@ def main():
     warm = EncryptedBatch.encrypt(pub, values, device=dev)
     check(warm.decrypt(priv) == values, "warm-up round trip failed")
 
-    counts = [cuda_modexp.launches, cuda_rns.launches]
-    for c in counts:
-        for key in c:
-            c[key] = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch = EncryptedBatch.encrypt(pub, values, device=dev)
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
-    enc_counts = {k: v for c in counts for k, v in c.items()}
+    enc_counts = read_launches()
     t0 = time.perf_counter()
     decrypted = batch.decrypt(priv)
     t_dec = time.perf_counter() - t0
-    total = {k: v for c in counts for k, v in c.items()}
-    dec_counts = {k: total[k] - enc_counts[k] for k in total}
+    total = read_launches()
+    dec_counts = {k: v - enc_counts.get(k, 0) for k, v in total.items()
+                  if v - enc_counts.get(k, 0)}
 
     check(len(decrypted) == BATCH and decrypted == values,
           "decrypt(encrypt(x)) != x for %d of %d rows" % (
@@ -341,21 +750,36 @@ def main():
     check(fresh.decrypt(priv) == few, "secure batch does not decrypt")
     print("secure export round trip of %d: ok" % len(few))
 
+    # -- 4. the arithmetic path --------------------------------------------
+    path_launches = dict(total)
+    rates = arithmetic_path(pub, priv, dev, card, path_launches)
+    print(json.dumps({"arithmetic_rows_per_s": rates, "card": card}))
+
     src = {"mont_mul": "phe_tpu_torch/csrc/mont_mul.cu",
            "mont_mul_const": "phe_tpu_torch/csrc/mont_mul.cu",
-           "rns_ladder": "phe_tpu_torch/csrc/rns_ladder.cu"}
+           "rns_ladder": "phe_tpu_torch/csrc/rns_ladder.cu",
+           "rns_ladder_vec": "phe_tpu_torch/csrc/rns_ladder.cu",
+           "mont_pow_shared": "phe_tpu_torch/csrc/mont_pow.cu",
+           "mont_pow": "phe_tpu_torch/csrc/mont_pow.cu"}
     replaces = {"mont_mul": "phe_tpu/ops/pallas_modexp.py:378",
                 "mont_mul_const": "phe_tpu/ops/pallas_modexp.py:434",
-                "rns_ladder": "phe_tpu/ops/pallas_rns.py:234"}
+                "rns_ladder": "phe_tpu/ops/pallas_rns.py:234",
+                "rns_ladder_vec": "phe_tpu/ops/pallas_rns.py:447",
+                "mont_pow_shared": "phe_tpu/ops/pallas_modexp.py:302",
+                "mont_pow": "phe_tpu/ops/pallas_modexp.py:570"}
     checks = {"mont_mul": mul_checks["mont_mul"],
               "mont_mul_const": mul_checks["mont_mul_const"],
               "rns_ladder": ladder_checks}
+    checks.update({name: [c] for name, c in vec_checks.items()})
+    for name in src:
+        check(path_launches.get(name, 0) > 0,
+              "%s was not launched on the main path" % name)
     record = {"kernels": []}
-    for name in ("mont_mul", "mont_mul_const", "rns_ladder"):
-        first = checks[name][0]  # the widest geometry: n^2
+    for name in src:
+        first = checks[name][0]  # the main path's widest geometry
         record["kernels"].append({
             "name": name, "route": "cuda", "source": src[name],
-            "replaces": replaces[name], "launches": total[name],
+            "replaces": replaces[name], "launches": path_launches[name],
             "max_abs_err": max(x["max_abs_err"] for x in checks[name]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -1,15 +1,17 @@
-// Shared-exponent windowed RNS Montgomery exponentiation ladder.
+// Windowed RNS Montgomery exponentiation ladder, with the exponent shared by
+// the batch or one exponent per element.
 //
 // Replaces phe_tpu/ops/pallas_rns.py: ladder_cols (:177-244), whose kernel
-// body is _ladder_kernel (:62-174). The arithmetic is rns.rns_mont_mul's
-// fused tau-domain Cox-Rower product (phe_tpu/ops/rns.py and
-// phe_tpu_torch/ops/rns.py derive it and every bound): 28-bit channel
+// body is _ladder_kernel (:62-174), and ladder_vec_cols (:394-460), whose
+// body is _ladder_vec_kernel (:265-391). The arithmetic is
+// rns.rns_mont_mul's fused tau-domain Cox-Rower product (phe_tpu/ops/rns.py
+// and phe_tpu_torch/ops/rns.py derive it and every bound): 28-bit channel
 // products split h * 2^14 + l, steps=3 Barrett reductions, two int8 digit
 // base extensions (w_ext1, w_ext2, [3(k+8), 2k]) with digit-block
 // recombination, and the Shenoy-Kumaresan beta from the redundant channel.
 // Every residue is canonical, so this computes exactly the integers of the
-// plain PyTorch ladder (phe_tpu_torch.ops.rns.ladder_plain): the two are
-// held bit-equal.
+// plain PyTorch ladders (phe_tpu_torch.ops.rns.ladder_plain and
+// ladder_vec_plain): the two are held bit-equal.
 //
 // Per element: an entry product with the entry constant, a 2^w-entry
 // table (tab[0] = 1, tab[1] = xd, tab[j] = tab[j-1] * xd), n_windows
@@ -26,6 +28,20 @@
 // the matrix pre-packed as [2k/4, 3(k+8)] int32 so that neighbouring
 // threads read neighbouring words, the element's digits broadcast from
 // shared memory.
+//
+// Per-element exponents (ladder_vec): each element reads its own digit,
+// [B, n_windows] int8 in device memory, masked to the window. The table
+// factor is selected in constant time, as _ladder_vec_kernel's select
+// tree (:366-385) is: every one of the 2^w rows is read and the wanted
+// one kept by a mask, with no address or branch that depends on the
+// digit, so the factor is exactly tab[d]. That costs 2^w table rows per
+// window instead of one: 16 * cpad * 4 = 39 KB per element at w = 4,
+// k = 304, against the w + 1 = 5 products of the window, each of which
+// runs 2 * 3(k+8) * 2k = 1.14 M int8 multiply-adds per element. At the
+// H100's 3.35 TB/s those bytes take about 4 % of the kernel's time (12 ms
+// of 313 ms over 65,536 elements with 64-bit exponents, PERF.md). The
+// select sits outside Ladder::montmul, so the shared-exponent form runs
+// the same product code as without it.
 //
 // What bounds it on an H100: the extension matrices. Each product reads
 // both (1.14 MB of int8 at k = 304) from L2, once per block, and runs
@@ -201,12 +217,15 @@ struct Ladder {
   }
 };
 
+// kVec = false: digits is int64 [n_windows], shared by the batch.
+// kVec = true: digits is int8 [B, n_windows], one schedule per element.
+template <bool kVec>
 __global__ void __launch_bounds__(kMaxThreads)
 rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
                   unsigned int* __restrict__ table, int B, int k, int cpad,
                   Rows rows, const int64_t* __restrict__ mbinv,
                   const int* __restrict__ w1p, const int* __restrict__ w2p,
-                  const int64_t* __restrict__ digits, int n_windows,
+                  const void* __restrict__ digits, int n_windows,
                   int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Ladder ld_;
@@ -269,11 +288,38 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   }
   __syncthreads();
   for (int wi = 0; wi < n_windows; ++wi) {
-    // Digits come from the host schedule, in [0, 2^window); the mask keeps
-    // any other value inside this element's table.
-    const int d = static_cast<int>(digits[wi]) & ((1 << window) - 1);
-    for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
-    ld_.montmul(kYTable, tab, tstride, d, nullptr);
+    if (!kVec) {
+      // Digits come from the host schedule, in [0, 2^window); the mask keeps
+      // any other value inside this element's table.
+      const int d = static_cast<int>(static_cast<const int64_t*>(digits)[wi]) &
+                    ((1 << window) - 1);
+      for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
+      ld_.montmul(kYTable, tab, tstride, d, nullptr);
+    } else {
+      for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
+      // Each element's own digit, masked to the window, selects its factor
+      // in constant time: every table row is read and the wanted one kept
+      // by a mask, with no address or branch that depends on the digit.
+      // The factor goes to raw, which the product reads as a one-row table
+      // (each thread reads y = raw[idx] before it overwrites raw[idx]).
+      const uint8_t* dg = static_cast<const uint8_t*>(digits);
+      const unsigned int mask = (1u << window) - 1;
+      for (int idx = tid; idx < kElems * cpad; idx += nt) {
+        const int e = idx / cpad, c = idx - e * cpad;
+        const size_t el = e0 + e;
+        const unsigned int d =
+            el < static_cast<size_t>(B) ? dg[el * n_windows + wi] & mask : 0u;
+        const unsigned int* col = tab + e * tstride + c;
+        unsigned int y = 0;
+        for (int j = 0; j < (1 << window); ++j) {
+          y |= col[static_cast<size_t>(j) * cpad] &
+               (0u - static_cast<unsigned int>(static_cast<unsigned int>(j) == d));
+        }
+        ld_.raw[idx] = y;
+      }
+      __syncthreads();
+      ld_.montmul(kYTable, ld_.raw, cpad, 0, nullptr);
+    }
   }
   // Leave the domain through the exit constant.
   ld_.montmul(kYConst, nullptr, 0, 0, exitc);
@@ -284,6 +330,26 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
       out[(e0 + e) * cpad + c] = static_cast<int64_t>(acc[idx]);
     }
   }
+}
+
+template <bool kVec>
+int launch(const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
+           int cpad, const Rows& rows, const int64_t* mbinv, const int* w1p,
+           const int* w2p, const void* digits, int n_windows, int window,
+           cudaStream_t stream) {
+  const size_t smem = kElems * (2 * cpad * sizeof(unsigned int) + 2 * k) +
+                      kElems * sizeof(unsigned int);
+  cudaError_t err = cudaFuncSetAttribute(
+      rns_ladder_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int threads = (k + 8 + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const int blocks = (B + kElems - 1) / kElems;
+  rns_ladder_kernel<kVec><<<blocks, threads, smem, stream>>>(
+      x, out, table, B, k, cpad, rows, mbinv, w1p, w2p, digits, n_windows,
+      window);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -302,21 +368,26 @@ extern "C" int phe_rns_ladder(
     const int64_t* one_dom, const int64_t* entry, const int64_t* exitc,
     const int64_t* mbinv, const int* w1p, const int* w2p,
     const int64_t* digits, int n_windows, int window, cudaStream_t stream) {
-  const size_t smem = kElems * (2 * cpad * sizeof(unsigned int) + 2 * k) +
-                      kElems * sizeof(unsigned int);
-  cudaError_t err = cudaFuncSetAttribute(
-      rns_ladder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Rows rows{m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom,
                   entry, exitc};
-  int threads = (k + 8 + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const int blocks = (B + kElems - 1) / kElems;
-  rns_ladder_kernel<<<blocks, threads, smem, stream>>>(
-      x, out, table, B, k, cpad, rows, mbinv, w1p, w2p, digits, n_windows,
-      window);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, out, table, B, k, cpad, rows, mbinv, w1p, w2p,
+                       digits, n_windows, window, stream);
+}
+
+// As phe_rns_ladder, with digits: [B, n_windows] int8, one MSB-first
+// schedule per element.
+extern "C" int phe_rns_ladder_vec(
+    const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
+    int cpad, const int64_t* m, const int64_t* mu, const int64_t* t14,
+    const int64_t* sig1, const int64_t* sig2, const int64_t* d1,
+    const int64_t* d2, const int64_t* e1, const int64_t* neg_mb,
+    const int64_t* one_dom, const int64_t* entry, const int64_t* exitc,
+    const int64_t* mbinv, const int* w1p, const int* w2p,
+    const int8_t* digits, int n_windows, int window, cudaStream_t stream) {
+  const Rows rows{m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom,
+                  entry, exitc};
+  return launch<true>(x, out, table, B, k, cpad, rows, mbinv, w1p, w2p,
+                      digits, n_windows, window, stream);
 }
 
 // Elements per block: the wrapper sizes the table scratch with it.

@@ -15,7 +15,11 @@ digit matrices stay int8.
 import numpy as np
 import torch
 
-from phe_tpu_torch.batch import EncryptedBatch, PrivateDeviceConstants
+from phe_tpu_torch.batch import (
+    EncryptedBatch,
+    PrivateDeviceConstants,
+    RnsPubState,
+)
 from phe_tpu_torch.ops import montgomery as mg
 from phe_tpu_torch.ops import rns
 
@@ -63,6 +67,18 @@ def rns_system(d, device):
 
 def rns_conversion(d, device):
     return rns.RNSConversion(w=_t(d["w"], device), comp=_t(d["comp"], device))
+
+
+def rns_pub_state(d, device):
+    """phe_tpu RnsPubState (entry_mont included), nested structures as
+    dicts."""
+    return RnsPubState(
+        rsys=rns_system(d["rsys"], device),
+        conv=rns_conversion(d["conv"], device),
+        entry_mont=_t(d["entry_mont"], device),
+        exit_r=_t(d["exit_r"], device),
+        red=excess_reducer(d["red"], device),
+    )
 
 
 def private_device_constants(d, device):

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds. Libraries are built at first use, from the
 package's own sources only, into ``config.build_dir()``, under a name that
-carries the hash of the source and the flags: a changed source rebuilds. A
-failed build raises with the compiler's output; nothing falls back.
+carries the hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags: a changed source or header rebuilds. A failed build raises with
+the compiler's output; nothing falls back.
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them, so a cold start costs the slowest build, not the sum.
@@ -19,7 +20,7 @@ import subprocess
 
 from phe_tpu_torch import config
 
-SOURCES = ("mont_mul", "rns_ladder")
+SOURCES = ("mont_mul", "mont_pow", "rns_ladder")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,8 +44,11 @@ def _nvcc():
 def _paths(name):
     """(source path, library path, log path) for one kernel source."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     tag = digest.hexdigest()[:16]
     out = os.path.join(config.build_dir(), "%s-%s" % (name, tag))
     return src, out + ".so", out + ".log"

@@ -1,12 +1,15 @@
-"""The RNS ladder: the CUDA kernel and the dispatch to its plain version.
+"""The RNS ladders: the CUDA kernel and the dispatch to its plain versions.
 
-The counterpart of phe_tpu/ops/pallas_rns.py's ``ladder_cols``. ``ladder``
-launches the kernel of ``csrc/rns_ladder.cu`` for residues on the card and
-runs the plain PyTorch version, ``rns.ladder_plain``, for residues on the
-CPU; any other device raises. Every residue is canonical, so the two are
-bit-equal: the same integers at every step.
+The counterpart of phe_tpu/ops/pallas_rns.py's ``ladder_cols`` (exponent
+shared by the batch) and ``ladder_vec_cols`` (one exponent per element).
+``ladder`` and ``ladder_vec`` launch the kernel of ``csrc/rns_ladder.cu``
+for residues on the card and run the plain PyTorch versions,
+``rns.ladder_plain`` and ``rns.ladder_vec_plain``, for residues on the CPU;
+any other device raises. Every residue is canonical, so kernel and plain
+version are bit-equal: the same integers at every step.
 
-``launches`` counts the kernel launches; nothing else changes it.
+``launches`` counts the kernel launches of each form; nothing else changes
+it.
 """
 
 import ctypes
@@ -17,7 +20,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from phe_tpu_torch.ops import _build
 from phe_tpu_torch.ops import rns
 
-launches = {"rns_ladder": 0}
+launches = {"rns_ladder": 0, "rns_ladder_vec": 0}
 
 # The system's [cpad] int64 rows the kernel reads, in its argument order.
 _ROWS = ("m", "mu", "t14", "sig1", "sig2", "d1", "d2", "e1", "neg_mb",
@@ -27,18 +30,19 @@ _ROWS = ("m", "mu", "t14", "sig1", "sig2", "d1", "d2", "e1", "neg_mb",
 _packed = WeakIdKeyDictionary()
 
 
-def _lib():
+def _lib(vec):
     lib = _build.load("rns_ladder")
-    fn = lib.phe_rns_ladder
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * (len(_ROWS) + 6)
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+    if lib.phe_rns_ladder_elems.argtypes is None:
+        for fn in (lib.phe_rns_ladder, lib.phe_rns_ladder_vec):
+            fn.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * (len(_ROWS) + 6)
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
         lib.phe_rns_ladder_elems.restype = ctypes.c_int
         lib.phe_rns_ladder_elems.argtypes = []
+    fn = lib.phe_rns_ladder_vec if vec else lib.phe_rns_ladder
     return fn, lib.phe_rns_ladder_elems()
 
 
@@ -74,6 +78,25 @@ def _digits_on(digits, window, dev):
     return digits.contiguous()
 
 
+def _digit_rows_on(digits, window, rows, dev):
+    """Per-element schedules as contiguous int8 [rows, n_windows] on dev.
+
+    Schedules from the host are range-checked before their upload; one
+    already on the card (the wire form of batch._digits_rows) is taken as
+    it is, and the kernel masks each digit to the window.
+    """
+    if not (isinstance(digits, torch.Tensor) and digits.device == dev):
+        host = torch.as_tensor(digits, device="cpu")
+        if not bool(((host >= 0) & (host < (1 << window))).all()):
+            raise ValueError("digits must lie in [0, 2^window)")
+        digits = host.to(torch.int8).to(dev)
+    if digits.dtype != torch.int8 or digits.dim() != 2 or (
+            digits.shape[0] != rows):
+        raise ValueError("digits must be int8 [%d, n_windows], got %s %s"
+                         % (rows, digits.dtype, tuple(digits.shape)))
+    return digits.contiguous()
+
+
 def _row(t, name, C, dev):
     if t.device != dev or t.dtype != torch.int64 or tuple(t.shape) != (C,):
         raise ValueError("%s must be int64 [%d] on %s, got %s %s on %s"
@@ -83,7 +106,7 @@ def _row(t, name, C, dev):
     return t.data_ptr()
 
 
-def _launch(x_res, digits, sys_, window, exit_res, entry_res):
+def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec):
     dev = x_res.device
     C, k = sys_.cpad, sys_.k
     if x_res.dim() != 2 or x_res.shape[1] != C:
@@ -94,7 +117,10 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res):
         raise TypeError("x_res must be contiguous int64")
     if not 1 <= window <= 8:
         raise ValueError("window must be in [1, 8], got %d" % window)
-    digits = _digits_on(digits, window, dev)
+    if vec:
+        digits = _digit_rows_on(digits, window, x_res.shape[0], dev)
+    else:
+        digits = _digits_on(digits, window, dev)
     entry = sys_.r2_dom if entry_res is None else entry_res
     exitc = sys_.scale if exit_res is None else exit_res
     rows = [_row(getattr(sys_, f), "sys_." + f, C, dev) for f in _ROWS]
@@ -108,18 +134,20 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res):
     if B == 0:
         return out
     w1p, w2p = _columns(sys_)
-    fn, elems = _lib()
+    fn, elems = _lib(vec)
     table = torch.empty(
         (-(-B // elems) * elems, 1 << window, C), dtype=torch.int32, device=dev
     )
     rc = fn(
         x_res.data_ptr(), out.data_ptr(), table.data_ptr(), B, k, C,
         *rows, w1p.data_ptr(), w2p.data_ptr(),
-        digits.data_ptr(), digits.shape[0], window, _build.stream_handle(dev),
+        digits.data_ptr(), digits.shape[-1], window, _build.stream_handle(dev),
     )
+    name = "rns_ladder_vec" if vec else "rns_ladder"
     if rc != 0:
-        raise RuntimeError("rns_ladder kernel launch failed: CUDA error %d" % rc)
-    launches["rns_ladder"] += 1
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (name, rc))
+    launches[name] += 1
     return out
 
 
@@ -131,8 +159,25 @@ def ladder(x_res, digits, sys_, window=rns.DEFAULT_WINDOW, exit_res=None,
     rns.ladder_plain for the entry constant F and exit constant E).
     """
     if x_res.device.type == "cuda":
-        return _launch(x_res, digits, sys_, window, exit_res, entry_res)
+        return _launch(x_res, digits, sys_, window, exit_res, entry_res,
+                       vec=False)
     if x_res.device.type == "cpu":
         return rns.ladder_plain(x_res, digits, sys_, window=window,
                                 exit_res=exit_res, entry_res=entry_res)
+    raise ValueError("no RNS ladder for device %s" % x_res.device)
+
+
+def ladder_vec(x_res, digits, sys_, window=rns.DEFAULT_WINDOW, exit_res=None,
+               entry_res=None):
+    """Windowed RNS modexp over [B, cpad] stored residues, per-element
+    exponents: digits [B, n_windows], int8 on the card or any integer type
+    on the host. Returns [B, cpad] residues of (x F)^e_i E mod N, value
+    <= kN + 1 (see rns.ladder_vec_plain).
+    """
+    if x_res.device.type == "cuda":
+        return _launch(x_res, digits, sys_, window, exit_res, entry_res,
+                       vec=True)
+    if x_res.device.type == "cpu":
+        return rns.ladder_vec_plain(x_res, digits, sys_, window=window,
+                                    exit_res=exit_res, entry_res=entry_res)
     raise ValueError("no RNS ladder for device %s" % x_res.device)

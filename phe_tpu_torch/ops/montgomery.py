@@ -11,6 +11,9 @@ the encrypt -> decrypt round trip runs:
 * every Montgomery product goes through the hand-written CUDA kernel
   (phe_tpu_torch.ops.cuda_modexp) for tensors on the card, and through its
   plain PyTorch version, ``redc(mul_full(a, b))``, for tensors on the CPU;
+* so do the windowed modexps with a shared or a per-element exponent
+  (``mont_pow_shared``, ``mont_pow``), whose plain versions are the
+  windowed-table loops below;
 * the constant-operand products of the decrypt tail (const_mul, the
   mod_reduce fold) are exact int8-digit matmuls (limb_math.matmul_exact).
 """
@@ -105,6 +108,84 @@ def mont_mul_const(a, b_limbs, ctx):
     from phe_tpu_torch.ops import cuda_modexp
 
     return cuda_modexp.mont_mul_const(a.contiguous(), b_limbs.contiguous(), ctx)
+
+
+def mont_mul_plain(a, b, ctx):
+    """Plain PyTorch Montgomery product: a [B, L], b [B, L] or [L]."""
+    return redc(lm.mul_full(a, b.expand(a.shape)), ctx)
+
+
+def _windowed_table(base, ctx, window):
+    """Powers table [2^w, B, L]: table[j] = base^j in Montgomery form."""
+    one = ctx.one.expand(base.shape)
+    table = [one]
+    for _ in range(2**window - 1):
+        table.append(mont_mul_plain(table[-1], base, ctx))
+    return torch.stack(table)
+
+
+def mont_pow_shared_plain(base, digits, ctx, window=DEFAULT_WINDOW):
+    """Plain version of the shared-exponent limb-engine modexp kernel.
+
+    base: [B, L] Montgomery-domain values (< 2.01 M); digits: [n_windows]
+    MSB-first base-2^window digits of e. Returns [B, L] congruent to
+    base^e R mod M, < 1.01 M: phe_tpu's _mont_pow_shared_xla, with the
+    product's plain version.
+    """
+    table = _windowed_table(base, ctx, window)
+    acc = ctx.one.expand(base.shape)
+    for digit in np.asarray(torch.as_tensor(digits).cpu()).tolist():
+        for _ in range(window):
+            acc = mont_mul_plain(acc, acc, ctx)
+        acc = mont_mul_plain(acc, table[digit], ctx)
+    return acc
+
+
+def mont_pow_plain(base, digits, ctx, window=DEFAULT_WINDOW):
+    """Plain version of the per-element limb-engine modexp kernel.
+
+    base: [B, L]; digits: [B, n_windows], one schedule per row (a host
+    array or tensor, any integer type). phe_tpu's _mont_pow_xla: the
+    one-hot table select picks exactly table[d] per row.
+    """
+    table = _windowed_table(base, ctx, window)
+    digits = torch.as_tensor(digits).to(device=base.device, dtype=torch.int64)
+    rows = torch.arange(base.shape[0], device=base.device)
+    acc = ctx.one.expand(base.shape)
+    for wi in range(digits.shape[-1]):
+        for _ in range(window):
+            acc = mont_mul_plain(acc, acc, ctx)
+        acc = mont_mul_plain(acc, table[digits[:, wi], rows], ctx)
+    return acc
+
+
+def mont_pow_shared(base, digits, ctx, window=DEFAULT_WINDOW):
+    """base^e in Montgomery form, one exponent shared across the batch.
+
+    base: [B, L] Montgomery-domain bases; digits: [n_windows]. The CUDA
+    kernel for tensors on the card, mont_pow_shared_plain on the CPU
+    (cuda_modexp.mont_pow_shared).
+    """
+    from phe_tpu_torch.ops import cuda_modexp
+
+    return cuda_modexp.mont_pow_shared(base.contiguous(), digits, ctx,
+                                       window=window)
+
+
+def mont_pow(base, digits, ctx, window=DEFAULT_WINDOW):
+    """base_i^e_i in Montgomery form, per-element exponents.
+
+    base: [..., L]; digits: [..., n_windows] with matching leading dims,
+    flattened for the kernel (cuda_modexp.mont_pow).
+    """
+    from phe_tpu_torch.ops import cuda_modexp
+
+    digits = torch.as_tensor(digits)
+    lead = base.shape[:-1]
+    out = cuda_modexp.mont_pow(
+        base.reshape(-1, base.shape[-1]).contiguous(),
+        digits.reshape(-1, digits.shape[-1]), ctx, window=window)
+    return out.reshape(lead + (base.shape[-1],))
 
 
 def to_mont(x, ctx):

@@ -2,11 +2,12 @@
 
 The PyTorch counterpart of phe_tpu/ops/rns.py: the host-side system
 builder, the residue conversions, one fused tau-domain Montgomery product,
-and the plain version of the shared-exponent ladder that the CUDA kernel
-(phe_tpu_torch/csrc/rns_ladder.cu) computes. phe_tpu/ops/rns.py's module
-docstring derives the algorithm and every bound; this port keeps the same
-channel primes, constants and staging, so every residue it produces is the
-same integer as the reference's.
+and the plain versions of the two ladders (shared and per-element
+exponent) that the CUDA kernel (phe_tpu_torch/csrc/rns_ladder.cu)
+computes. phe_tpu/ops/rns.py's module docstring derives the algorithm and
+every bound; this port keeps the same channel primes, constants and
+staging, so every residue it produces is the same integer as the
+reference's.
 
 In short: a value x < 2kN lives as its residues modulo 2k + 1 distinct
 14-bit primes (base A, base B, one redundant channel m_r), with 7 replica
@@ -122,7 +123,8 @@ def _channels(modulus, max_entry_bits=None):
     need M_A >= 4kN. ``max_entry_bits`` additionally sizes M_A for a wider
     first operand. Past the supply of primes in (M_MIN, 2^14) (moduli
     above ~8,760 bits, keys above ~4,380) the modexps need the limb-engine
-    pow kernels, which are not ported yet: that raises NotImplementedError.
+    fallback around the pow kernels, which is not wired yet: that raises
+    NotImplementedError.
     """
     N = int(modulus)
     entry_floor = (1 << max_entry_bits) if max_entry_bits else 0
@@ -133,9 +135,10 @@ def _channels(modulus, max_entry_bits=None):
         if min(primes) < M_MIN or k > 1000:
             raise NotImplementedError(
                 "a %d-bit modulus exceeds the (%d, 2^14) RNS channel supply; "
-                "it needs the limb-engine pow kernels (phe_tpu's "
-                "pallas_modexp.mont_pow_shared_cols and mont_pow_cols), "
-                "which are not ported yet" % (N.bit_length(), M_MIN)
+                "it needs the limb-engine fallback on the pow kernels "
+                "(phe_tpu's pallas_modexp.mont_pow_shared_cols and "
+                "mont_pow_cols), which is not wired yet"
+                % (N.bit_length(), M_MIN)
             )
         A, B, m_r = primes[0 : 2 * k : 2], primes[1 : 2 * k : 2], primes[2 * k]
         M_A = M_B = 1
@@ -422,6 +425,54 @@ def ladder_plain(x_res, digits, sys_, window=DEFAULT_WINDOW, exit_res=None,
         acc = rns_mont_mul(acc, table[digit], sys_)
     unit = sys_.scale if exit_res is None else exit_res
     return rns_mont_mul(acc, unit.expand(acc.shape), sys_)
+
+
+def ladder_vec_plain(x_res, digits, sys_, window=DEFAULT_WINDOW,
+                     exit_res=None, entry_res=None):
+    """Plain PyTorch version of the per-element ladder kernel.
+
+    x_res: [B, cpad] stored residues of values < 2kN; digits: [B, n_windows]
+    MSB-first base-2^window digits, one schedule per element (a host array
+    or tensor, any integer type). Returns [B, cpad] residues of
+    (x F)^e_i E mod N: ladder_plain with each element's own exponent. The
+    table factor is exactly tab[d] (phe_tpu's one-hot sum picks the same
+    integers), so this is bit-equal to the kernel and to phe_tpu's
+    pow_vec_xla.
+    """
+    entry = sys_.r2_dom if entry_res is None else entry_res
+    xd = rns_mont_mul(x_res, entry.expand(x_res.shape), sys_)
+    one = sys_.one_dom.expand(xd.shape)
+    table = [one, xd]
+    for _ in range(2**window - 2):
+        table.append(rns_mont_mul(table[-1], xd, sys_))
+    table = torch.stack(table)  # [2^w, B, cpad]
+    digits = torch.as_tensor(digits).to(device=x_res.device,
+                                         dtype=torch.int64)
+    rows = torch.arange(x_res.shape[0], device=x_res.device)
+    acc = one
+    for wi in range(digits.shape[-1]):
+        for _ in range(window):
+            acc = rns_mont_mul(acc, acc, sys_)
+        acc = rns_mont_mul(acc, table[digits[:, wi], rows], sys_)
+    unit = sys_.scale if exit_res is None else exit_res
+    return rns_mont_mul(acc, unit.expand(acc.shape), sys_)
+
+
+def pow_vec(x_limbs, digits, conv, sys_, window=DEFAULT_WINDOW,
+            exit_res=None, entry_res=None):
+    """Per-element x_i^e_i mod N (up to +jN, j <= k) via the RNS ladder.
+
+    x_limbs: [B, Lin] binary limbs, value < 2kN; digits: [B, n_windows]
+    schedules. Returns [B, out_limbs] canonical limbs of value <= kN + 1.
+    The ladder runs in the CUDA kernel for tensors on the card and in
+    ladder_vec_plain for tensors on the CPU (cuda_rns.ladder_vec).
+    """
+    from phe_tpu_torch.ops import cuda_rns
+
+    x = to_rns(x_limbs, conv, sys_).contiguous()
+    out = cuda_rns.ladder_vec(x, digits, sys_, window=window,
+                              exit_res=exit_res, entry_res=entry_res)
+    return from_rns(out, sys_)
 
 
 def pow_shared(x_limbs, digits, conv, sys_, window=DEFAULT_WINDOW,

@@ -185,7 +185,9 @@ def test_port_imports_neither_jax_nor_phe_tpu():
     code = (
         "import sys, phe_tpu_torch, phe_tpu_torch.batch, "
         "phe_tpu_torch.interop, phe_tpu_torch.ops.cuda_modexp, "
-        "phe_tpu_torch.ops.cuda_rns\n"
+        "phe_tpu_torch.ops.cuda_rns, phe_tpu_torch.ops._build, "
+        "phe_tpu_torch.models, phe_tpu_torch.models.logreg, "
+        "phe_tpu_torch.models.federated, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'phe_tpu' "
         "or m.startswith('phe_tpu.'))\n"

@@ -2,10 +2,12 @@
 
 Inputs come from numpy's seeded generator and go through both packages.
 Everything is exact integer arithmetic, so every tolerance is zero: host
-builders and canonical outputs are array-equal; Montgomery products are
-held, as phe_tpu's own tests hold its Pallas kernel, value-equal mod M
-(the redundant limbs may differ) and inside the kernel contract's bounds
-(limbs in [0, 2^14], value < 1.01 M for inputs below 2.01 M).
+builders and canonical outputs are array-equal; Montgomery products and
+the windowed modexps (shared and per-element exponent) are held, as
+phe_tpu's own tests hold its Pallas kernels, value-equal mod M (the
+redundant limbs may differ) and inside the kernel contract's bounds (limbs
+in [0, 2^14], value < 1.01 M for inputs below 2.01 M). phe_tpu's Pallas
+kernels run here in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -248,6 +250,63 @@ def test_reduce_excess_const_mul_mod_reduce_match(keys):
         assert all(2 * v < 3 << (14 * L2) for v in _values(got))
 
 
+# -- windowed modexps -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits,window", [(256, 4), (520, 5)])
+def test_mont_pow_shared_value_equal(bits, window):
+    rng = np.random.default_rng(bits + window)
+    M = _modulus(rng, bits)
+    ctx, jctx = mg.build_context(M, CPU), _jctx(M)
+    L = ctx.num_limbs
+    base = _operands(rng, M, L, 5)
+    e = int.from_bytes(rng.bytes(24), "little") | (1 << 191)
+    digits = mg.exponent_digits(e, 192, window)
+    got = cuda_modexp.mont_pow_shared(torch.as_tensor(base), digits, ctx,
+                                      window=window)
+    jb = jnp.asarray(base.astype(np.uint32))
+    jd = jnp.asarray(digits, jnp.int32)
+    xla = jmg._mont_pow_shared_xla(jb, jd, jctx, window=window)
+    kernel = jpmx.mont_pow_shared(jb, jd, jctx, window=window, tb=8)
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    want = [pow(x * Rinv, e, M) * R % M for x in _values(base)]
+    got_v = _values(got.numpy())
+    for out in (got_v, _values(xla), _values(kernel)):
+        assert [v % M for v in out] == want
+    assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+    assert all(100 * v < 101 * M for v in got_v)
+
+
+@pytest.mark.parametrize("bits", [256, 520])
+def test_mont_pow_per_element_value_equal(bits):
+    rng = np.random.default_rng(bits + 3)
+    M = _modulus(rng, bits)
+    ctx, jctx = mg.build_context(M, CPU), _jctx(M)
+    L = ctx.num_limbs
+    es = [0, 1, 2, 0x1234567, int(rng.integers(1, 1 << 62)),
+          int.from_bytes(rng.bytes(10), "little"), (1 << 80) - 1]
+    base = _operands(rng, M, L, len(es))
+    digits = np.stack([mg.exponent_digits(e, 80) for e in es])
+    got = mg.mont_pow(torch.as_tensor(base), digits.astype(np.int8), ctx)
+    jb = jnp.asarray(base.astype(np.uint32))
+    jd = jnp.asarray(digits, jnp.int32)
+    xla = jmg._mont_pow_xla(jb, jd, jctx)
+    kernel = jpmx.mont_pow(jb, jd, jctx, tb=8)
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    want = [pow(x * Rinv, e, M) * R % M for x, e in zip(_values(base), es)]
+    got_v = _values(got.numpy())
+    for out in (got_v, _values(xla), _values(kernel)):
+        assert [v % M for v in out] == want
+    assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+    assert all(100 * v < 101 * M for v in got_v)
+    # Leading dims flatten through the dispatcher.
+    grid = mg.mont_pow(torch.as_tensor(base[:6]).reshape(2, 3, L),
+                       digits[:6].reshape(2, 3, -1), ctx)
+    assert _values(grid.reshape(6, L).numpy()) == got_v[:6]
+
+
 # -- the wrapper's dispatch -------------------------------------------------------
 
 
@@ -258,6 +317,11 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     before = dict(cuda_modexp.launches)
     cuda_modexp.mont_mul(a, a, ctx)
     cuda_modexp.mont_mul_const(a, a[0], ctx)
-    assert cuda_modexp.launches == before  # the plain version launches nothing
+    cuda_modexp.mont_pow(a, np.ones((3, 2), np.int8), ctx)
+    cuda_modexp.mont_pow_shared(a, [1, 2], ctx)
+    assert cuda_modexp.launches == before  # the plain versions launch nothing
     with pytest.raises(ValueError, match="no Montgomery product"):
         cuda_modexp.mont_mul(a.to("meta"), a.to("meta"), ctx)
+    for fn in (cuda_modexp.mont_pow, cuda_modexp.mont_pow_shared):
+        with pytest.raises(ValueError, match="no Montgomery modexp"):
+            fn(a.to("meta"), [1], ctx)

@@ -2,9 +2,10 @@
 
 Every residue in the Cox-Rower product is canonical, so the port computes
 the same integers as phe_tpu at every step: builders, conversions, the
-fused product and the plain ladder are all held array-equal (tolerance
-zero) to phe_tpu's rns module and to its Pallas ladder kernel, which runs
-here in interpret mode as phe_tpu's own tests run it.
+fused product and the plain ladders (shared and per-element exponent) are
+all held array-equal (tolerance zero) to phe_tpu's rns module and to its
+Pallas ladder kernels, which run here in interpret mode as phe_tpu's own
+tests run them.
 """
 
 import jax.numpy as jnp
@@ -141,6 +142,76 @@ def test_ladder_bit_equal_to_pallas_and_xla(small, window, consts):
     out = hl.limbs_to_ints(limbs.numpy())
     assert all(v <= sys_.k * N + 1 for v in out)
     assert [v % N for v in out] == [pow(x * F, e, N) * E % N for x in xs]
+
+
+def _vec_case(small, window, consts, seed):
+    """Inputs, per-element schedules and constants for the vec ladder:
+    exponents of mixed widths, with 0 and 1 (the pad rows' exponent)."""
+    pub, N, Lin, sys_, conv, jsys, jconv = small
+    rng = np.random.default_rng(seed)
+    xs, x = _inputs(rng, N, sys_.k, Lin, 8)
+    es = [0, 1, 2, 15, int(rng.integers(1, 1 << 20)),
+          int(rng.integers(1, 1 << 62)), (1 << 64) - 1, 1 << 63]
+    bits = max(e.bit_length() for e in es)
+    digits = np.stack([rns.rns_pow_digits(e, bits, window) for e in es])
+    F, E = (pow(5, 77, N), pow(7, 99, N)) if consts else (1, 1)
+    c = dict(exit_res=None, entry_res=None)
+    jc = dict(exit_res=None, entry_res=None)
+    if consts:
+        M_A = 1
+        for a in sys_.m[: sys_.k].tolist():
+            M_A *= a
+        c = dict(exit_res=rns.residues(E, sys_),
+                 entry_res=rns.residues(M_A * M_A * F % N, sys_))
+        jc = dict(exit_res=jrns.residues(E, jsys),
+                  entry_res=jrns.residues(M_A * M_A * F % N, jsys))
+    return xs, x, es, digits, F, E, c, jc
+
+
+@pytest.mark.parametrize("window,consts",
+                         [(4, False), (4, True), (5, False), (5, True)])
+def test_ladder_vec_bit_equal_to_pallas_and_xla(small, window, consts):
+    pub, N, Lin, sys_, conv, jsys, jconv = small
+    xs, x, es, digits, F, E, c, jc = _vec_case(small, window, consts,
+                                               51 + window + consts)
+    xr = rns.to_rns(torch.as_tensor(x), conv, sys_)
+    got = rns.ladder_vec_plain(xr, digits, sys_, window=window, **c)
+    kernel = jprns.ladder_vec_cols(
+        _j(xr.numpy()).T, jnp.asarray(digits.T, jnp.int32), jsys,
+        window=window, tb=8, **jc).T
+    np.testing.assert_array_equal(got.numpy(), _np(kernel))
+    limbs = rns.pow_vec(torch.as_tensor(x), digits.astype(np.int8), conv,
+                        sys_, window=window, **c)
+    ref = jrns.pow_vec_xla(_j(x), jnp.asarray(digits, jnp.int32), jconv,
+                           jsys, window=window, **jc)
+    np.testing.assert_array_equal(limbs.numpy(), _np(ref))
+    rows = jprns.pow_vec_rows(_j(x), jnp.asarray(digits, jnp.int32), jconv,
+                              jsys, window=window, **jc)
+    np.testing.assert_array_equal(limbs.numpy(), _np(rows))
+    out = hl.limbs_to_ints(limbs.numpy())
+    assert all(v <= sys_.k * N + 1 for v in out)
+    assert [v % N for v in out] == [
+        pow(x * F, e, N) * E % N for x, e in zip(xs, es)]
+
+
+def test_ladder_vec_wrapper_dispatch_and_host_checks(small):
+    pub, N, Lin, sys_, conv, jsys, jconv = small
+    x = torch.zeros((3, sys_.cpad), dtype=torch.int64)
+    digits = np.array([[0, 3], [1, 0], [15, 15]], np.int8)
+    before = dict(cuda_rns.launches)
+    assert torch.equal(cuda_rns.ladder_vec(x, digits, sys_),
+                       rns.ladder_vec_plain(x, digits, sys_))
+    assert cuda_rns.launches == before  # the plain version launches nothing
+    with pytest.raises(ValueError, match="no RNS ladder"):
+        cuda_rns.ladder_vec(x.to("meta"), digits, sys_)
+    got = cuda_rns._digit_rows_on(digits.astype(np.int64), 4, 3, CPU)
+    assert got.dtype == torch.int8 and torch.equal(
+        got, torch.as_tensor(digits))
+    for bad in ([[3, 16]] * 3, [[-1, 2]] * 3):
+        with pytest.raises(ValueError, match="2\\^window"):
+            cuda_rns._digit_rows_on(np.array(bad), 4, 3, CPU)
+    with pytest.raises(ValueError, match="int8"):
+        cuda_rns._digit_rows_on(digits[:2], 4, 3, CPU)
 
 
 def test_modulus_past_the_channel_supply_raises():
