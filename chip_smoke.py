@@ -35,6 +35,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    65,536 rows, sum and dot at mixed exponents, encrypted
    logistic-regression scoring of 1,024 examples x 21 weights, federated
    aggregation of 5 x 16,384 gradients, and short-obfuscated encryption.
+   Phase 2 also holds the issue-rate chain (phe_tpu_torch.microbench's
+   kernel) bit-equal to its plain version for all five bodies on the full
+   [256, 512] tile at K = 4,000, and the Montgomery product at L = 1,176
+   (the 8192-bit key's n^2) on 1,024 rows.
+5. The calibration: phe_tpu_torch.microbench.main() (five bodies, K =
+   4,000 and 32,000, the fold guard), its two rates printed beside the
+   published int32 rate of the bounds here and the H100 row of
+   phe_tpu_torch.profiling.
+6. The benchmarks: phe_tpu_torch.bench.main() at bench.py's sizes (2,048
+   bits; BENCH_RUNS timed and BENCH_WARMUP untimed streamed passes per op),
+   phe_tpu_torch.benchmarks.main(["--key-sizes", "1024,2048", "--mem"]),
+   and one 16,384-row encrypt and decrypt under profiling.trace, with the
+   profiler's top ten kernels by device time and the card's busy share.
+7. The limb engine at the fixed 8192-bit key, whose n^2 is past the RNS
+   channel supply (see limb_engine_path).
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is the device record. Kernel times are
@@ -43,7 +58,6 @@ CUDA-event times; bounds use NVIDIA's published H100 SXM peaks.
 
 import json
 import random
-import subprocess
 import sys
 import time
 
@@ -54,29 +68,20 @@ BATCH = 16384  # encrypt and decrypt batch (the repo's headline workload)
 ADD_ROWS = 524288  # bench.py's add batch
 MUL_ROWS = 65536  # bench.py's mul batch
 SEED = 20261016
-PLAIN_CHUNK = 2048  # rows per plain Montgomery product (bounds its memory)
+PLAIN_CHUNK = 2048  # rows per plain Montgomery product at L = 296 (its
+# memory grows with rows x L^2: wider contexts take proportionally fewer)
 PLAIN_LADDER_ROWS = 128  # rows of the plain ladder check (>= 64)
 PLAIN_VEC_ROWS = 1024  # rows of the plain per-element modexp checks
 SHARED_POW_ROWS = 128  # rows of the shared-exponent modexp's second check
 SHORT_BITS = 320  # short obfuscation's exponent bits
 LR_EXAMPLES, LR_FEATURES = 1024, 20
 FL_CLIENTS = 5  # phe_tpu/models/federated.py's default
-
-# Fixed 2048-bit key (the repository's benchmark key).
-P = int(
-    "0xb1014c0adf6a4c106038a6b1a0deabd3d494ff41e3f43e1e3509a6ea863ecbf8"
-    "4a689287002393a6a1a5da9c1626b2e76d9b785fd19b8028585b04797a4e967c3"
-    "738bbfde71cf7a988bfae01d3787328143277c1b6dbe77c378f7ada3aec653e1a"
-    "73353812105a0e2a759c81247a22ab8b79400d6499636cba4dfa86066fd27d",
-    16,
-)
-Q = int(
-    "0xe5b2fa62ee1f2a9153c0b2cda99dac639fc941aa15e2c04aca6ee5751eefff6b"
-    "9c3cdb0cb7772e3ca4590d0d03234d7273a580df2fc6251a3d25d4de4ef622e47"
-    "7ce51432f90b74cac9fb80ad9fb70226fb0eb6ff545e4d6c5a634e335dd57b005"
-    "0e2419b414204578cb5ace3da3321acaaab2c8b7c05b719b9432bb5a8114c9",
-    16,
-)
+CHAIN_K = 4000  # the issue-rate chain's K in the kernel check
+WIDE_ROWS = 1024  # rows of the Montgomery-product checks at L = 1,176
+BENCH_RUNS, BENCH_WARMUP = 3, 1  # bench.main's streamed passes (of 5, 2)
+LIMB_ROWS = 512  # the 8192-bit batch (BENCH_8192.json's)
+LIMB_DIRECT_ROWS = 64  # rows through _decrypt_residue_limb
+LIMB_POW_ROWS = 16  # rows of mont_pow against its plain version at L = 1,176
 
 # NVIDIA H100 SXM published peaks (data sheet; Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
@@ -96,15 +101,6 @@ def check(cond, msg):
         fail(msg)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()] if out else ""
-
-
 def cuda_ms(fn, reps, warm=True):
     """Mean CUDA-event milliseconds of fn over reps runs."""
     if warm:
@@ -118,6 +114,18 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_once(fn):
+    """(fn(), its CUDA-event milliseconds) for one call of a long kernel."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(nbytes, int8_macs=0, int32_ops=0):
@@ -177,9 +185,9 @@ def sync():
 
 
 def _counters():
-    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+    from phe_tpu_torch.ops import cuda_microbench, cuda_modexp, cuda_rns
 
-    return cuda_modexp.launches, cuda_rns.launches
+    return cuda_modexp.launches, cuda_rns.launches, cuda_microbench.launches
 
 
 def reset_launches():
@@ -545,6 +553,307 @@ def arithmetic_path(pub, priv, dev, card, totals):
     return rates
 
 
+def check_issue_chain(dev):
+    """Phase 2, the issue-rate chain: each body on the full [256, 512] tile
+    at K = CHAIN_K, on the calibration's inputs, bit-equal to its plain
+    version on the card. Returns one record per body."""
+    from phe_tpu_torch import microbench
+    from phe_tpu_torch.ops import cuda_microbench as cm
+
+    g = np.random.default_rng(microbench.SEED)
+    x = torch.as_tensor(g.integers(1, 1 << 14, (microbench.R, microbench.TB),
+                                   dtype=np.int32), device=dev)
+    out = []
+    for body, (_, ops) in cm.BODIES.items():
+        got = cm.issue_chain(x, body, CHAIN_K)
+        sync()
+        t0 = time.perf_counter()
+        ref = cm.issue_chain_plain(x, body, CHAIN_K)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = int((got.long() - ref.long()).abs().max())
+        check(err == 0, "vpu_microbench %s: kernel bits differ from the "
+              "plain version" % body)
+        ms = cuda_ms(lambda: cm.issue_chain(x, body, CHAIN_K), 10)
+        bms, by = bound_ms(8 * x.numel(), int32_ops=CHAIN_K * x.numel() * ops)
+        print("vpu_microbench %s [%d, %d] K=%d: bit-equal; kernel %.4f ms, "
+              "plain %.1f ms, bound %.4f ms (%s, %d ops an iteration)"
+              % (body, x.shape[0], x.shape[1], CHAIN_K, ms, plain_ms, bms, by,
+                 ops))
+        out.append(dict(body=body, K=CHAIN_K, rows=x.shape[0],
+                        cols=x.shape[1], max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, plain_rows=x.shape[0],
+                        bound_ms=bms, bound_by=by))
+    return out
+
+
+def calibration(card, totals):
+    """Phase 5: microbench.main() with its launches counted, its two rates
+    beside INT32_OPS_PER_S (the bounds' published rate) and the H100 row
+    of profiling.py."""
+    from phe_tpu_torch import microbench, profiling
+    from phe_tpu_torch.ops import cuda_microbench as cm
+
+    rates, sec, n = run_step(microbench.main, totals)
+    # Per body: one warm-up launch and 8 timed launches at each K.
+    expect_launches("calibration", n, {"vpu_microbench": 18 * len(cm.BODIES)})
+    (mul_row, op_row, _), kind, assumed = profiling.chip_peaks()
+    print("calibration (%.1f s): int32_mul_per_s %.6g (%.1f %% of the "
+          "published %.6g; profiling.py's H100 row %.6g), "
+          "int32_mixed_op_per_s %.6g (%.1f %% of the published rate; row "
+          "%.6g); peaks for %s, assumed=%s [%s]"
+          % (sec, rates["int32_mul_per_s"],
+             100 * rates["int32_mul_per_s"] / INT32_OPS_PER_S,
+             INT32_OPS_PER_S, mul_row, rates["int32_mixed_op_per_s"],
+             100 * rates["int32_mixed_op_per_s"] / INT32_OPS_PER_S, op_row,
+             kind, assumed, card))
+    return rates
+
+
+def _busy_us(kernels):
+    """Microseconds covered by the union of the kernels' time ranges."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    total, cur_start, cur_end = 0, None, None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def benchmark_phase(pub, priv, dev, card, totals):
+    """Phase 6: bench.main (BENCH_RUNS timed, BENCH_WARMUP untimed streamed
+    passes per op), benchmarks.main at 1024 and 2048 bits with --mem, and
+    one BATCH-row encrypt and decrypt under profiling.trace."""
+    from phe_tpu_torch import bench, benchmarks, profiling
+    from phe_tpu_torch.batch import EncryptedBatch
+
+    lines, sec, n = run_step(
+        lambda: bench.main(runs=BENCH_RUNS, warmup=BENCH_WARMUP), totals)
+    print("bench.main: %.1f s, %d timed and %d untimed streamed passes per "
+          "op; launches %s [%s]" % (sec, BENCH_RUNS, BENCH_WARMUP,
+                                   json.dumps(n), card))
+    check(all(line["device"] == torch.cuda.get_device_name(dev)
+              for line in lines.values()), "bench rows do not name the card")
+    _, sec, n = run_step(lambda: benchmarks.main(
+        ["--key-sizes", "1024,2048", "--mem"]), totals)
+    print("benchmarks.main: %.1f s; launches %s [%s]"
+          % (sec, json.dumps(n), card))
+
+    values = [float(v) for v in
+              np.random.default_rng(SEED + 6).uniform(-1e6, 1e6, BATCH)]
+    with profiling.trace() as prof:
+        t0 = time.perf_counter()
+        out = EncryptedBatch.encrypt(pub, values, device=dev).decrypt(priv)
+        sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    check(out == values, "profiled round trip: decrypt(encrypt(x)) != x")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("profiler: no device time over the %d-row encrypt and decrypt "
+              "(%.1f ms on the host clock) [%s]" % (BATCH, wall_us / 1e3,
+                                                    card))
+        return
+    busy = _busy_us(kernels)
+    print("profiler: %d-row encrypt and decrypt, %.1f ms on the host clock, "
+          "device busy %.1f ms (%.1f %%), %d kernel launches [%s]"
+          % (BATCH, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
+             len(kernels), card))
+    rows = [a for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    print("profiler top ten by device time (ms, calls, name):")
+    for a in rows[:10]:
+        print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3, a.count,
+                                    a.key[:100]))
+
+
+def limb_engine_path(pub, priv, dev, card, totals):
+    """Phase 7: the limb engine at the fixed 8192-bit key.
+
+    n^2 (16,384 bits) is past the RNS channel supply, so encryption and
+    every per-element modexp mod n^2 run on the limb engine (mont_pow_shared
+    at L = 1,176, window 5; mont_pow, window 4), while decryption stays on
+    the RNS ladders of p^2 and q^2 (k = 624), as phe_tpu runs this key.
+    Each step runs through its entry point with the launch counts zeroed
+    just before it and read just after, is checked exactly and timed on the
+    host clock: encrypt and decrypt of LIMB_ROWS rows, a pinned-r batch of
+    4 against the host's raw_encrypt, add at equal exponents, mixed-sign
+    mul_scalars, short encrypt, and _decrypt_residue_limb (the limb decrypt
+    that runs alone only above ~8,760-bit keys) on LIMB_DIRECT_ROWS rows
+    against the RNS decrypt. The plain modexp at L = 1,176 with an
+    8192-bit exponent would take minutes, so mont_pow_shared is held
+    against Python's pow on 2 rows, and mont_pow against its plain version
+    on 64-bit schedules over LIMB_POW_ROWS rows.
+
+    Returns ({BENCH_8192.json metric: ops/s}, {kernel: its L = 1,176
+    check record}).
+    """
+    import phe_tpu_torch as pt
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.ops import cuda_modexp
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    dc, pdc = pub.device_context(dev), priv.device_context(dev)
+    check(dc.rns_state() is None, "8192-bit n^2 was given an RNS state")
+    halves = pdc.rns_state()
+    check(halves is not None and len(halves) == 2,
+          "the 8192-bit key's RNS decrypt halves were not built")
+    print("8192-bit key: n^2 on the limb engine (L = %d); decrypt halves on "
+          "the RNS ladder (k = %d, %d)" % (dc.L, halves[0][0].k,
+                                           halves[1][0].k))
+    g = np.random.default_rng(SEED + 8)
+    rng = random.Random(SEED + 8)
+    rows, nsq = LIMB_ROWS, pub.nsquare
+    chunk = EncryptedBatch._INVERSE_CHUNK
+    rates = {}
+
+    def floats(lo, hi, count=rows):
+        return [float(v) for v in g.uniform(lo, hi, count)]
+
+    def report(step, count, seconds, counts, metric=None):
+        if metric:
+            rates[metric] = count / seconds
+        print("8192-bit %s: %d rows in %.3f s, %.3f rows/s; launches %s [%s]"
+              % (step, count, seconds, count / seconds, json.dumps(counts),
+                 card))
+
+    xs = floats(-1e6, 1e6)
+    enc, sec, n = run_step(
+        lambda: EncryptedBatch.encrypt(pub, xs, device=dev), totals)
+    # to_mont(r) and the (n*m + 1) prologue: two shared-operand products.
+    expect_launches("8192-bit encrypt", n, {
+        "mont_pow_shared": 1, "mont_mul_const": 2, "mont_mul": 1})
+    report("encrypt", rows, sec, n, "paillier_encrypt_8192_batched")
+    dec, sec, n = run_step(lambda: enc.decrypt(priv), totals)
+    expect_launches("8192-bit decrypt", n, {
+        "rns_ladder": 2, "mont_mul": 3, "mont_mul_const": 6})
+    report("decrypt", rows, sec, n, "paillier_decrypt_8192_batched")
+    check(dec == xs, "8192-bit decrypt(encrypt(x)) != x")
+
+    few = xs[:4]
+    rs = [rng.randrange(1, pub.n) for _ in few]
+    pinned, sec, n = run_step(lambda: EncryptedBatch.encrypt(
+        pub, few, r_values=rs, device=dev), totals)
+    encs = pt.EncodedNumber.encode_many(pub, few)
+    check(pinned.ciphertext_ints(be_secure=False)
+          == [pub.raw_encrypt(e.encoding, r_value=r)
+              for e, r in zip(encs, rs)],
+          "8192-bit pinned-r ciphertexts differ from the host's raw_encrypt")
+    report("pinned-r encrypt (ints equal raw_encrypt)", len(few), sec, n)
+
+    same = EncryptedBatch.encrypt(pub, xs, obfuscation="none", device=dev)
+    s, sec, n = run_step(lambda: enc + same, totals)
+    expect_launches("8192-bit add", n, {"mont_mul": 1})
+    report("add, equal exponents", rows, sec, n, "paillier_add_8192_batched")
+    check(s.decrypt(priv) == [x + x for x in xs],
+          "8192-bit add: decrypt(x + x) != x + x")
+    idx = list(range(min(16, rows)))
+    c1, c2 = dc.export_ints(enc.mont[idx]), dc.export_ints(same.mont[idx])
+    check(dc.export_ints(s.mont[idx]) == [a * b % nsq for a, b in zip(c1, c2)],
+          "8192-bit add: ciphertexts differ from the host's c1 c2 mod n^2")
+
+    sc = floats(-100.0, 100.0)
+    s, sec, n = run_step(lambda: enc * sc, totals)
+    mm, mc = inverse_launches(enc.mont.shape[0], chunk)
+    expect_launches("8192-bit mul_scalars", n, {
+        "mont_pow": 1, "mont_mul": mm, "mont_mul_const": mc})
+    report("mul_scalars, mixed sign", rows, sec, n,
+           "paillier_mul_8192_batched")
+    check(s.decrypt(priv) == [x * y for x, y in zip(xs, sc)],
+          "8192-bit mul_scalars: decrypt(x * s) != x * s")
+
+    short, sec, n = run_step(lambda: EncryptedBatch.encrypt(
+        pub, xs, obfuscation="short", device=dev), totals)
+    expect_launches("8192-bit short encrypt, first batch", n, {
+        "mont_mul_const": 2, "mont_pow_shared": 1, "mont_pow": 1,
+        "mont_mul": 1})
+    report("short encrypt, first batch", rows, sec, n)
+    check(short.decrypt(priv) == xs, "8192-bit short encrypt: decrypt != x")
+
+    head = enc.mont[:LIMB_DIRECT_ROWS].contiguous()
+    got, sec, n = run_step(lambda: tbatch._decrypt_residue_limb(
+        head, dc.ctx, pdc.consts), totals)
+    expect_launches("_decrypt_residue_limb", n, {
+        "mont_pow_shared": 2, "mont_mul_const": 8, "mont_mul": 3})
+    report("_decrypt_residue_limb (L = %d)" % pdc.consts.ctx_p.num_limbs,
+           LIMB_DIRECT_ROWS, sec, n)
+    want = [e.encoding for e in pt.EncodedNumber.encode_many(
+        pub, xs[:LIMB_DIRECT_ROWS])]
+    check(hl.limbs_to_ints(got.cpu().numpy()) == want
+          and hl.limbs_to_ints(pdc._residue(head).cpu().numpy()) == want,
+          "_decrypt_residue_limb differs from the RNS decrypt")
+
+    # The kernels at L = 1,176, as the path runs them.
+    ctx, L = dc.ctx, dc.L
+    R = 1 << (14 * L)
+    R_inv = pow(R, -1, nsq)
+    wide = {}
+    xs2 = [rng.randrange(0, 2 * nsq) for _ in range(2)]
+    base = mg._tensor(hl.ints_to_limbs(xs2, L), dev)
+    got, ms = cuda_once(lambda: cuda_modexp.mont_pow_shared(
+        base, dc.n_digits, ctx, window=5))
+    t0 = time.perf_counter()
+    want = [pow(x * R_inv, pub.n, nsq) * R % nsq for x in xs2]
+    py_ms = 1e3 * (time.perf_counter() - t0)
+    gi = hl.limbs_to_ints(got.cpu().numpy())
+    check([v % nsq for v in gi] == want and int(got.min()) >= 0
+          and int(got.max()) <= 1 << 14 and all(100 * v < 101 * nsq
+                                                 for v in gi),
+          "mont_pow_shared L=%d: value differs from Python pow" % L)
+    products = (2**5 - 2) + len(dc.n_digits) * 6
+    bms, by = mont_pow_bound(2, L, products, 8 * len(dc.n_digits))
+    print("mont_pow_shared L=%d windows=%d: Python pow on 2 rows; kernel "
+          "%.3f ms at 2 rows, Python pow %.1f ms, bound %.4f ms (%s, %d "
+          "products a row)" % (L, len(dc.n_digits), ms, py_ms, bms, by,
+                               products))
+    wide["mont_pow_shared"] = dict(
+        L=L, rows=2, max_abs_err=0, ms=ms, plain_ms=None, plain_rows=0,
+        python_pow_ms=py_ms, bound_ms=bms, bound_by=by, products=products)
+
+    rows_p = LIMB_POW_ROWS
+    xs3 = [rng.randrange(0, 2 * nsq) for _ in range(rows_p)]
+    es = [rng.getrandbits(64) for _ in range(rows_p - 2)] + [0, (1 << 64) - 1]
+    base = mg._tensor(hl.ints_to_limbs(xs3, L), dev)
+    digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
+    got, ms = cuda_once(lambda: cuda_modexp.mont_pow(base, digits, ctx))
+    t0 = time.perf_counter()
+    ref = mg.mont_pow_plain(base, digits, ctx)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = int((mg.export_canonical(got, ctx)
+               - mg.export_canonical(ref, ctx)).abs().max())
+    gi = hl.limbs_to_ints(got.cpu().numpy())
+    check(err == 0 and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+          and all(100 * v < 101 * nsq for v in gi),
+          "mont_pow L=%d: kernel value mod M differs from the plain version"
+          % L)
+    for i in (0, 1, rows_p - 2, rows_p - 1):
+        check(gi[i] % nsq == pow(xs3[i] * R_inv, es[i], nsq) * R % nsq,
+              "mont_pow L=%d: value differs from Python pow" % L)
+    n_windows = digits.shape[1]
+    products = (2**4 - 2) + n_windows * 5
+    bms, by = mont_pow_bound(rows_p, L, products, rows_p * n_windows)
+    print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
+          "4; kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s, %d products "
+          "a row)" % (L, n_windows, rows_p, ms, plain_ms, bms, by, products))
+    wide["mont_pow"] = dict(L=L, rows=rows_p, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, plain_rows=rows_p,
+                            bound_ms=bms, bound_by=by, products=products)
+    print(json.dumps({"paillier_8192": {
+        m: {"value": v, "unit": "ops/s", "batch": rows}
+        for m, v in rates.items()}, "card": card}))
+    return rates, wide
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -552,6 +861,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     import phe_tpu_torch as pt
+    from phe_tpu_torch import benchmarks, profiling
     from phe_tpu_torch.batch import EncryptedBatch
     from phe_tpu_torch.ops import _build, cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -559,7 +869,7 @@ def main():
     from phe_tpu_torch.utils import limbs as hl
 
     dev = torch.device("cuda")
-    card = card_line()
+    card = profiling.card_line()
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.time()
@@ -574,8 +884,8 @@ def main():
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
 
-    pub = pt.PaillierPublicKey(P * Q)
-    priv = pt.PaillierPrivateKey(pub, P, Q)
+    pub, priv = benchmarks.fixed_key(2048)
+    pub8, priv8 = benchmarks.fixed_key(8192)
     t0 = time.time()
     dc = pub.device_context(dev)
     pdc = priv.device_context(dev)
@@ -588,21 +898,21 @@ def main():
     def limbs_of(values, L):
         return mg._tensor(hl.ints_to_limbs(values, L), dev)
 
-    def check_mont_mul(ctx, M, shared):
+    def check_mont_mul(ctx, M, shared, rows=BATCH):
         L = ctx.num_limbs
         R_inv = pow(1 << (14 * L), -1, M)
-        xs = [rng.randrange(0, 2 * M) for _ in range(BATCH)]
-        ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else BATCH)]
+        xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+        ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
         a = limbs_of(xs, L)
         b = limbs_of(ys, L)[0] if shared else limbs_of(ys, L)
         fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
+        chunk = max(1, PLAIN_CHUNK * 296 * 296 // (L * L))
 
         def plain():
             return torch.cat([
                 cuda_modexp.mont_mul_plain(
-                    a[i : i + PLAIN_CHUNK],
-                    b if shared else b[i : i + PLAIN_CHUNK], ctx)
-                for i in range(0, BATCH, PLAIN_CHUNK)])
+                    a[i : i + chunk], b if shared else b[i : i + chunk], ctx)
+                for i in range(0, rows, chunk)])
 
         got = fn(a, b, ctx)
         ref = plain()
@@ -610,7 +920,7 @@ def main():
         name = "mont_mul_const" if shared else "mont_mul"
         g = hl.limbs_to_ints(got.cpu().numpy())
         want = [x * (ys[0] if shared else y) * R_inv % M
-                for x, y in zip(xs, ys * BATCH if shared else ys)]
+                for x, y in zip(xs, ys * rows if shared else ys)]
         check([v % M for v in g] == want, "%s L=%d: kernel value mod M "
               "differs from Python ints" % (name, L))
         check(int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
@@ -626,12 +936,12 @@ def main():
               "plain version" % (name, L))
         ms = cuda_ms(lambda: fn(a, b, ctx), 10)
         plain_ms = cuda_ms(plain, 1)
-        bms, by = mont_mul_bound(BATCH, L, shared)
+        bms, by = mont_mul_bound(rows, L, shared)
         print("%s L=%d rows=%d: value-equal, bounds hold; kernel %.4f ms, "
               "plain %.4f ms, bound %.4f ms (%s)"
-              % (name, L, BATCH, ms, plain_ms, bms, by))
-        return dict(L=L, rows=BATCH, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, plain_rows=BATCH, bound_ms=bms,
+              % (name, L, rows, ms, plain_ms, bms, by))
+        return dict(L=L, rows=rows, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
                     bound_by=by)
 
     mul_checks = {"mont_mul": [], "mont_mul_const": []}
@@ -641,6 +951,12 @@ def main():
         if ctx.num_limbs != 152:  # the two-operand product never runs mod p^2
             mul_checks["mont_mul"].append(check_mont_mul(ctx, M, False))
         mul_checks["mont_mul_const"].append(check_mont_mul(ctx, M, True))
+    # The 8192-bit key's n^2 (L = 1,176: 55 KB of shared memory a block).
+    dc8 = pub8.device_context(dev)
+    for shared, name in ((False, "mont_mul"), (True, "mont_mul_const")):
+        mul_checks[name].append(
+            check_mont_mul(dc8.ctx, pub8.nsquare, shared, rows=WIDE_ROWS))
+    chain_checks = check_issue_chain(dev)
 
     def check_ladder(rsys, conv, Lin, digits, exit_int, N):
         few = PLAIN_LADDER_ROWS
@@ -755,22 +1071,36 @@ def main():
     rates = arithmetic_path(pub, priv, dev, card, path_launches)
     print(json.dumps({"arithmetic_rows_per_s": rates, "card": card}))
 
+    # -- 5. the calibration ------------------------------------------------
+    calibration(card, path_launches)
+
+    # -- 6. the benchmarks -------------------------------------------------
+    benchmark_phase(pub, priv, dev, card, path_launches)
+
+    # -- 7. the limb engine at 8192 bits -----------------------------------
+    _, wide_checks = limb_engine_path(pub8, priv8, dev, card, path_launches)
+
     src = {"mont_mul": "phe_tpu_torch/csrc/mont_mul.cu",
            "mont_mul_const": "phe_tpu_torch/csrc/mont_mul.cu",
            "rns_ladder": "phe_tpu_torch/csrc/rns_ladder.cu",
            "rns_ladder_vec": "phe_tpu_torch/csrc/rns_ladder.cu",
            "mont_pow_shared": "phe_tpu_torch/csrc/mont_pow.cu",
-           "mont_pow": "phe_tpu_torch/csrc/mont_pow.cu"}
+           "mont_pow": "phe_tpu_torch/csrc/mont_pow.cu",
+           "vpu_microbench": "phe_tpu_torch/csrc/microbench.cu"}
     replaces = {"mont_mul": "phe_tpu/ops/pallas_modexp.py:378",
                 "mont_mul_const": "phe_tpu/ops/pallas_modexp.py:434",
                 "rns_ladder": "phe_tpu/ops/pallas_rns.py:234",
                 "rns_ladder_vec": "phe_tpu/ops/pallas_rns.py:447",
                 "mont_pow_shared": "phe_tpu/ops/pallas_modexp.py:302",
-                "mont_pow": "phe_tpu/ops/pallas_modexp.py:570"}
+                "mont_pow": "phe_tpu/ops/pallas_modexp.py:570",
+                "vpu_microbench": "scripts/vpu_microbench.py:36"}
     checks = {"mont_mul": mul_checks["mont_mul"],
               "mont_mul_const": mul_checks["mont_mul_const"],
               "rns_ladder": ladder_checks}
     checks.update({name: [c] for name, c in vec_checks.items()})
+    checks["vpu_microbench"] = chain_checks
+    for name, c in wide_checks.items():
+        checks[name].append(c)
     for name in src:
         check(path_launches.get(name, 0) > 0,
               "%s was not launched on the main path" % name)

@@ -6,25 +6,32 @@ n^2 (Bp: B rounded up to a power-of-two bucket, padded with identity rows),
 and:
 
 * fresh encryption is nude = n*m + 1 (the g = n+1 shortcut,
-  phe/paillier.py:132-134) times the obfuscator r^n, with r^n on the RNS
-  ladder and the limb products in the Montgomery kernel; the short mode
+  phe/paillier.py:132-134) times the obfuscator r^n, with r^n on the
+  modexp engine and the limb products in the Montgomery kernel; the short mode
   takes h^a for one cached h = x^n and a fresh 320-bit a per element, on
   the limb-engine modexp kernels;
 * decryption is CRT with exponents p-1, q-1 over p^2, q^2
-  (phe/paillier.py:346-353) on two RNS ladders, then the Hensel L-function,
+  (phe/paillier.py:346-353) on two modexps, then the Hensel L-function,
   the hp/hq products and the CRT recombination on the device, and a compact
   decode that ships 3 words per element to the host;
 * homomorphic add is one Montgomery product mod n^2 (phe/paillier.py:
   705-719); scalar multiply, exponent alignment, sums at mixed exponents
-  and matvec run one per-element-exponent RNS ladder (_pow_elems,
+  and matvec run one per-element-exponent modexp (_pow_elems,
   phe/paillier.py:721-751), negative scalars on the batch-inverted
   ciphertexts; sums are log-depth Montgomery-product trees.
 
-The port runs one engine, RNS, on every key it supports; a key whose n^2
-needs more channel primes than exist raises NotImplementedError (see
-rns._channels). Encoding exponents are host-side numpy metadata. Blinding
-factors r come from the host CSPRNG (``secrets``), never from a torch
-generator.
+Two modexp engines, as in phe_tpu on its chip, with no knob between them:
+the RNS ladder (csrc/rns_ladder.cu) wherever the channel-prime supply
+covers the modulus (rns.fits: moduli up to ~8,760 bits), and the limb
+engine's windowed modexps (csrc/mont_pow.cu) past it. The choice is made
+per modulus: ``rns_state()`` is None past the supply, and each program
+with an RNS twin (_encrypt_limb, _obfuscate_limb, _pow_elems,
+_decrypt_residue_limb) runs on that answer alone. Keys up to ~4,380 bits
+run everything on RNS; at 8192-bit keys n^2 (16,384 bits) runs on the limb
+engine while the decrypt halves p^2, q^2 (8,192 bits) stay on RNS; only
+above ~8,760-bit keys does decryption take the limb engine too. Encoding
+exponents are host-side numpy metadata. Blinding factors r come from the
+host CSPRNG (``secrets``), never from a torch generator.
 """
 
 import functools
@@ -53,6 +60,8 @@ _MIN_BUCKET = 4
 _WINDOW_GROUP = 8
 # Exponent bits of short obfuscation's h^a.
 SHORT_EXPONENT_BITS = 320
+# rns_state()'s cache before its first call (None is a cached answer).
+_UNBUILT = object()
 
 
 def bucket_rows(b):
@@ -233,12 +242,17 @@ def _pow_elems(mont, digits, ctx, rstate):
     exponent alignment, matvec grids: the reference's _raw_mul and
     decrease_exponent_to, phe/paillier.py:721-751, :570-601). mont:
     [..., L]; digits: [..., n_windows] schedules at DEFAULT_WINDOW (host
-    int8 arrays, as _digits_rows makes them). The RNS ladder enters
-    through M_A^2 R^-1, which strips the operand's R ((c R) R^-1 = c),
-    and exits through R, which puts it back: no limb REDC on the path.
-    reduce_excess absorbs the ladder's +jN offset, so outputs are
-    canonical < N. (phe_tpu's _pow_elems_dev is its jit wrapper.)
+    int8 arrays, as _digits_rows makes them). rstate None (a modulus past
+    the RNS channel supply) runs the limb engine's per-row modexp
+    (mg.mont_pow), output < 1.01 M. An RnsPubState runs the RNS ladder,
+    entering through M_A^2 R^-1, which strips the operand's R
+    ((c R) R^-1 = c), and exiting through R, which puts it back: no limb
+    REDC on the path. reduce_excess absorbs the ladder's +jN offset, so
+    its outputs are canonical < N. (phe_tpu's _pow_elems_dev is its jit
+    wrapper.)
     """
+    if rstate is None:
+        return mg.mont_pow(mont, digits, ctx)
     lead = mont.shape[:-1]
     L = ctx.num_limbs
     digits = np.asarray(digits)
@@ -275,6 +289,26 @@ def _obfuscate_rns(mont, r_bytes, n_digits, ctx, st):
     r = lm.unpack_bytes(r_bytes, ctx.num_limbs)
     obf = _rns_pow_to_mont(r, n_digits, st, ctx, ENCRYPT_WINDOW)
     return mg.mont_mul(mont, obf, ctx)
+
+
+def _limb_obfuscator(r_bytes, n_digits, ctx):
+    """r^n R mod n^2 on the limb engine: r enters the Montgomery domain
+    (one shared-operand product), then the shared-exponent modexp."""
+    r = lm.unpack_bytes(r_bytes, ctx.num_limbs)
+    return mg.mont_pow_shared(mg.to_mont(r, ctx), n_digits, ctx,
+                              window=ENCRYPT_WINDOW)
+
+
+def _encrypt_limb(m_bytes, r_bytes, nr2, n_digits, ctx, ln):
+    """_encrypt_rns on the limb engine, for n^2 past the RNS channel
+    supply (phe_tpu's _encrypt_dev)."""
+    nude = _nude_raw(lm.unpack_bytes(m_bytes, ln), nr2, ctx)
+    return mg.mont_mul(nude, _limb_obfuscator(r_bytes, n_digits, ctx), ctx)
+
+
+def _obfuscate_limb(mont, r_bytes, n_digits, ctx):
+    """_obfuscate_rns on the limb engine (phe_tpu's _obfuscate_dev)."""
+    return mg.mont_mul(mont, _limb_obfuscator(r_bytes, n_digits, ctx), ctx)
 
 
 def _nude_encrypt_dev(m_bytes, nr2, ctx, ln):
@@ -472,6 +506,42 @@ def _crt_recombine(mp, mq, pk):
     return lm.normalize(m)
 
 
+def _mont_entry(x, ctx2):
+    """x * R mod p^2 for mod_reduce's [B, L2+1] output (value < 1.51 R).
+
+    The top limb t has weight R and t <= 1, so x*R^2*R^-1 = REDC(x_lo *
+    R^2) + t * R^2: one shared-operand product plus a limbwise add. The
+    result has L2 limbs in [0, 2^14] and value < 3.01 p^2, inside both
+    modexps' input bounds (the RNS ladder's 2kN; the limb modexp's first
+    products land below 1.01 p^2 because R >= 2^16 p^2).
+    """
+    L2 = ctx2.num_limbs
+    return lm.add(mg.mont_mul_const(x[..., :L2].contiguous(), ctx2.r2, ctx2),
+                  x[..., L2:] * ctx2.r2)
+
+
+def _decrypt_residue_limb(ct_mont, pub_ctx, pk):
+    """_decrypt_residue_rns on the limb engine, for prime squares past the
+    RNS channel supply (keys above ~8,760 bits; phe_tpu's
+    _decrypt_residue_limb): per half, c^(p-1) mod p^2 by the
+    shared-exponent limb modexp, out of the Montgomery domain to canonical
+    limbs, then the same L-function and CRT recombination.
+    """
+    plain = mg.from_mont(ct_mont, pub_ctx)
+    halves = []
+    for ctx2, red, ddig, ctxh, cm_pinv, h_limbs in (
+        (pk.ctx_p, pk.red_p, pk.dp_digits, pk.ctx_hp, pk.cm_pinv_p,
+         pk.hp_limbs),
+        (pk.ctx_q, pk.red_q, pk.dq_digits, pk.ctx_hq, pk.cm_pinv_q,
+         pk.hq_limbs),
+    ):
+        xm = _mont_entry(mg.mod_reduce(plain, ctx2, red), ctx2)
+        powed = mg.mont_pow_shared(xm, ddig, ctx2, window=DECRYPT_WINDOW)
+        xc = mg.export_canonical(mg.from_mont(powed, ctx2), ctx2)
+        halves.append(_lfunction_half(xc, ctxh, cm_pinv, h_limbs))
+    return _crt_recombine(halves[0], halves[1], pk)
+
+
 def _decrypt_residue_rns(ct_mont, pub_ctx, pk, half_p, half_q):
     """CRT decryption with both half-width modexps on the RNS ladder.
 
@@ -490,16 +560,8 @@ def _decrypt_residue_rns(ct_mont, pub_ctx, pk, half_p, half_q):
         (pk.ctx_q, pk.red_q, pk.dq_digits, half_q, pk.ctx_hq,
          pk.cm_pinv_q, pk.hq_limbs),
     ):
-        x = mg.mod_reduce(plain, ctx2, red)  # [B, L2+1], value < 1.51 R
-        # Montgomery entry: the top limb t has weight R and t <= 1, so
-        # x*R^2*R^-1 = REDC(x_lo * R^2) + t * R^2 — one shared-operand
-        # product plus a limbwise add; value <= 3.01 p^2, inside the
-        # ladder's 2kN input bound.
         L2 = ctx2.num_limbs
-        xm = lm.add(
-            mg.mont_mul_const(x[..., :L2].contiguous(), ctx2.r2, ctx2),
-            x[..., L2:] * ctx2.r2,
-        )
+        xm = _mont_entry(mg.mod_reduce(plain, ctx2, red), ctx2)
         wide = rns.pow_shared(
             xm, ddig, conv, rsys, window=DECRYPT_WINDOW, exit_res=ers
         )
@@ -532,35 +594,40 @@ class PublicDeviceContext:
         self.nr2_limbs = mg._tensor(
             hl.int_to_limbs(n * (R * R % nsq) % nsq, self.L), device
         )
-        self._rns = None
+        self._rns = _UNBUILT
         # h = x^n of short obfuscation, [1, L] Montgomery form (first use).
         self._h_mont = None
 
     def rns_state(self):
-        """RnsPubState for modexp mod n^2 (built on first use).
+        """RnsPubState for modexp mod n^2 (built on first use), or None.
 
-        Raises NotImplementedError when n^2 exceeds the RNS channel prime
-        supply (keys above ~4,380 bits).
+        None when n^2 exceeds the RNS channel prime supply (keys above
+        ~4,380 bits): the modexps mod n^2 then run on the limb engine,
+        which has no size ceiling. Either answer is cached.
         """
-        if self._rns is None:
+        if self._rns is _UNBUILT:
             nsq = self.public_key.nsquare
-            rsys = rns.build_rns(nsq, self.device)
-            R = 1 << (lm.LIMB_BITS * self.L)
-            M_A = 1
-            for a in rsys.m[: rsys.k].tolist():
-                M_A *= a
-            self._rns = RnsPubState(
-                rsys=rsys,
-                conv=rns.build_conversion(rsys, self.L),
-                entry_mont=rns.residues(
-                    M_A * M_A % nsq * pow(R, -1, nsq) % nsq, rsys),
-                exit_r=rns.residues(R % nsq, rsys),
-                red=mg.build_excess_reducer(nsq, rsys.out_limbs, self.device),
-            )
+            self._rns = self._build_rns(nsq) if rns.fits(nsq) else None
         return self._rns
 
+    def _build_rns(self, nsq):
+        rsys = rns.build_rns(nsq, self.device)
+        R = 1 << (lm.LIMB_BITS * self.L)
+        M_A = 1
+        for a in rsys.m[: rsys.k].tolist():
+            M_A *= a
+        return RnsPubState(
+            rsys=rsys,
+            conv=rns.build_conversion(rsys, self.L),
+            entry_mont=rns.residues(
+                M_A * M_A % nsq * pow(R, -1, nsq) % nsq, rsys),
+            exit_r=rns.residues(R % nsq, rsys),
+            red=mg.build_excess_reducer(nsq, rsys.out_limbs, self.device),
+        )
+
     def rstate(self):
-        """The RnsPubState handed to the per-element programs (_pow_elems)."""
+        """The engine handle of the per-element programs (_pow_elems):
+        the RnsPubState, or None for the limb engine."""
         return self.rns_state()
 
     # -- packing ---------------------------------------------------------
@@ -624,14 +691,20 @@ class PublicDeviceContext:
         """Fresh encryption (n*m+1)*r^n for encoded residues -> [Bp, L]."""
         m = self.pack_messages(encodings)
         r = self.random_r_bytes(len(encodings), r_values)
+        st = self.rns_state()
+        if st is None:
+            return _encrypt_limb(m, r, self.nr2_limbs, self.n_digits,
+                                 self.ctx, self.Ln)
         return _encrypt_rns(m, r, self.nr2_limbs, self.n_digits, self.ctx,
-                            self.rns_state(), self.Ln)
+                            st, self.Ln)
 
     def obfuscate_mont(self, mont):
         """Fresh uniform re-obfuscation of a Montgomery ciphertext batch."""
         r = self.random_r_bytes(mont.shape[0])
-        return _obfuscate_rns(mont, r, self.n_digits, self.ctx,
-                              self.rns_state())
+        st = self.rns_state()
+        if st is None:
+            return _obfuscate_limb(mont, r, self.n_digits, self.ctx)
+        return _obfuscate_rns(mont, r, self.n_digits, self.ctx, st)
 
     def obfuscate_mont_short(self, mont, exponent_bits=SHORT_EXPONENT_BITS):
         """Re-obfuscation by h^a, with h = x^n fixed per key and device and
@@ -736,38 +809,43 @@ class PrivateDeviceContext:
                 (1 << (lm.LIMB_BITS * 2 * Lh)) - 1 - pub.max_int, 2 * Lh
             ), device),
         )
-        self._rns = None
+        self._rns = _UNBUILT
 
     def rns_state(self):
-        """Per-prime-square RNS halves for the CRT decrypt modexps.
+        """Per-prime-square RNS halves for the CRT decrypt modexps, or None.
 
         Each half is (RNSSystem, RNSConversion, exit_res, ExcessReducer):
         the ladder enters with Montgomery-domain values x*R < 3.01 p^2 and
         exits through E = R^(1-p) mod p^2, landing at the plain x^(p-1).
+        None when either prime square exceeds the RNS channel supply (keys
+        above ~8,760 bits): decryption then runs on the limb engine
+        (_decrypt_residue_limb). Either answer is cached.
         """
-        if self._rns is None:
+        if self._rns is _UNBUILT:
             priv = self.private_key
-            state = []
-            for pp, nsq, ctx2 in (
-                (priv.p, priv.psquare, self.consts.ctx_p),
-                (priv.q, priv.qsquare, self.consts.ctx_q),
-            ):
-                rsys = rns.build_rns(nsq, self.device)
-                R = 1 << (lm.LIMB_BITS * ctx2.num_limbs)
-                E = pow(pow(R, -1, nsq), pp - 1, nsq)
-                state.append((
-                    rsys,
-                    rns.build_conversion(rsys, ctx2.num_limbs),
-                    rns.residues(E, rsys),
-                    mg.build_excess_reducer(nsq, rsys.out_limbs, self.device),
-                ))
-            self._rns = tuple(state)
+            squares = ((priv.p, priv.psquare, self.consts.ctx_p),
+                       (priv.q, priv.qsquare, self.consts.ctx_q))
+            self._rns = None
+            if all(rns.fits(nsq) for _, nsq, _ in squares):
+                self._rns = tuple(self._build_half(pp, nsq, ctx2)
+                                  for pp, nsq, ctx2 in squares)
         return self._rns
 
+    def _build_half(self, pp, nsq, ctx2):
+        rsys = rns.build_rns(nsq, self.device)
+        R = 1 << (lm.LIMB_BITS * ctx2.num_limbs)
+        E = pow(pow(R, -1, nsq), pp - 1, nsq)
+        return (rsys, rns.build_conversion(rsys, ctx2.num_limbs),
+                rns.residues(E, rsys),
+                mg.build_excess_reducer(nsq, rsys.out_limbs, self.device))
+
     def _residue(self, ct_mont):
-        half_p, half_q = self.rns_state()
+        halves = self.rns_state()
+        if halves is None:
+            return _decrypt_residue_limb(ct_mont, self.pub_ctx.ctx,
+                                         self.consts)
         return _decrypt_residue_rns(ct_mont, self.pub_ctx.ctx, self.consts,
-                                    half_p, half_q)
+                                    *halves)
 
     def raw_decrypt_launch(self, ct_mont):
         """Run the decrypt program: [Bp, nbytes] packed plaintext bytes."""

@@ -1,8 +1,11 @@
 """Runtime configuration: the device and the kernel build directory.
 
-The port has one modexp engine (RNS, with its ladder as a CUDA kernel), so
-there is no engine knob. What remains is where tensors live and where the
-hand-written kernels are compiled to:
+The port has two modexp engines, the RNS ladder and the limb engine's
+windowed modexps, each with its CUDA kernels. There is no knob between
+them: the RNS ladder runs wherever the channel-prime supply covers the
+modulus and the limb engine past it, decided per modulus by
+``rns_state()`` in phe_tpu_torch.batch. What remains to configure is where
+tensors live and where the hand-written kernels are compiled to:
 
   device        ``"cuda"`` unless the caller passes another. Asking for
                 CUDA on a machine without it raises; nothing falls back to

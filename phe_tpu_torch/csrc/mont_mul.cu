@@ -13,10 +13,12 @@
 // What bounds it on an H100: integer multiply-add issue. A row costs about
 // 2.5 L^2 64-bit multiply-adds (219k at L = 296) and reads and writes only
 // 3 L int64 limbs, far below the memory bound. One block per row keeps
-// every row's work in shared memory (48 L bytes: 14 KB at L = 296) with no
-// traffic to device memory between the steps; 128 threads split the
-// columns. Later work: 32-bit split accumulators and several rows per
-// block to share the loads of M and M'.
+// every row's work in shared memory (48 L bytes: 14 KB at L = 296, 55 KB
+// at L = 1176, the 8192-bit n^2, above the 48 KB default, so the launch
+// raises the block's dynamic shared-memory limit first) with no traffic to
+// device memory between the steps; 128 threads split the columns. Later
+// work: 32-bit split accumulators and several rows per block to share the
+// loads of M and M'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +71,10 @@ extern "C" int phe_mont_mul(const int64_t* a, const int64_t* b,
                             cudaStream_t stream) {
   const size_t smem = 2 * 2 * L * sizeof(unsigned long long) +
                       4 * L * sizeof(unsigned int);
+  cudaError_t err = cudaFuncSetAttribute(
+      mont_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   mont_mul_kernel<<<B, kThreads, smem, stream>>>(a, b, mod, mprime, out, L,
                                                  b_shared ? 0 : L);
   return static_cast<int>(cudaGetLastError());

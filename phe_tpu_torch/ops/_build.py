@@ -20,7 +20,7 @@ import subprocess
 
 from phe_tpu_torch import config
 
-SOURCES = ("mont_mul", "mont_pow", "rns_ladder")
+SOURCES = ("mont_mul", "mont_pow", "rns_ladder", "microbench")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

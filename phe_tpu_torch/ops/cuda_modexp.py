@@ -29,10 +29,9 @@ from phe_tpu_torch.ops import _build
 from phe_tpu_torch.ops import cuda_rns
 from phe_tpu_torch.ops import montgomery as mg
 
-MAX_LIMBS = 1016  # shared memory: 48 L bytes per block, under 48 KB
-# mont_pow's shared memory, 4L (2^w + 4) + 32 L bytes, inside the 227 KB
-# a block can have on Hopper.
-MAX_POW_SMEM = 232448
+# The dynamic shared memory a block can have on Hopper (227 KB). mont_mul
+# takes 48 L bytes (L <= 4842), mont_pow 4L (2^w + 4) + 32 L.
+MAX_SMEM = 232448
 launches = {"mont_mul": 0, "mont_mul_const": 0, "mont_pow_shared": 0,
             "mont_pow": 0}
 
@@ -78,10 +77,10 @@ def _launch(a, b, ctx, shared):
     if a.dim() != 2:
         raise ValueError("a must be [B, L], got shape %s" % (tuple(a.shape),))
     B, L = a.shape
-    if L != ctx.num_limbs or L % 8 or L > MAX_LIMBS:
+    if L != ctx.num_limbs or L % 8 or 48 * L > MAX_SMEM:
         raise ValueError(
             "limb count %d: need the context's L = %d, a multiple of 8, "
-            "at most %d" % (L, ctx.num_limbs, MAX_LIMBS)
+            "with 48 L <= %d bytes" % (L, ctx.num_limbs, MAX_SMEM)
         )
     dev = a.device
     _check(a, "a", (B, L), dev)
@@ -125,11 +124,11 @@ def _pow_launch(base, digits, ctx, window, vec):
                          % (tuple(base.shape),))
     B, L = base.shape
     smem = 4 * L * ((1 << window) + 4) + 32 * L if 1 <= window <= 8 else 0
-    if L != ctx.num_limbs or not 0 < smem <= MAX_POW_SMEM:
+    if L != ctx.num_limbs or not 0 < smem <= MAX_SMEM:
         raise ValueError(
             "limb count %d at window %d: need the context's L = %d and "
             "window in [1, 8] with 4L(2^w + 4) + 32L <= %d bytes"
-            % (L, window, ctx.num_limbs, MAX_POW_SMEM)
+            % (L, window, ctx.num_limbs, MAX_SMEM)
         )
     dev = base.device
     _check(base, "base", (B, L), dev)

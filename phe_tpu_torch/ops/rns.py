@@ -87,19 +87,15 @@ class RNSSystem(NamedTuple):
         return self.neg_mb_limbs.shape[0]
 
 
-def _primes_below(top, count):
-    """The `count` largest primes below `top` (descending), sieve-based."""
+def _channel_supply():
+    """Every prime in [M_MIN, 2^14), descending: the channel moduli."""
+    top = 1 << 14
     sieve = np.ones(top, dtype=bool)
     sieve[:2] = False
     for i in range(2, int(top**0.5) + 1):
         if sieve[i]:
             sieve[i * i :: i] = False
-    ps = np.nonzero(sieve)[0][::-1]
-    if len(ps) < count:
-        raise ValueError(
-            "not enough primes below %d for %d channels" % (top, count)
-        )
-    return [int(p) for p in ps[:count]]
+    return [int(p) for p in np.nonzero(sieve)[0][::-1] if p >= M_MIN]
 
 
 def _digit_blocks(entries):
@@ -116,30 +112,16 @@ def _digit_blocks(entries):
     return np.block([[lo, z], [hi, lo], [z, hi]])
 
 
-def _channels(modulus, max_entry_bits=None):
-    """(k, A, B, m_r, M_A, M_B): the channel primes for modulus N.
-
-    The general product bound is x*y <= k*N*M_A; chained operands <= 2kN
-    need M_A >= 4kN. ``max_entry_bits`` additionally sizes M_A for a wider
-    first operand. Past the supply of primes in (M_MIN, 2^14) (moduli
-    above ~8,760 bits, keys above ~4,380) the modexps need the limb-engine
-    fallback around the pow kernels, which is not wired yet: that raises
-    NotImplementedError.
-    """
-    N = int(modulus)
+def _channel_plan(N, max_entry_bits):
+    """(k, A, B, m_r, M_A, M_B) for modulus N, or None past the supply."""
     entry_floor = (1 << max_entry_bits) if max_entry_bits else 0
+    supply = _channel_supply()
     k = max(8, -(-(N.bit_length() + 24) // 14))
     while True:
         k = -(-k // 8) * 8
-        primes = _primes_below(1 << 14, 2 * k + 1)
-        if min(primes) < M_MIN or k > 1000:
-            raise NotImplementedError(
-                "a %d-bit modulus exceeds the (%d, 2^14) RNS channel supply; "
-                "it needs the limb-engine fallback on the pow kernels "
-                "(phe_tpu's pallas_modexp.mont_pow_shared_cols and "
-                "mont_pow_cols), which is not wired yet"
-                % (N.bit_length(), M_MIN)
-            )
+        if 2 * k + 1 > len(supply) or k > 1000:
+            return None
+        primes = supply[: 2 * k + 1]
         A, B, m_r = primes[0 : 2 * k : 2], primes[1 : 2 * k : 2], primes[2 * k]
         M_A = M_B = 1
         for a in A:
@@ -150,6 +132,31 @@ def _channels(modulus, max_entry_bits=None):
         if M_A >= need and M_B >= 4 * k * N:
             return k, A, B, m_r, M_A, M_B
         k += 8
+
+
+def fits(modulus, max_entry_bits=None):
+    """Whether the channel-prime supply covers modulus N (build_rns's
+    condition): moduli up to ~8,760 bits, keys up to ~4,380 bits for n^2.
+    Past it the modexps run on the limb engine (batch.py)."""
+    return _channel_plan(int(modulus), max_entry_bits) is not None
+
+
+def _channels(modulus, max_entry_bits=None):
+    """(k, A, B, m_r, M_A, M_B): the channel primes for modulus N.
+
+    The general product bound is x*y <= k*N*M_A; chained operands <= 2kN
+    need M_A >= 4kN. ``max_entry_bits`` additionally sizes M_A for a wider
+    first operand. Past the supply of primes in [M_MIN, 2^14) (moduli
+    above ~8,760 bits) or the digit-combine cap k <= 1000 this raises
+    ValueError, as phe_tpu's build_rns does; callers ask ``fits`` first.
+    """
+    plan = _channel_plan(int(modulus), max_entry_bits)
+    if plan is None:
+        raise ValueError(
+            "a %d-bit modulus exceeds the [%d, 2^14) RNS channel supply"
+            % (int(modulus).bit_length(), M_MIN)
+        )
+    return plan
 
 
 def build_rns(modulus, device, max_entry_bits=None):
@@ -194,25 +201,19 @@ def build_rns(modulus, device, max_entry_bits=None):
     r2int = M_A * M_A % N
     r2_dom = [r2int % m * int(s) % m for m, s in zip(chans, scale)]
 
-    w1 = np.zeros((k + _SPARE, k), np.uint32)
-    for jj in range(k + _SPARE):
-        mj = chans[k + jj]
-        for i, a in enumerate(A):
-            w1[jj, i] = (M_A // a) % mj
+    ma_over = [M_A // a for a in A]
+    mb_over = [M_B // b for b in B]
+    w1 = np.array([[q % mj for q in ma_over] for mj in chans[k:]], np.uint32)
     out_rows = A + [m_r] * _SPARE
-    w2 = np.zeros((k + _SPARE, k), np.uint32)
-    for ii in range(k + _SPARE):
-        mi = out_rows[ii]
-        for j, b in enumerate(B):
-            w2[ii, j] = (M_B // b) % mi
+    w2 = np.array([[q % mi for q in mb_over] for mi in out_rows], np.uint32)
 
     out_limbs = hl.num_limbs_for_bits(M_B.bit_length())
     vout = np.zeros((out_limbs, k), np.uint32)
-    for j, b in enumerate(B):
-        vout[:, j] = hl.int_to_limbs(M_B // b, out_limbs)
+    for j, q in enumerate(mb_over):
+        vout[:, j] = hl.int_to_limbs(q, out_limbs)
     w_r = np.zeros(cpad, np.int64)
-    for j, b in enumerate(B):
-        w_r[k + j] = (M_B // b) % m_r
+    for j, q in enumerate(mb_over):
+        w_r[k + j] = q % m_r
     r_out = 1 << (lm.LIMB_BITS * out_limbs)
 
     t = lambda a: mg._tensor(a, device)

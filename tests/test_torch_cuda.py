@@ -9,9 +9,9 @@ PyTorch and the CUDA toolkit (the tests' conftest imports jax, hence
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Montgomery products and the limb-engine modexps are held value-equal mod
-M and inside the kernel contract's bounds; both ladders are held bit-equal
-(every residue is canonical). Tolerance zero throughout: all exact integer
-arithmetic.
+M and inside the kernel contract's bounds, up to the 8192-bit key's n^2
+(L = 1,176 limbs); both ladders and the issue-rate chain are held
+bit-equal. Tolerance zero throughout: all exact integer arithmetic.
 """
 
 import random
@@ -22,7 +22,8 @@ import torch
 
 import phe_tpu_torch as pt
 from phe_tpu_torch import batch as tbatch
-from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+from phe_tpu_torch import benchmarks
+from phe_tpu_torch.ops import cuda_microbench, cuda_modexp, cuda_rns
 from phe_tpu_torch.ops import montgomery as mg
 from phe_tpu_torch.ops import rns
 from phe_tpu_torch.utils import limbs as hl
@@ -41,7 +42,7 @@ def _limbs(values, L, dev):
     return mg._tensor(hl.ints_to_limbs(values, L), dev)
 
 
-@pytest.mark.parametrize("bits", [300, 1024, 2048, 4096])
+@pytest.mark.parametrize("bits", [300, 1024, 2048, 4096, 16384])
 @pytest.mark.parametrize("shared", [False, True], ids=["two", "shared"])
 def test_mont_mul_kernel_matches_plain(dev, bits, shared):
     rng = random.Random(bits + shared)
@@ -129,10 +130,7 @@ def test_ladder_wrapper_checks(dev):
 
 def _key(bits):
     if bits == 2048:
-        from chip_smoke import P, Q
-
-        pub = pt.PaillierPublicKey(P * Q)
-        return pub, pt.PaillierPrivateKey(pub, P, Q)
+        return benchmarks.fixed_key(2048)
     return pt.generate_paillier_keypair(n_length=bits)
 
 
@@ -285,3 +283,58 @@ def test_round_trip_on_the_card_goes_through_the_kernels(dev):
     encs = pt.EncodedNumber.encode_many(pub, values)
     assert pinned.ciphertext_ints(be_secure=False) == [
         pub.raw_encrypt(e.encoding, r_value=r) for e, r in zip(encs, rs)]
+
+
+@pytest.mark.parametrize("body", sorted(cuda_microbench.BODIES))
+def test_issue_chain_kernel_bit_equal_to_plain(dev, body):
+    rng = np.random.default_rng(len(body))
+    x = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (256, 512),
+                                     dtype=np.int64).astype(np.int32),
+                        device=dev)
+    for K in (0, 1, 37):
+        before = cuda_microbench.launches["vpu_microbench"]
+        got = cuda_microbench.issue_chain(x, body, K)
+        assert cuda_microbench.launches["vpu_microbench"] == before + 1
+        plain = cuda_microbench.issue_chain_plain(x, body, K)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, plain)
+
+
+def test_issue_chain_wrapper_checks(dev):
+    x = torch.ones((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        cuda_microbench.issue_chain(x.long(), "mul", 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_microbench.issue_chain(x.t(), "mul", 3)
+    with pytest.raises(ValueError, match="\\[R, C\\]"):
+        cuda_microbench.issue_chain(x.reshape(-1), "mul", 3)
+    with pytest.raises(ValueError, match="unknown body"):
+        cuda_microbench.issue_chain(x, "dp4a", 3)
+    assert cuda_microbench.issue_chain(x[:0], "add", 3).shape == (0, 8)
+
+
+def test_mont_pow_at_the_8192_bit_geometry(dev):
+    """mont_pow at L = 1,176 (n^2 of an 8192-bit key, window 4: 131 KB of
+    shared memory a block), on 64-bit schedules, against its plain
+    version and Python pow."""
+    rng = random.Random(8192)
+    M = rng.getrandbits(16384) | (1 << 16383) | 1
+    ctx = mg.build_context(M, dev)
+    L = ctx.num_limbs
+    assert L == 1176
+    rows = 6
+    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    es = [rng.getrandbits(64) for _ in range(rows - 2)] + [0, (1 << 64) - 1]
+    base = _limbs(xs, L, dev)
+    digits = tbatch._digits_rows(es, 64)
+    got = cuda_modexp.mont_pow(base, digits, ctx)
+    plain = mg.mont_pow_plain(base, digits, ctx)
+    torch.cuda.synchronize()
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    want = [pow(x * Rinv, e, M) * R % M for x, e in zip(xs, es)]
+    g = hl.limbs_to_ints(got.cpu().numpy())
+    assert [v % M for v in g] == want
+    assert [v % M for v in hl.limbs_to_ints(plain.cpu().numpy())] == want
+    assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+    assert all(100 * v < 101 * M for v in g)

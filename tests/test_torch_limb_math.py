@@ -187,10 +187,13 @@ def test_port_imports_neither_jax_nor_phe_tpu():
         "phe_tpu_torch.interop, phe_tpu_torch.ops.cuda_modexp, "
         "phe_tpu_torch.ops.cuda_rns, phe_tpu_torch.ops._build, "
         "phe_tpu_torch.models, phe_tpu_torch.models.logreg, "
-        "phe_tpu_torch.models.federated, chip_smoke\n"
+        "phe_tpu_torch.models.federated, phe_tpu_torch.microbench, "
+        "phe_tpu_torch.profiling, phe_tpu_torch.benchmarks, "
+        "phe_tpu_torch.bench, phe_tpu_torch.ops.cuda_microbench, "
+        "chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'phe_tpu' "
-        "or m.startswith('phe_tpu.'))\n"
+        "or m.startswith('phe_tpu.') or m == '__graft_entry__')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
