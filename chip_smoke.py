@@ -37,7 +37,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    aggregation of 5 x 16,384 gradients, and short-obfuscated encryption.
    Phase 2 also holds the issue-rate chain (phe_tpu_torch.microbench's
    kernel) bit-equal to its plain version for all five bodies on the full
-   [256, 512] tile at K = 4,000, and the Montgomery product at L = 1,176
+   [256, 512] tile at K = 4,000, no faster than its bound (CHAIN_ISSUE),
+   and the Montgomery product at L = 1,176
    (the 8192-bit key's n^2) on 1,024 rows.
 5. The calibration: phe_tpu_torch.microbench.main() (five bodies, K =
    4,000 and 32,000, the fold guard), its two rates printed beside the
@@ -53,7 +54,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is the device record. Kernel times are
-CUDA-event times; bounds use NVIDIA's published H100 SXM peaks.
+CUDA-event times; bounds use NVIDIA's published H100 SXM peaks, and for
+the issue-rate chain the instructions its SASS issues (CHAIN_ISSUE).
 """
 
 import json
@@ -89,6 +91,14 @@ INT8_MAC_PER_S = 1979e12 / 2  # 1,979 TOP/s int8 dense, 2 ops per MAC
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (the clock behind the 67
 # TFLOP/s fp32 peak): integer multiply-adds, shifts, compares per second.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The issue-rate chain's instructions an iteration on sm_90a, as
+# cuobjdump -sass shows its unrolled loops: (integer ALU pipe: IADD3, SHF,
+# ISETP, SEL; FMA pipe: IMAD and its MOV and IADD forms). ptxas merges
+# add's iterations in pairs (one IADD3 of a + x + x) and shiftmul's
+# neighbouring shifts (one SHF by 28); barrett balances its eight over the
+# two pipes. Each pipe retires 64 lanes a clock an SM, INT32_OPS_PER_S.
+CHAIN_ISSUE = {"mul": (0, 1), "add": (0.5, 0), "muladd": (0, 1),
+               "shiftmul": (1, 1), "barrett": (4, 4)}
 
 
 def fail(msg):
@@ -553,10 +563,19 @@ def arithmetic_path(pub, priv, dev, card, totals):
     return rates
 
 
+def chain_bound(body, K, n):
+    """(least ms, "operations") for K iterations of a chain body over n
+    elements: the busier of the two pipes of CHAIN_ISSUE at
+    INT32_OPS_PER_S; the two pipes issue side by side. Bytes (one word in,
+    one out an element) are negligible."""
+    return bound_ms(8 * n, int32_ops=K * n * max(CHAIN_ISSUE[body]))
+
+
 def check_issue_chain(dev):
     """Phase 2, the issue-rate chain: each body on the full [256, 512] tile
     at K = CHAIN_K, on the calibration's inputs, bit-equal to its plain
-    version on the card. Returns one record per body."""
+    version on the card and no faster than its bound (a faster one would
+    show CHAIN_ISSUE stale). Returns one record per body."""
     from phe_tpu_torch import microbench
     from phe_tpu_torch.ops import cuda_microbench as cm
 
@@ -564,7 +583,7 @@ def check_issue_chain(dev):
     x = torch.as_tensor(g.integers(1, 1 << 14, (microbench.R, microbench.TB),
                                    dtype=np.int32), device=dev)
     out = []
-    for body, (_, ops) in cm.BODIES.items():
+    for body in cm.BODIES:
         got = cm.issue_chain(x, body, CHAIN_K)
         sync()
         t0 = time.perf_counter()
@@ -575,11 +594,14 @@ def check_issue_chain(dev):
         check(err == 0, "vpu_microbench %s: kernel bits differ from the "
               "plain version" % body)
         ms = cuda_ms(lambda: cm.issue_chain(x, body, CHAIN_K), 10)
-        bms, by = bound_ms(8 * x.numel(), int32_ops=CHAIN_K * x.numel() * ops)
-        print("vpu_microbench %s [%d, %d] K=%d: bit-equal; kernel %.4f ms, "
-              "plain %.1f ms, bound %.4f ms (%s, %d ops an iteration)"
-              % (body, x.shape[0], x.shape[1], CHAIN_K, ms, plain_ms, bms, by,
-                 ops))
+        bms, by = chain_bound(body, CHAIN_K, x.numel())
+        print("vpu_microbench %s [%d, %d] K=%d: bit-equal; kernel %.4f ms "
+              "(%.2fx its bound), plain %.1f ms, bound %.4f ms (%s; ALU, FMA "
+              "pipe instructions an iteration %s)"
+              % (body, x.shape[0], x.shape[1], CHAIN_K, ms, ms / bms,
+                 plain_ms, bms, by, CHAIN_ISSUE[body]))
+        check(ms >= bms, "vpu_microbench %s ran under its bound: "
+              "CHAIN_ISSUE no longer matches the kernel's SASS" % body)
         out.append(dict(body=body, K=CHAIN_K, rows=x.shape[0],
                         cols=x.shape[1], max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, plain_rows=x.shape[0],

@@ -19,6 +19,7 @@ Emits one JSON object per (op, keysize) line, plus a summary table to stderr.
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -247,28 +248,38 @@ def bench_scaling(keysize=1024, batch=2048, runs=3, emit=print):
     )
 
 
+def _rss_kb():
+    """This process's resident set now, in KiB (Linux /proc)."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") // 1024
+
+
 def bench_mem(keysize=2048, test_size=100_000, step=10_000, emit=print,
               device=None):
     """Memory per held ciphertext: host RSS and the card's bytes.
 
     The reference measures ru_maxrss growth while holding a list of
-    EncryptedNumber objects (examples/benchmarks.py:74-86). Here the same
-    host measurement runs against EncryptedBatch (ciphertexts resident on
-    the card, the host holds metadata only), plus the exact device
-    footprint: a ciphertext is one Montgomery limb row of L int64 limbs,
-    so device bytes per ciphertext = mont.element_size() * L (8 L), the
-    number that bounds feasible batch sizes on the card.
+    EncryptedNumber objects (examples/benchmarks.py:74-86). Here the host
+    measurement runs against EncryptedBatch (ciphertexts resident on the
+    card, the host holds metadata only) and reads the resident set as it
+    is (/proc/self/statm), from after the key's device context is built:
+    ru_maxrss is a high-water mark, and any earlier peak of the process
+    hides the growth under it. Beside it, the exact device footprint: a
+    ciphertext is one Montgomery limb row of L int64 limbs, so device
+    bytes per ciphertext = mont.element_size() * L (8 L), the number that
+    bounds feasible batch sizes on the card.
     """
-    import resource
-
     from phe_tpu_torch.batch import EncryptedBatch
     from phe_tpu_torch.keys import generate_paillier_keypair
 
     dev = config.resolve_device(device)
     kind = device_name(dev)
-    r_init = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     pub, _ = generate_paillier_keypair(n_length=keysize)
-    L = pub.device_context(dev).L
+    dc = pub.device_context(dev)
+    dc.rns_state()
+    L = dc.L
+    r_init = _rss_kb()
     rng = np.random.default_rng(1)
     held = []
     per_ct = None
@@ -285,7 +296,7 @@ def bench_mem(keysize=2048, test_size=100_000, step=10_000, emit=print,
                         % (str(mont.dtype).replace("torch.", ""), L),
             }))
         n = i + step
-        rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - r_init
+        rss_kb = _rss_kb() - r_init
         emit(json.dumps({
             "metric": "host_rss_per_ciphertext", "keysize": keysize,
             "held": n, "rss_kb": rss_kb,

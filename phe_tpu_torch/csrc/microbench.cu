@@ -10,10 +10,11 @@
 // reinterpreted as uint32; the output is the chain's last value, the same
 // bit pattern as the plain version (ops/cuda_microbench.issue_chain_plain).
 //
-// What bounds it on an H100: int32 issue on the SMs' integer pipes,
-// K * ops_per_iter operations per element; its bytes (one word in, one
-// out) are negligible. That is the point: the two-K difference of its
-// times (phe_tpu_torch/microbench.py) is the card's sustained issue rate.
+// What bounds it on an H100: int32 issue, K times the body's instructions
+// per element on the busier of two pipes, the integer ALU and the FMA
+// pipe that runs IMAD, each 64 lanes a clock an SM; its bytes (one word
+// in, one out) are negligible. That is the point: the two-K difference of
+// its times (phe_tpu_torch/microbench.py) is the card's sustained rate.
 //
 // Design: one thread per element runs its whole chain in a register. The
 // body is a template parameter picked on the host, so the loop holds no
@@ -27,7 +28,8 @@
 // two iterations and shiftmul's two successive shifts merged into one, so
 // those two rows count more operations than instructions issued. mul (one
 // IMAD an iteration), muladd (one IMAD) and barrett (eight instructions,
-// no merging) run as counted; the calibration takes mul and barrett.
+// four on each pipe, no merging) do not merge; the calibration takes mul
+// and barrett. chip_smoke.py's CHAIN_ISSUE holds these counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -22,6 +22,7 @@ Residues travel as int64 tensors [..., cpad]; every intermediate stays
 below 2^31, so int64 computes the same integers as the uint32 reference.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -87,6 +88,7 @@ class RNSSystem(NamedTuple):
         return self.neg_mb_limbs.shape[0]
 
 
+@functools.cache
 def _channel_supply():
     """Every prime in [M_MIN, 2^14), descending: the channel moduli."""
     top = 1 << 14
@@ -95,7 +97,7 @@ def _channel_supply():
     for i in range(2, int(top**0.5) + 1):
         if sieve[i]:
             sieve[i * i :: i] = False
-    return [int(p) for p in np.nonzero(sieve)[0][::-1] if p >= M_MIN]
+    return tuple(int(p) for p in np.nonzero(sieve)[0][::-1] if p >= M_MIN)
 
 
 def _digit_blocks(entries):
@@ -112,8 +114,10 @@ def _digit_blocks(entries):
     return np.block([[lo, z], [hi, lo], [z, hi]])
 
 
+@functools.lru_cache(maxsize=64)
 def _channel_plan(N, max_entry_bits):
-    """(k, A, B, m_r, M_A, M_B) for modulus N, or None past the supply."""
+    """(k, A, B, m_r, M_A, M_B) for modulus N, or None past the supply;
+    cached, so ``fits`` and then ``build_rns`` plan a modulus once."""
     entry_floor = (1 << max_entry_bits) if max_entry_bits else 0
     supply = _channel_supply()
     k = max(8, -(-(N.bit_length() + 24) // 14))
@@ -164,7 +168,7 @@ def build_rns(modulus, device, max_entry_bits=None):
     N = int(modulus)
     k, A, B, m_r, M_A, M_B = _channels(N, max_entry_bits)
     cpad = 2 * k + _SPARE
-    chans = A + B + [m_r] * _SPARE
+    chans = A + B + (m_r,) * _SPARE
     marr = np.array(chans, dtype=np.int64)
 
     ninv = pow(N, -1, M_A)
@@ -204,7 +208,7 @@ def build_rns(modulus, device, max_entry_bits=None):
     ma_over = [M_A // a for a in A]
     mb_over = [M_B // b for b in B]
     w1 = np.array([[q % mj for q in ma_over] for mj in chans[k:]], np.uint32)
-    out_rows = A + [m_r] * _SPARE
+    out_rows = A + (m_r,) * _SPARE
     w2 = np.array([[q % mi for q in mb_over] for mi in out_rows], np.uint32)
 
     out_limbs = hl.num_limbs_for_bits(M_B.bit_length())
