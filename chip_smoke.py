@@ -2,12 +2,18 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
+With ``--compare-ladder OLD.cu`` it builds an earlier csrc/rns_ladder.cu
+(the eight-element __dp4a design) apart from the package and times it
+against the current kernel in turns instead (compare_ladder).
+
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Build every CUDA kernel from the checkout's sources (one nvcc per
    source, started together); print the build seconds, the compiler's
    per-kernel register and spill report, and the card's name and power
-   limit.
+   limit. Read the ladder's SASS (cuobjdump): every instantiation runs
+   its base extensions on the int8 tensor cores (IMMA) and none on
+   __dp4a (IDP4A).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: 16,384 rows at the fixed 2048-bit key. The
    Montgomery product runs at L = 296 (n^2), 152 (p^2) and 80 (p) and is
@@ -15,12 +21,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    limb and value bounds. The RNS ladder runs at k = 304 (exponent n, exit
    R) and k = 152 (exponent p-1, exit R^(1-p)); its first 128 rows are
    checked bit-equal against the plain version, which is too slow for the
-   whole batch, and four rows against Python pow. The tolerance is zero
-   everywhere: this is exact integer arithmetic.
+   whole batch, and four rows against Python pow; and at k = 624 (the
+   8192-bit key's p^2, exponent p-1) over 512 rows, 8 of them against the
+   plain version. Each prints the elements a block held (E) and fails if
+   it ran under its bound. Ragged batches (1, E - 1, E + 1 rows) of both
+   ladder modes are bit-equal on every row; one product's time at every E
+   (k = 304 over 16,384 rows, k = 624 over 512), its SM cycles phase by
+   phase (a second build with PHE_LADDER_PHASES) and torch._int_mm over
+   the extension GEMMs (a yardstick the port never calls) split the
+   ladder's time. The tolerance is zero everywhere: this is exact integer
+   arithmetic.
    The per-element-exponent kernels run at their path's shapes too: the
    RNS ladder at k = 304, window 4, over 65,536 rows of 64-bit schedules
    (bit-equal to its plain version on the first 1,024 rows, four rows
-   against Python pow); the limb-engine modexp at L = 296 over 16,384
+   against Python pow, its E printed, no faster than its bound); the
+   limb-engine modexp at L = 296 over 16,384
    rows of 320-bit schedules (value-equal on 1,024 rows, four against
    Python pow); its shared-exponent form with the exponent n on one row
    and on 128 rows.
@@ -60,6 +75,7 @@ the issue-rate chain the instructions its SASS issues (CHAIN_ISSUE).
 
 import json
 import random
+import re
 import sys
 import time
 
@@ -73,6 +89,7 @@ SEED = 20261016
 PLAIN_CHUNK = 2048  # rows per plain Montgomery product at L = 296 (its
 # memory grows with rows x L^2: wider contexts take proportionally fewer)
 PLAIN_LADDER_ROWS = 128  # rows of the plain ladder check (>= 64)
+PLAIN_LADDER_ROWS_624 = 8  # rows of the plain ladder check at k = 624
 PLAIN_VEC_ROWS = 1024  # rows of the plain per-element modexp checks
 SHARED_POW_ROWS = 128  # rows of the shared-exponent modexp's second check
 SHORT_BITS = 320  # short obfuscation's exponent bits
@@ -308,14 +325,19 @@ def check_vec_kernels(pub, dev, rng):
     bms, by = ladder_bound(rows, st.rsys.k, n_windows, 4, vec=True)
     select_ms = 1e3 * (rows * n_windows * 16 * st.rsys.cpad * 4
                        / HBM_BYTES_PER_S)
+    elems = cuda_rns._elems(st.rsys.k, rows)
     print("rns_ladder_vec k=%d windows=%d: bit-equal on %d rows, Python pow "
-          "on %d; kernel %.3f ms at %d rows (%.3f ms at %d), plain %.3f ms "
-          "at %d, bound %.3f ms at %d (%s); the table select's reads alone "
-          "%.3f ms at HBM rate"
-          % (st.rsys.k, n_windows, few, len(tail), ms, rows, ms_few, few,
-             plain_ms, few, bms, rows, by, select_ms))
+          "on %d; kernel %.3f ms at %d rows, E = %d (%.3f ms at %d, E = %d), "
+          "plain %.3f ms at %d, bound %.3f ms at %d (%s); the table select's "
+          "reads alone %.3f ms at HBM rate"
+          % (st.rsys.k, n_windows, few, len(tail), ms, rows, elems, ms_few,
+             few, cuda_rns._elems(st.rsys.k, few), plain_ms, few, bms, rows,
+             by, select_ms))
+    check(ms >= bms, "rns_ladder_vec ran under its bound: ladder_bound's "
+          "count no longer matches the kernel")
     out["rns_ladder_vec"] = dict(
-        k=st.rsys.k, rows=rows, max_abs_err=int((got[:few] - ref).abs().max()),
+        k=st.rsys.k, rows=rows, elems=elems,
+        max_abs_err=int((got[:few] - ref).abs().max()),
         ms=ms, plain_ms=plain_ms, plain_rows=few, ms_at_plain_rows=ms_few,
         bound_ms=bms, bound_by=by, select_bytes_ms=select_ms)
     del x_res, got, ref
@@ -561,6 +583,309 @@ def arithmetic_path(pub, priv, dev, card, totals):
         check(all(x != y for x, y in zip(got, nude)),
               "short encrypt: a ciphertext equals its nude encryption")
     return rates
+
+
+def check_ragged_ladders(pub, dev, rng):
+    """Phase 2, ragged batches at the 2048-bit n^2 geometry (k = 304): the
+    shared ladder (the encrypt's exponent n, window 5) and the per-element
+    ladder (64-bit schedules, window 4, the first two all-zero and
+    all-ones) over B = 1, E - 1 and E + 1 rows, E being the width _elems
+    picks for them, bit-equal on every row to their plain versions."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.ops import cuda_rns, rns
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    dc = pub.device_context(dev)
+    st, rsys = dc.rns_state(), dc.rns_state().rsys
+    E = cuda_rns._elems(rsys.k, 1)
+    sizes = (1, E - 1, E + 1)
+    check(all(cuda_rns._elems(rsys.k, B) == E for B in sizes),
+          "ragged ladder batches %s do not share one width" % (sizes,))
+    rows = max(sizes)
+    xs = [rng.randrange(1, pub.nsquare) for _ in range(rows)]
+    x = rns.to_rns(mg._tensor(hl.ints_to_limbs(xs, dc.L), dev), st.conv,
+                   rsys).contiguous()
+    es = [0, (1 << 64) - 1] + [rng.getrandbits(64) for _ in range(rows - 2)]
+    digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
+    vec = dict(entry_res=st.entry_mont, exit_res=st.exit_r)
+    t0 = time.perf_counter()
+    ref = rns.ladder_plain(x, dc.n_digits, rsys, window=5)
+    ref_vec = rns.ladder_vec_plain(x, digits, rsys, **vec)
+    sync()
+    plain_s = time.perf_counter() - t0
+    for B in sizes:
+        xb = x[:B].contiguous()
+        got = cuda_rns.ladder(xb, dc.n_digits, rsys, window=5)
+        got_vec = cuda_rns.ladder_vec(xb, digits[:B].contiguous(), rsys, **vec)
+        check(torch.equal(got, ref[:B]) and torch.equal(got_vec, ref_vec[:B]),
+              "rns_ladder k=%d: a ragged batch of %d rows differs from the "
+              "plain version" % (rsys.k, B))
+    print("rns_ladder, rns_ladder_vec k=%d: ragged batches of %s rows (E = "
+          "%d) bit-equal to the plain versions on every row (plain %.1f s "
+          "for %d rows)" % (rsys.k, ", ".join(map(str, sizes)), E, plain_s,
+                            rows))
+
+
+def ladder_sass():
+    """Phase 1, the ladder's instructions as the card runs them: every
+    instantiation of rns_ladder_kernel in cuobjdump -sass of the built
+    library holds int8 tensor-core MMAs (IMMA) and no __dp4a (IDP4A).
+    {instantiation: (IMMA count, IDP4A count)}."""
+    import os
+    import subprocess
+
+    from phe_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build._paths("rns_ladder")[1]],
+                          check=True, capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            # rns_ladder_kernel<kVec, E>, mangled as ...ILb<kVec>ELi<E>E...
+            m = re.search(r"rns_ladder_kernelILb([01])ELi(\d+)E", line)
+            name = m and "rns_ladder_kernel<%s, %s>" % (
+                ("false", "true")[int(m.group(1))], m.group(2))
+            if name:
+                counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "IMMA" in line
+            counts[name][1] += "IDP4A" in line
+    check(len(counts) == 6, "cuobjdump shows %d rns_ladder_kernel "
+          "instantiations, not 6" % len(counts))
+    for name, (imma, dp4a) in sorted(counts.items()):
+        print("rns_ladder SASS %s: %d IMMA, %d IDP4A" % (name, imma, dp4a))
+        check(imma > 0 and dp4a == 0, "%s does not run its base extensions "
+              "on the int8 tensor cores alone" % name)
+    return counts
+
+
+def one_product_split(rsys, rows, dev, card, yardstick=False):
+    """Phase 2, what one ladder product's time follows. Window 1 runs two
+    products a row (entry and exit) and two more for each digit, so the
+    difference between 31 zero digits (64 products) and none (2) is 62
+    products without the launch's fixed costs. Each width E whose block
+    fits runs both on the same rows, with the same MMA and int32 work and
+    the extension matrices read from L2 once per block-product, so their
+    L2 bytes fall as 1 / E. With yardstick, torch._int_mm over both
+    extensions' GEMMs alone ([B, 2k] x [2k, 3(k+8)] twice) beside it: no
+    one PyTorch call computes the ladder, and the port never calls it."""
+    from phe_tpu_torch.ops import cuda_rns
+    from phe_tpu_torch.ops import limb_math as lm
+
+    k = rsys.k
+    K1p, Kp = cuda_rns._geometry(k)
+    g = np.random.default_rng(SEED + 5)
+    x = (torch.as_tensor(g.integers(0, 1 << 14, (rows, rsys.cpad)),
+                         device=dev) % rsys.m).contiguous()
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    zeros = torch.zeros(31, dtype=torch.int64, device=dev)
+    outs, split = [], {}
+    for E in cuda_rns.ELEMS:
+        if cuda_rns._smem(k, E) > cuda_rns.SMEM_LIMIT:
+            continue
+        run = lambda d: cuda_rns._launch(x, d, rsys, 1, None, None, False, E)
+        outs.append(run(zeros))
+        ms2, ms64 = cuda_ms(lambda: run(none), 5), cuda_ms(lambda: run(zeros), 3)
+        ns = 1e6 * (ms64 - ms2) / (62 * rows)
+        l2_bytes = -(-rows // E) * 62 * (2 * 3 * K1p * Kp)
+        split[E] = dict(ms_2_products=ms2, ms_64_products=ms64,
+                        ns_per_element_product=ns,
+                        l2_tb_per_s=l2_bytes / ((ms64 - ms2) * 1e9))
+        print("one product, k=%d, E=%d: %.4f ms for 2 products a row, %.4f "
+              "ms for 64, over %d rows (%d blocks): %.3f ns an "
+              "element-product; extension matrices from L2 at %.3f TB/s [%s]"
+              % (k, E, ms2, ms64, rows, -(-rows // E), ns,
+                 split[E]["l2_tb_per_s"], card))
+    check(all(torch.equal(o, outs[0]) for o in outs),
+          "the ladder's widths disagree on the same rows")
+    bms, by = ladder_bound(rows, k, 31, 1)
+    bms2, _ = ladder_bound(rows, k, 0, 1)
+    print("one product bound, k=%d, %d rows: %.3f ns an element-product (%s); "
+          "the wrapper picks E = %d"
+          % (k, rows, 1e6 * (bms - bms2) / (62 * rows), by,
+             cuda_rns._elems(k, rows)))
+    if not yardstick:
+        return split
+    dig = torch.as_tensor(g.integers(0, 128, (rows, 2 * k)), dtype=torch.int8,
+                          device=dev)
+    ws = (rsys.w_ext1.t(), rsys.w_ext2.t())
+    mm = lambda: [torch._int_mm(dig, w) for w in ws]
+    got = mm()
+    check(all(torch.equal(o[:64].long(), lm.matmul_exact(dig[:64], w))
+              for o, w in zip(got, ws)), "torch._int_mm differs from the "
+          "exact digit product")
+    ms = cuda_ms(mm, 5)
+    print("torch._int_mm yardstick, k=%d: both extensions' GEMMs [%d, %d] x "
+          "[%d, %d] %.4f ms, %.3f ns an element-product [%s]"
+          % (k, rows, 2 * k, 2 * k, 3 * (k + 8), ms, 1e6 * ms / rows, card))
+    return split
+
+
+PHASES = ("channel product", "sigma", "extension 1", "tau digits",
+          "extension 2", "beta", "final reduction")
+
+
+def ladder_phases(cases, dev, card):
+    """Phase 2, where one ladder product's cycles go. csrc/rns_ladder.cu is
+    built a second time with PHE_LADDER_PHASES into build/ladder_phases,
+    which the package never loads, and run through the wrapper on the
+    one-product split's input (window 1, 31 zero digits) for each
+    (system, rows, E) of cases; block 0's thread 0 stamps the SM clock in
+    its 40th product: PHASES, each ending at a block barrier, and the MMAs
+    and epilogue of its first slab of extension 1."""
+    import ctypes
+    import os
+    import subprocess
+
+    from phe_tpu_torch.ops import _build, cuda_rns
+
+    out_dir = os.path.join(os.path.dirname(_build.config.build_dir()),
+                           "ladder_phases")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "rns_ladder_phases.so")
+    subprocess.run([_build._nvcc(), *_build._FLAGS, "-DPHE_LADDER_PHASES",
+                    "-o", so, _build._paths("rns_ladder")[0]],
+                   check=True, capture_output=True)
+    package_lib = _build.load("rns_ladder")
+    lib = _build._loaded["rns_ladder"] = ctypes.CDLL(so)
+    stamps = (ctypes.c_longlong * 11)()
+    g = np.random.default_rng(SEED + 6)
+    out = {}
+    for rsys, rows, E in cases:
+        x = (torch.as_tensor(g.integers(0, 1 << 14, (rows, rsys.cpad)),
+                             device=dev) % rsys.m).contiguous()
+        zeros = torch.zeros(31, dtype=torch.int64, device=dev)
+        cuda_rns._launch(x, zeros, rsys, 1, None, None, False, E)
+        sync()
+        check(lib.phe_rns_ladder_phases(stamps) == 0,
+              "could not read the ladder's phase stamps")
+        t = list(stamps)
+        cycles = {name: t[i + 1] - t[i] for i, name in enumerate(PHASES)}
+        cycles["extension 1, first slab's MMAs"] = t[9] - t[8]
+        cycles["extension 1, first slab's epilogue"] = t[10] - t[9]
+        total = t[7] - t[0]
+        check(all(v > 0 for v in cycles.values()),
+              "the ladder's phase stamps are out of order")
+        out["k=%d, %d rows, E=%d" % (rsys.k, rows, E)] = dict(
+            cycles, total=total)
+        print("rns_ladder phases, k=%d, %d rows, E=%d: %d SM cycles a "
+              "product on block 0: %s [%s]"
+              % (rsys.k, rows, E, total,
+                 ", ".join("%s %d" % kv for kv in cycles.items()), card))
+    _build._loaded["rns_ladder"] = package_lib
+    return out
+
+
+def compare_ladder(old_src, card):
+    """Old and new ladder kernels in turns (old, new, new, old) on the same
+    inputs at the path's shapes, each pair bit-equal: python3 chip_smoke.py
+    --compare-ladder OLD.cu, where OLD.cu is an earlier csrc/rns_ladder.cu
+    with the eight-element __dp4a design's C interface (phe_rns_ladder,
+    phe_rns_ladder_vec, phe_rns_ladder_elems). It is built into
+    build/ladder_old, which the package never loads."""
+    import ctypes
+    import os
+    import subprocess
+
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch import benchmarks
+    from phe_tpu_torch.ops import _build, cuda_rns, rns
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    dev = torch.device("cuda")
+    out_dir = os.path.join(os.path.dirname(_build.config.build_dir()),
+                           "ladder_old")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "rns_ladder_old.so")
+    subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", so, old_src],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    for fn in (lib.phe_rns_ladder, lib.phe_rns_ladder_vec):
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * (len(cuda_rns._ROWS) + 6)
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    old_elems = lib.phe_rns_ladder_elems()
+    packed = {}
+
+    def old(x, digits, rsys, window, entry, exitc, vec):
+        if rsys.k not in packed:
+            packed[rsys.k] = [w.contiguous().view(torch.int32).t().contiguous()
+                              for w in (rsys.w_ext1, rsys.w_ext2)]
+        B, C = x.shape
+        out = torch.empty_like(x)
+        table = torch.empty((-(-B // old_elems) * old_elems, 1 << window, C),
+                            dtype=torch.int32, device=dev)
+        rows = [getattr(rsys, f).data_ptr() for f in cuda_rns._ROWS]
+        fn = lib.phe_rns_ladder_vec if vec else lib.phe_rns_ladder
+        rc = fn(x.data_ptr(), out.data_ptr(), table.data_ptr(), B, rsys.k, C,
+                *rows, entry.data_ptr(), exitc.data_ptr(),
+                rsys.mbinv_r.data_ptr(), packed[rsys.k][0].data_ptr(),
+                packed[rsys.k][1].data_ptr(), digits.data_ptr(),
+                digits.shape[-1], window, _build.stream_handle(dev))
+        check(rc == 0, "old ladder launch failed: CUDA error %d" % rc)
+        return out
+
+    def new(x, digits, rsys, window, entry, exitc, vec):
+        fn = cuda_rns.ladder_vec if vec else cuda_rns.ladder
+        return fn(x, digits, rsys, window=window, entry_res=entry,
+                  exit_res=exitc)
+
+    g = random.Random(SEED + 9)
+    cases = []
+    pub, priv = benchmarks.fixed_key(2048)
+    pub8, priv8 = benchmarks.fixed_key(8192)
+    st = pub.device_context(dev).rns_state()
+    dc, pdc = pub.device_context(dev), priv.device_context(dev)
+    pdc8 = priv8.device_context(dev)
+    for name, rsys, conv, N, Lin, digits, rows in (
+            ("k=304 shared, window 5", st.rsys, st.conv, pub.nsquare, dc.L,
+             dc.n_digits, BATCH),
+            ("k=152 shared, window 5", pdc.rns_state()[0][0],
+             pdc.rns_state()[0][1], priv.psquare,
+             pdc.consts.ctx_p.num_limbs, pdc.consts.dp_digits, BATCH),
+            ("k=624 shared, window 5", pdc8.rns_state()[0][0],
+             pdc8.rns_state()[0][1], priv8.psquare,
+             pdc8.consts.ctx_p.num_limbs, pdc8.consts.dp_digits, LIMB_ROWS)):
+        cases.append((name, rsys, conv, N, Lin, digits, rows, 5,
+                      rsys.r2_dom, rsys.scale, False))
+    es = [g.getrandbits(64) for _ in range(MUL_ROWS)]
+    cases.append(("k=304 per-element, window 4, 16 windows", st.rsys,
+                  st.conv, pub.nsquare, dc.L,
+                  torch.as_tensor(tbatch._digits_rows(es, 64), device=dev),
+                  MUL_ROWS, 4, st.entry_mont, st.exit_r, True))
+    result = {}
+    for (name, rsys, conv, N, Lin, digits, rows, window, entry, exitc,
+         vec) in cases:
+        xs = [g.randrange(1, N) for _ in range(rows)]
+        x = rns.to_rns(mg._tensor(hl.ints_to_limbs(xs, Lin), dev), conv,
+                       rsys).contiguous()
+        digits = torch.as_tensor(digits, device=dev).contiguous()
+        times = {"old": [], "new": []}
+        outs = {}
+        for fn in (old, new):  # one untimed launch each: allocations, loading
+            fn(x, digits, rsys, window, entry, exitc, vec)
+        for which in ("old", "new", "new", "old"):
+            fn = old if which == "old" else new
+            outs[which], ms = cuda_once(
+                lambda: fn(x, digits, rsys, window, entry, exitc, vec))
+            times[which].append(ms)
+        check(torch.equal(outs["old"], outs["new"]),
+              "%s: old and new ladders differ" % name)
+        bms, by = ladder_bound(rows, rsys.k, digits.shape[-1], window,
+                               vec=vec)
+        result[name] = dict(rows=rows, old_ms=times["old"],
+                            new_ms=times["new"], bound_ms=bms, bound_by=by,
+                            new_elems=cuda_rns._elems(rsys.k, rows),
+                            old_elems=old_elems)
+        print("%s, %d rows: old %s ms, new %s ms (E = %d), bound %.3f ms "
+              "(%s); bit-equal [%s]"
+              % (name, rows, times["old"], times["new"],
+                 cuda_rns._elems(rsys.k, rows), bms, by, card))
+    print(json.dumps({"ladder_old_vs_new": result, "card": card}))
 
 
 def chain_bound(body, K, n):
@@ -876,7 +1201,7 @@ def limb_engine_path(pub, priv, dev, card, totals):
     return rates, wide
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -905,6 +1230,12 @@ def main():
     print("torch %s, CUDA %s, %s x%d" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
+    sass = ladder_sass()
+    if argv:
+        check(len(argv) == 2 and argv[0] == "--compare-ladder",
+              "usage: python3 chip_smoke.py [--compare-ladder OLD.cu]")
+        compare_ladder(argv[1], card)
+        return
 
     pub, priv = benchmarks.fixed_key(2048)
     pub8, priv8 = benchmarks.fixed_key(8192)
@@ -980,9 +1311,9 @@ def main():
             check_mont_mul(dc8.ctx, pub8.nsquare, shared, rows=WIDE_ROWS))
     chain_checks = check_issue_chain(dev)
 
-    def check_ladder(rsys, conv, Lin, digits, exit_int, N):
-        few = PLAIN_LADDER_ROWS
-        xs = [rng.randrange(1, 2 * N) for _ in range(BATCH)]
+    def check_ladder(rsys, conv, Lin, digits, exit_int, N, rows=BATCH,
+                     few=PLAIN_LADDER_ROWS):
+        xs = [rng.randrange(1, 2 * N) for _ in range(rows)]
         x_res = rns.to_rns(limbs_of(xs, Lin), conv, rsys).contiguous()
         head = x_res[:few].contiguous()
         exit_res = rns.residues(exit_int, rsys)
@@ -1008,14 +1339,18 @@ def main():
         err = int((got[:few] - ref).abs().max())
         ms = cuda_ms(lambda: run(x_res), 1, warm=False)
         ms_few = cuda_ms(lambda: run(head), 1)
-        bms, by = ladder_bound(BATCH, rsys.k, len(digits), 5)
+        bms, by = ladder_bound(rows, rsys.k, len(digits), 5)
         bms_few, _ = ladder_bound(few, rsys.k, len(digits), 5)
-        print("rns_ladder k=%d cpad=%d windows=%d: bit-equal on %d rows; "
-              "kernel %.3f ms at %d rows (%.3f ms at %d), plain %.3f ms at "
-              "%d, bound %.3f ms at %d (%s)"
-              % (rsys.k, rsys.cpad, len(digits), few, ms, BATCH, ms_few, few,
-                 plain_ms, few, bms, BATCH, by))
-        return dict(k=rsys.k, rows=BATCH, max_abs_err=err, ms=ms,
+        elems = cuda_rns._elems(rsys.k, rows)
+        print("rns_ladder k=%d cpad=%d windows=%d: bit-equal on %d rows, "
+              "Python pow on 4; kernel %.3f ms at %d rows, E = %d (%.3f ms "
+              "at %d, E = %d), plain %.3f ms at %d, bound %.3f ms at %d (%s)"
+              % (rsys.k, rsys.cpad, len(digits), few, ms, rows, elems,
+                 ms_few, few, cuda_rns._elems(rsys.k, few), plain_ms, few,
+                 bms, rows, by))
+        check(ms >= bms, "rns_ladder k=%d ran under its bound: ladder_bound's "
+              "count no longer matches the kernel" % rsys.k)
+        return dict(k=rsys.k, rows=rows, elems=elems, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, plain_rows=few, ms_at_plain_rows=ms_few,
                     bound_ms=bms, bound_ms_at_plain_rows=bms_few, bound_by=by)
 
@@ -1030,6 +1365,21 @@ def main():
         check_ladder(rsys_p, conv_p, L2, pdc.consts.dp_digits, E_p,
                      priv.psquare),
     ]
+    # The 8192-bit key's p^2 (k = 624) at its decrypt batch.
+    pdc8 = priv8.device_context(dev)
+    rsys8, conv8, _, _ = pdc8.rns_state()[0]
+    L8 = pdc8.consts.ctx_p.num_limbs
+    E_p8 = pow(pow(1 << (14 * L8), -1, priv8.psquare), priv8.p - 1,
+               priv8.psquare)
+    ladder_checks.append(check_ladder(
+        rsys8, conv8, L8, pdc8.consts.dp_digits, E_p8, priv8.psquare,
+        rows=LIMB_ROWS, few=PLAIN_LADDER_ROWS_624))
+    check_ragged_ladders(pub, dev, rng)
+    split = one_product_split(st.rsys, BATCH, dev, card, yardstick=True)
+    split_624 = one_product_split(rsys8, LIMB_ROWS, dev, card)
+    phases = ladder_phases(
+        [(rs, rows, cuda_rns._elems(rs.k, rows))
+         for rs, rows in ((st.rsys, BATCH), (rsys8, LIMB_ROWS))], dev, card)
     vec_checks = check_vec_kernels(pub, dev, rng)
 
     # -- 3. the main path --------------------------------------------------
@@ -1116,6 +1466,10 @@ def main():
                 "mont_pow_shared": "phe_tpu/ops/pallas_modexp.py:302",
                 "mont_pow": "phe_tpu/ops/pallas_modexp.py:570",
                 "vpu_microbench": "scripts/vpu_microbench.py:36"}
+    ladder_checks[0]["one_product_split"] = split
+    ladder_checks[2]["one_product_split"] = split_624
+    ladder_checks[0]["phase_cycles"] = phases
+    ladder_checks[0]["sass_imma_idp4a"] = sass
     checks = {"mont_mul": mul_checks["mont_mul"],
               "mont_mul_const": mul_checks["mont_mul_const"],
               "rns_ladder": ladder_checks}
@@ -1146,4 +1500,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

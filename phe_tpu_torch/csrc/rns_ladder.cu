@@ -1,5 +1,6 @@
 // Windowed RNS Montgomery exponentiation ladder, with the exponent shared by
-// the batch or one exponent per element.
+// the batch or one exponent per element; both base extensions of every
+// product run on the int8 tensor cores with the batch as the N dimension.
 //
 // Replaces phe_tpu/ops/pallas_rns.py: ladder_cols (:177-244), whose kernel
 // body is _ladder_kernel (:62-174), and ladder_vec_cols (:394-460), whose
@@ -7,7 +8,7 @@
 // rns.rns_mont_mul's fused tau-domain Cox-Rower product (phe_tpu/ops/rns.py
 // and phe_tpu_torch/ops/rns.py derive it and every bound): 28-bit channel
 // products split h * 2^14 + l, steps=3 Barrett reductions, two int8 digit
-// base extensions (w_ext1, w_ext2, [3(k+8), 2k]) with digit-block
+// base extensions (w_ext1, w_ext2, [3 K1, 2k], K1 = k + 8) with digit-block
 // recombination, and the Shenoy-Kumaresan beta from the redundant channel.
 // Every residue is canonical, so this computes exactly the integers of the
 // plain PyTorch ladders (phe_tpu_torch.ops.rns.ladder_plain and
@@ -18,58 +19,104 @@
 // windows of w squarings and one table product, and an exit product with
 // the exit constant.
 //
-// Design: one block runs kElems batch elements through the whole ladder.
-// The accumulator, the raw channel products and the int8 digits of the
-// current product stay in shared memory (kElems * (8 cpad + 2k) bytes:
-// 44 KB at k = 304, cpad = 616); the table lives in a device-memory
-// scratch the wrapper allocates ([B, 2^w, cpad] uint32), read once per
-// window. Each base extension is, per output row, an int32 dot product
-// over 2k int8 digits: one thread per output row, __dp4a over words of
-// the matrix pre-packed as [2k/4, 3(k+8)] int32 so that neighbouring
-// threads read neighbouring words, the element's digits broadcast from
-// shared memory.
+// Design. One block runs E batch elements (E in {8, 16, 32}, a template
+// parameter that ops/cuda_rns.py's _elems picks per launch from (k, B))
+// through the whole ladder. Per element, shared memory holds the
+// accumulator and the raw channel products (cpad + 4 uint32 each, the
+// skew putting the MMA epilogue's accesses in 32 distinct banks) and one
+// digit row (Kp bytes plus a 16-byte skew that spreads the fragment reads
+// of the eight elements of an n-tile over all 32 banks), with beta:
+// E (8 (cpad + 4) + Kp + 20) bytes, 178,816 at k = 304 and E = 32, 90,784
+// at k = 624 and E = 8. The channel phases between the MMAs run
+// channel-major: a thread loads a channel's constants once and walks the
+// E elements as E independent chains, all E loads issued before the first
+// store. Blocks of 32 or 16 elements run one to an SM (168 registers a
+// thread at most); blocks of 8 two (80). The table lives in a
+// device-memory scratch the wrapper allocates ([ceil(B/E) E, 2^w, cpad]
+// uint32).
+//
+// Each base extension is C[3 K1p, E] = W[3 K1p, Kp] D[Kp, E], with K1 padded
+// to K1p (16-row slabs) and 2k to Kp (32-digit K-steps) by zero rows and
+// columns, which change no sum. Entries are 7-bit and every sum is below
+// 2k 127^2 < 2^25, so mma.sync.m16n8k32 s8 x s8 -> s32 is exact. A warp
+// owns a 16-row slab r and, for every K-step, issues three MMAs per n-tile
+// of 8 elements with one B fragment: on rows r, K1 + r and 2 K1 + r (the
+// c0, c1 and c2 digit blocks), so each thread's three accumulators hold
+// c0, c1 and c2 of the same (row, element), and the epilogue (combine_raw,
+// the q^ Barrett and u~ after extension 1; combine_raw into S after
+// extension 2) runs from registers. The B fragment is the element's digit
+// row as it lies in shared memory (two 32-bit loads a lane). The weights are
+// packed by the host in fragment order (cuda_rns._pack_fragments): a
+// lane's four A registers of one block's tile are 16 contiguous bytes, a
+// warp's 512, read with coalesced 16-byte __ldg loads kept kStages - 1
+// K-steps ahead of the MMAs in registers (no shared-memory ring).
 //
 // Per-element exponents (ladder_vec): each element reads its own digit,
 // [B, n_windows] int8 in device memory, masked to the window. The table
 // factor is selected in constant time, as _ladder_vec_kernel's select
 // tree (:366-385) is: every one of the 2^w rows is read and the wanted
 // one kept by a mask, with no address or branch that depends on the
-// digit, so the factor is exactly tab[d]. That costs 2^w table rows per
-// window instead of one: 16 * cpad * 4 = 39 KB per element at w = 4,
-// k = 304, against the w + 1 = 5 products of the window, each of which
-// runs 2 * 3(k+8) * 2k = 1.14 M int8 multiply-adds per element. At the
-// H100's 3.35 TB/s those bytes take about 4 % of the kernel's time (12 ms
-// of 313 ms over 65,536 elements with 64-bit exponents, PERF.md). The
-// select sits outside Ladder::montmul, so the shared-exponent form runs
-// the same product code as without it.
+// digit, so the factor is exactly tab[d]. Neighbouring threads read
+// neighbouring channels of one row: the reads are coalesced.
 //
-// What bounds it on an H100: the extension matrices. Each product reads
-// both (1.14 MB of int8 at k = 304) from L2, once per block, and runs
-// 2 * 3(k+8) * 2k int8 multiply-adds per element (1.14 M at k = 304) as
-// __dp4a on the integer pipes, not the tensor cores. Holding kElems
-// elements per block divides the L2 traffic by kElems; the tensor cores
-// (mma over the batch) are the step after this one.
+// What bounds it on an H100, at k = 304 per element-product: 1.14 M int8
+// multiply-adds (1.15 ns at the published 1,979 TOP/s), about
+// cpad + 31k + 65 K1 = 30,320 int32 operations (1.8 ns at 132 x 64 lanes x
+// 1.98 GHz), and the two packed matrices (2 x 3 K1p Kp = 1.17 MB) streamed
+// from L2 once per block-product: 36 KB an element-product at E = 32. The
+// int32 channel work is the floor (chip_smoke.ladder_bound). Measured
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 6.75 ns an
+// element-product at E = 32, 10.9 at 16 and at 8 (one_product_split), the
+// stream at 5.4, 6.7 and 13.4 TB/s; 270.8 ms for the k = 304 ladder of
+// 16,384 rows, 3.7 times its bound. The two extensions take 81 % of a
+// product's SM cycles at E = 32 (ladder_phases, built with
+// PHE_LADDER_PHASES): per K-step a warp's three 16-byte fragment loads,
+// eight B-fragment loads and twelve MMAs, about 420 cycles with one
+// block on the SM. The channel phases take the other 19 %. The design
+// before this one ran the extensions as __dp4a on the integer pipes, 8
+// elements a block: 1,954.510 ms for the same ladder (NVIDIA H100 80GB
+// HBM3, 700.00 W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kElems = 8;        // batch elements per block
-constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = 12;  // warps a block; 168 registers a thread
+constexpr int kStages = 3;     // K-steps of A fragments held in registers
+constexpr int kSmemLimit = 232448;
 
 enum YSource { kYSelf, kYTable, kYConst };
+
+// Padded geometry; ops/cuda_rns.py's _geometry and _smem mirror these.
+__host__ __device__ inline int k1_pad(int k) { return (k + 8 + 15) / 16 * 16; }
+__host__ __device__ inline int k_pad(int k) { return (2 * k + 31) / 32 * 32; }
+__host__ __device__ inline int dig_stride(int k) { return k_pad(k) + 16; }
+// cpad = 2k + 8 is 8 mod 16, so cpad + 4 is 12 mod 16: the epilogue's
+// lanes (8 rows by 4 element pairs) fall in 32 distinct banks.
+__host__ __device__ inline int row_stride(int k) { return 2 * k + 12; }
+inline size_t smem_bytes(int k, int elems) {
+  return static_cast<size_t>(elems) *
+         (8 * row_stride(k) + dig_stride(k) + sizeof(unsigned int));
+}
+// Warps a block: the slabs spread evenly over at most kMaxWarps warps.
+inline int warps_for(int k) {
+  const int slabs = k1_pad(k) / 16;
+  const int rounds = (slabs + kMaxWarps - 1) / kMaxWarps;
+  return (slabs + rounds - 1) / rounds;
+}
 
 __device__ __forceinline__ unsigned int barrett(unsigned int x,
                                                 unsigned int m,
                                                 unsigned int mu) {
   // x < 2^30 -> x mod m; quotient error < 8 for m >= 4099 (steps=3).
+  // r < 8m; each min takes r - 2^i m where r >= 2^i m, and r otherwise
+  // (below 2^i m the difference wraps past 2^32 - 2^16 > r).
   const unsigned int q = ((x >> 14) * mu) >> 14;
   unsigned int r = x - q * m;
-  if (r >= (m << 2)) r -= m << 2;
-  if (r >= (m << 1)) r -= m << 1;
-  if (r >= m) r -= m;
-  return r;
+  r = min(r, r - (m << 2));
+  r = min(r, r - (m << 1));
+  return min(r, r - m);
 }
 
 // c0 + 2^7 c1 + 2^14 c2, one Barrett short of canonical (< 2^28.2).
@@ -88,6 +135,29 @@ __device__ __forceinline__ unsigned int ld(const int64_t* p, int i) {
       __ldg(reinterpret_cast<const long long*>(p) + i));
 }
 
+// c += A B for one m16n8k32 tile: A's four registers, B's two.
+__device__ __forceinline__ void mma_s8(int* c, const int4& a, unsigned int b0,
+                                       unsigned int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+#ifdef PHE_LADDER_PHASES
+// Phase timing for chip_smoke.ladder_phases, which builds this file a
+// second time with the macro: block 0's thread 0 stamps the SM clock at the
+// start of its 40th product, after each of the product's seven barriers,
+// and around the MMAs of its first slab in extension 1 (8, 9, 10).
+__device__ long long phase_clock[11];
+#define PHASE(i)                                                      \
+  if ((i) == 0) ++products;                                           \
+  if (blockIdx.x == 0 && threadIdx.x == 0 && products == 40)         \
+  phase_clock[i] = clock64()
+#else
+#define PHASE(i)
+#endif
+
 // The system's constant rows, each int64 [cpad], and the ladder's entry
 // and exit constants.
 struct Rows {
@@ -95,143 +165,243 @@ struct Rows {
   const int64_t *entry, *exitc;
 };
 
+template <int E>
 struct Ladder {
-  int k, cpad, K1;  // K1 = k + 8: rows of each extension's output
+  static constexpr int kTiles = E / 8;  // n-tiles of 8 elements
+  int k, cpad, rs, K1, slabs, ksteps, ds;  // rs: a residue row's stride
   const int64_t *m, *mu, *t14, *sig1, *sig2, *d1, *d2, *e1, *negmb;
   unsigned int mbinv;
-  const int* w1p;  // [2k/4, 3 K1] packed int8 words
-  const int* w2p;
-  unsigned int* acc;    // shared [kElems, cpad]
-  unsigned int* raw;    // shared [kElems, cpad]
-  unsigned char* dig;   // shared [kElems, 2k]
-  unsigned int* beta;   // shared [kElems]
+  const int4* w1p;  // [slabs, ksteps, 3, 32] fragment-ordered int8 tiles
+  const int4* w2p;
+  unsigned int* acc;    // shared [E, rs]
+  unsigned int* raw;    // shared [E, rs]
+  unsigned char* dig;   // shared [E, ds]; columns [2k, ds) stay zero
+  unsigned int* beta;   // shared [E]
+#ifdef PHE_LADDER_PHASES
+  int products = 0;
+#endif
 
   // acc <- acc * y (one RNS Montgomery product per element), where y is
-  // acc itself, the table row `trow` of each element, or a constant.
+  // acc itself, the table row `trow` of each element, or a constant. The
+  // channel phases run channel-major: a thread loads a channel's
+  // constants once and walks the E elements. Each loads all E of its
+  // values before it stores any: the compiler cannot tell acc, raw and dig
+  // apart, so a store between two loads would chain the E elements one
+  // after another, each waiting out the load latency.
   __device__ void montmul(YSource src, const unsigned int* tab, size_t tstride,
                           int trow, const int64_t* yconst) {
     const int tid = threadIdx.x, nt = blockDim.x;
-    for (int idx = tid; idx < kElems * cpad; idx += nt) {
-      const int e = idx / cpad, c = idx - e * cpad;
-      unsigned int y;
-      if (src == kYSelf) {
-        y = acc[idx];
-      } else if (src == kYTable) {
-        y = tab[e * tstride + static_cast<size_t>(trow) * cpad + c];
-      } else {
-        y = ld(yconst, c);
+    PHASE(0);
+    unsigned int v[E];
+    for (int c = tid; c < cpad; c += nt) {
+      const unsigned int yc = src == kYConst ? ld(yconst, c) : 0u;
+      const unsigned int* tc = tab + static_cast<size_t>(trow) * cpad + c;
+      unsigned int y[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        v[e] = acc[e * rs + c];
+        y[e] = src == kYTable ? tc[e * tstride] : yc;
       }
-      raw[idx] = acc[idx] * y;  // < 2^28
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        raw[e * rs + c] = v[e] * (src == kYSelf ? v[e] : y[e]);  // < 2^28
+      }
     }
     __syncthreads();
+    PHASE(1);
 
     // sigma over base A, as int8 digits (lo block, hi block).
-    for (int idx = tid; idx < kElems * k; idx += nt) {
-      const int e = idx / k, i = idx - e * k;
-      const unsigned int r = raw[e * cpad + i];
-      const unsigned int s = barrett(
-          (r >> 14) * ld(sig2, i) + (r & 0x3FFF) * ld(sig1, i), ld(m, i),
-          ld(mu, i));
-      dig[e * 2 * k + i] = static_cast<unsigned char>(s & 0x7F);
-      dig[e * 2 * k + k + i] = static_cast<unsigned char>(s >> 7);
-    }
-    __syncthreads();
-
-    // Extension 1 -> q^, then u~ on B u r u pads (channels k + j).
-    for (int j = tid; j < K1; j += nt) {
-      int c0[kElems], c1[kElems], c2[kElems];
-      extension(w1p, j, c0, c1, c2);
-      const int ch = k + j;
-      const unsigned int mj = ld(m, ch), muj = ld(mu, ch);
-      const unsigned int t14j = ld(t14, ch), d1j = ld(d1, ch);
-      const unsigned int d2j = ld(d2, ch), e1j = ld(e1, ch);
+    for (int i = tid; i < k; i += nt) {
+      const unsigned int s1 = ld(sig1, i), s2 = ld(sig2, i);
+      const unsigned int mi = ld(m, i), mui = ld(mu, i);
 #pragma unroll
-      for (int e = 0; e < kElems; ++e) {
-        const unsigned int qh =
-            barrett(combine_raw(c0[e], c1[e], c2[e], mj, muj, t14j), mj, muj);
-        const unsigned int r = raw[e * cpad + ch];
-        acc[e * cpad + ch] =
-            barrett((r >> 14) * d2j + (r & 0x3FFF) * d1j + qh * e1j, mj, muj);
+      for (int e = 0; e < E; ++e) v[e] = raw[e * rs + i];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned int s = barrett(
+            (v[e] >> 14) * s2 + (v[e] & 0x3FFF) * s1, mi, mui);
+        dig[e * ds + i] = static_cast<unsigned char>(s & 0x7F);
+        dig[e * ds + k + i] = static_cast<unsigned char>(s >> 7);
       }
     }
     __syncthreads();
+    PHASE(2);
+
+    extension<true>(w1p);  // q^, then u~ on B u r u pads (channels k + j)
+    __syncthreads();
+    PHASE(3);
 
     // The stored B residues are tau: their digits feed extension 2.
-    for (int idx = tid; idx < kElems * k; idx += nt) {
-      const int e = idx / k, j = idx - e * k;
-      const unsigned int u = acc[e * cpad + k + j];
-      dig[e * 2 * k + j] = static_cast<unsigned char>(u & 0x7F);
-      dig[e * 2 * k + k + j] = static_cast<unsigned char>(u >> 7);
-    }
-    __syncthreads();
-
-    // Extension 2 -> S on A u r u pads (row i < k: channel i; else 2k+i-k).
-    for (int i = tid; i < K1; i += nt) {
-      int c0[kElems], c1[kElems], c2[kElems];
-      extension(w2p, i, c0, c1, c2);
-      const int ch = i < k ? i : k + i;
-      const unsigned int mi = ld(m, ch), mui = ld(mu, ch), t14i = ld(t14, ch);
+    for (int j = tid; j < k; j += nt) {
 #pragma unroll
-      for (int e = 0; e < kElems; ++e) {
-        raw[e * cpad + i] = combine_raw(c0[e], c1[e], c2[e], mi, mui, t14i);
+      for (int e = 0; e < E; ++e) v[e] = acc[e * rs + k + j];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        dig[e * ds + j] = static_cast<unsigned char>(v[e] & 0x7F);
+        dig[e * ds + k + j] = static_cast<unsigned char>(v[e] >> 7);
       }
     }
     __syncthreads();
+    PHASE(4);
 
-    // beta from the redundant channel (S row k, u~ channel 2k).
-    if (tid < kElems) {
+    extension<false>(w2p);  // S on A u r u pads (row i < k: channel i)
+    __syncthreads();
+    PHASE(5);
+
+    // beta from the redundant channel (S row k, u~ channel 2k): row k lies
+    // in another warp's slab, hence the barrier above.
+    if (tid < E) {
       const unsigned int mr = ld(m, 2 * k), mur = ld(mu, 2 * k);
-      const unsigned int sr = barrett(raw[tid * cpad + k], mr, mur);
-      const unsigned int ur = acc[tid * cpad + 2 * k];
+      const unsigned int sr = barrett(raw[tid * rs + k], mr, mur);
+      const unsigned int ur = acc[tid * rs + 2 * k];
       beta[tid] = barrett((sr + (mr - ur)) * mbinv, mr, mur);
     }
     __syncthreads();
+    PHASE(6);
 
-    for (int idx = tid; idx < kElems * k; idx += nt) {
-      const int e = idx / k, i = idx - e * k;
-      acc[e * cpad + i] = barrett(raw[e * cpad + i] + beta[e] * ld(negmb, i),
-                                  ld(m, i), ld(mu, i));
+    unsigned int bt[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) bt[e] = beta[e];
+    for (int i = tid; i < k; i += nt) {
+      const unsigned int mi = ld(m, i), mui = ld(mu, i), nb = ld(negmb, i);
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = raw[e * rs + i];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc[e * rs + i] = barrett(v[e] + bt[e] * nb, mi, mui);
+      }
     }
     __syncthreads();
+    PHASE(7);
   }
 
-  // Output row r's three digit-block sums over every element's digits.
-  __device__ void extension(const int* wp, int r, int* c0, int* c1,
-                            int* c2) const {
+  // One slab's three digit-block sums over the block's elements:
+  // c[b][n][i] is block b, n-tile n, register i of the m16n8 C fragment
+  // (row g + 8 (i / 2), element 8 n + 2 t + i % 2 of the slab's tile).
+  __device__ __forceinline__ void slab(const int4* wp, int s,
+                                       int (&c)[3][kTiles][4]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int e = 0; e < kElems; ++e) c0[e] = c1[e] = c2[e] = 0;
-    const int words = (2 * k) / 4;
-    const int row3 = 3 * K1;
-    for (int j4 = 0; j4 < words; ++j4) {
-      const int wa = __ldg(wp + j4 * row3 + r);
-      const int wb = __ldg(wp + j4 * row3 + K1 + r);
-      const int wc = __ldg(wp + j4 * row3 + 2 * K1 + r);
+    for (int b = 0; b < 3; ++b)
 #pragma unroll
-      for (int e = 0; e < kElems; ++e) {
-        const int d = reinterpret_cast<const int*>(dig + e * 2 * k)[j4];
-        c0[e] = __dp4a(wa, d, c0[e]);
-        c1[e] = __dp4a(wb, d, c1[e]);
-        c2[e] = __dp4a(wc, d, c2[e]);
+      for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[b][n][i] = 0;
+    const int4* ap = wp + static_cast<size_t>(s) * ksteps * 96 + lane;
+    const unsigned char* dbase = dig + g * ds + 4 * t;
+    int4 a[kStages][3];
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < ksteps) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) a[st][b] = __ldg(ap + st * 96 + b * 32);
       }
+    }
+    for (int ks0 = 0; ks0 < ksteps; ks0 += kStages) {
+#pragma unroll
+      for (int st = 0; st < kStages; ++st) {
+        const int ks = ks0 + st;
+        if (ks < ksteps) {
+          const int nx = ks + kStages - 1;
+          if (nx < ksteps) {
+#pragma unroll
+            for (int b = 0; b < 3; ++b) {
+              a[(st + kStages - 1) % kStages][b] =
+                  __ldg(ap + nx * 96 + b * 32);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < kTiles; ++n) {
+            const unsigned char* d = dbase + n * 8 * ds + ks * 32;
+            const unsigned int b0 = *reinterpret_cast<const unsigned int*>(d);
+            const unsigned int b1 =
+                *reinterpret_cast<const unsigned int*>(d + 16);
+            mma_s8(c[0][n], a[st][0], b0, b1);
+            mma_s8(c[1][n], a[st][1], b0, b1);
+            mma_s8(c[2][n], a[st][2], b0, b1);
+          }
+        }
+      }
+    }
+  }
+
+  // Extension 1 (kFirst) or 2 over every slab, each warp taking slabs
+  // warp, warp + warps, ..., with its epilogue from the registers.
+  template <bool kFirst>
+  __device__ void extension(const int4* wp) {
+    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    for (int s = warp; s < slabs; s += nw) {
+      int c[3][kTiles][4];
+      if (kFirst && s == 0) { PHASE(8); }
+      slab(wp, s, c);
+      if (kFirst && s == 0) { PHASE(9); }
+      // Extension 1 reads the channel products of its outputs' channels,
+      // all of them before its first store (see montmul).
+      unsigned int rin[2][kTiles][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = s * 16 + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            rin[h][n][x] = kFirst && j < K1
+                               ? raw[(n * 8 + 2 * t + x) * rs + k + j]
+                               : 0u;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = s * 16 + g + 8 * h;
+        if (j >= K1) continue;  // a zero padding row
+        const int ch = kFirst ? k + j : (j < k ? j : k + j);
+        const unsigned int mj = ld(m, ch), muj = ld(mu, ch);
+        const unsigned int t14j = ld(t14, ch);
+        const unsigned int d1j = kFirst ? ld(d1, ch) : 0u;
+        const unsigned int d2j = kFirst ? ld(d2, ch) : 0u;
+        const unsigned int e1j = kFirst ? ld(e1, ch) : 0u;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int e = n * 8 + 2 * t + x, i = 2 * h + x;
+            const unsigned int v = combine_raw(c[0][n][i], c[1][n][i],
+                                               c[2][n][i], mj, muj, t14j);
+            if (kFirst) {
+              const unsigned int qh = barrett(v, mj, muj);
+              const unsigned int r = rin[h][n][x];
+              acc[e * rs + ch] = barrett(
+                  (r >> 14) * d2j + (r & 0x3FFF) * d1j + qh * e1j, mj, muj);
+            } else {
+              raw[e * rs + j] = v;
+            }
+          }
+        }
+      }
+      if (kFirst && s == 0) { PHASE(10); }
     }
   }
 };
 
 // kVec = false: digits is int64 [n_windows], shared by the batch.
 // kVec = true: digits is int8 [B, n_windows], one schedule per element.
-template <bool kVec>
-__global__ void __launch_bounds__(kMaxThreads)
+// Eight-element blocks run two to an SM (at most 80 registers a thread).
+template <bool kVec, int E>
+__global__ void __launch_bounds__(kMaxWarps * 32, E == 8 ? 2 : 1)
 rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
                   unsigned int* __restrict__ table, int B, int k, int cpad,
                   Rows rows, const int64_t* __restrict__ mbinv,
-                  const int* __restrict__ w1p, const int* __restrict__ w2p,
+                  const int4* __restrict__ w1p, const int4* __restrict__ w2p,
                   const void* __restrict__ digits, int n_windows,
                   int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Ladder ld_;
+  Ladder<E> ld_;
   ld_.k = k;
   ld_.cpad = cpad;
   ld_.K1 = k + 8;
+  ld_.slabs = k1_pad(k) / 16;
+  ld_.ksteps = k_pad(k) / 32;
+  ld_.ds = dig_stride(k);
   ld_.m = rows.m;
   ld_.mu = rows.mu;
   ld_.t14 = rows.t14;
@@ -247,44 +417,58 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   ld_.mbinv = static_cast<unsigned int>(mbinv[0]);
   ld_.w1p = w1p;
   ld_.w2p = w2p;
+  ld_.rs = row_stride(k);
+  const int rs = ld_.rs;
   ld_.acc = reinterpret_cast<unsigned int*>(smem_raw);
-  ld_.raw = ld_.acc + kElems * cpad;
-  ld_.dig = reinterpret_cast<unsigned char*>(ld_.raw + kElems * cpad);
-  ld_.beta = reinterpret_cast<unsigned int*>(ld_.dig + kElems * 2 * k);
+  ld_.raw = ld_.acc + E * rs;
+  ld_.dig = reinterpret_cast<unsigned char*>(ld_.raw + E * rs);
+  ld_.beta = reinterpret_cast<unsigned int*>(ld_.dig + E * ld_.ds);
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * kElems;
+  const size_t e0 = static_cast<size_t>(blockIdx.x) * E;
   const size_t tstride = static_cast<size_t>(cpad) << window;  // 2^w rows
   unsigned int* tab = table + e0 * tstride;  // this block's elements
   unsigned int* acc = ld_.acc;
+  // Elements of this block past the batch compute on zero residues and
+  // are never stored.
+  const int live = B - static_cast<int>(e0) < E ? B - static_cast<int>(e0) : E;
 
-  for (int idx = tid; idx < kElems * cpad; idx += nt) {
-    const int e = idx / cpad, c = idx - e * cpad;
-    acc[idx] = e0 + e < static_cast<size_t>(B)
-                   ? static_cast<unsigned int>(x[(e0 + e) * cpad + c])
-                   : 0u;
+  for (int idx = tid; idx < E * ld_.ds; idx += nt) ld_.dig[idx] = 0;
+  for (int c = tid; c < cpad; c += nt) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      acc[e * rs + c] =
+          e < live ? static_cast<unsigned int>(x[(e0 + e) * cpad + c]) : 0u;
+    }
   }
   __syncthreads();
 
   // Enter the Montgomery domain; seed the table with 1 and xd.
   ld_.montmul(kYConst, nullptr, 0, 0, entry);
-  for (int idx = tid; idx < kElems * cpad; idx += nt) {
-    const int e = idx / cpad, c = idx - e * cpad;
-    tab[e * tstride + c] = ld(one_dom, c);
-    tab[e * tstride + cpad + c] = acc[idx];
+  for (int c = tid; c < cpad; c += nt) {
+    const unsigned int one = ld(one_dom, c);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      tab[e * tstride + c] = one;
+      tab[e * tstride + cpad + c] = acc[e * rs + c];
+    }
   }
   __syncthreads();
   for (int j = 2; j < (1 << window); ++j) {
     ld_.montmul(kYTable, tab, tstride, 1, nullptr);  // tab[j-1] * xd
-    for (int idx = tid; idx < kElems * cpad; idx += nt) {
-      const int e = idx / cpad, c = idx - e * cpad;
-      tab[e * tstride + static_cast<size_t>(j) * cpad + c] = acc[idx];
+    for (int c = tid; c < cpad; c += nt) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        tab[e * tstride + static_cast<size_t>(j) * cpad + c] = acc[e * rs + c];
+      }
     }
     __syncthreads();
   }
 
-  for (int idx = tid; idx < kElems * cpad; idx += nt) {
-    acc[idx] = ld(one_dom, idx % cpad);
+  for (int c = tid; c < cpad; c += nt) {
+    const unsigned int one = ld(one_dom, c);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e * rs + c] = one;
   }
   __syncthreads();
   for (int wi = 0; wi < n_windows; ++wi) {
@@ -301,94 +485,101 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
       // in constant time: every table row is read and the wanted one kept
       // by a mask, with no address or branch that depends on the digit.
       // The factor goes to raw, which the product reads as a one-row table
-      // (each thread reads y = raw[idx] before it overwrites raw[idx]).
+      // of row stride rs.
       const uint8_t* dg = static_cast<const uint8_t*>(digits);
       const unsigned int mask = (1u << window) - 1;
-      for (int idx = tid; idx < kElems * cpad; idx += nt) {
+      // Element-major, as a warp's lanes walk one element's channels.
+      for (int idx = tid; idx < E * cpad; idx += nt) {
         const int e = idx / cpad, c = idx - e * cpad;
-        const size_t el = e0 + e;
         const unsigned int d =
-            el < static_cast<size_t>(B) ? dg[el * n_windows + wi] & mask : 0u;
+            e < live ? dg[(e0 + e) * n_windows + wi] & mask : 0u;
         const unsigned int* col = tab + e * tstride + c;
         unsigned int y = 0;
         for (int j = 0; j < (1 << window); ++j) {
           y |= col[static_cast<size_t>(j) * cpad] &
                (0u - static_cast<unsigned int>(static_cast<unsigned int>(j) == d));
         }
-        ld_.raw[idx] = y;
+        ld_.raw[e * rs + c] = y;
       }
       __syncthreads();
-      ld_.montmul(kYTable, ld_.raw, cpad, 0, nullptr);
+      ld_.montmul(kYTable, ld_.raw, rs, 0, nullptr);
     }
   }
   // Leave the domain through the exit constant.
   ld_.montmul(kYConst, nullptr, 0, 0, exitc);
 
-  for (int idx = tid; idx < kElems * cpad; idx += nt) {
-    const int e = idx / cpad, c = idx - e * cpad;
-    if (e0 + e < static_cast<size_t>(B)) {
-      out[(e0 + e) * cpad + c] = static_cast<int64_t>(acc[idx]);
+  for (int c = tid; c < cpad; c += nt) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e < live) out[(e0 + e) * cpad + c] = static_cast<int64_t>(acc[e * rs + c]);
     }
   }
 }
 
-template <bool kVec>
+template <bool kVec, int E>
 int launch(const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
            int cpad, const Rows& rows, const int64_t* mbinv, const int* w1p,
            const int* w2p, const void* digits, int n_windows, int window,
            cudaStream_t stream) {
-  const size_t smem = kElems * (2 * cpad * sizeof(unsigned int) + 2 * k) +
-                      kElems * sizeof(unsigned int);
+  const size_t smem = smem_bytes(k, E);
+  if (smem > static_cast<size_t>(kSmemLimit) || cpad != 2 * k + 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      rns_ladder_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rns_ladder_kernel<kVec, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = (k + 8 + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const int blocks = (B + kElems - 1) / kElems;
-  rns_ladder_kernel<kVec><<<blocks, threads, smem, stream>>>(
-      x, out, table, B, k, cpad, rows, mbinv, w1p, w2p, digits, n_windows,
-      window);
+  const int threads = warps_for(k) * 32;
+  const int blocks = (B + E - 1) / E;
+  rns_ladder_kernel<kVec, E><<<blocks, threads, smem, stream>>>(
+      x, out, table, B, k, cpad, rows, mbinv,
+      reinterpret_cast<const int4*>(w1p), reinterpret_cast<const int4*>(w2p),
+      digits, n_windows, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, out: [B, cpad] int64 stored residues; table: uint32 scratch of
-// ceil(B / 8) * 8 * 2^window * cpad words; m ... one_dom: the system's
-// [cpad] int64 constant rows; entry, exitc: [cpad] int64 entry and exit
-// constants; mbinv: [1] int64; w1p, w2p: [2k/4, 3(k+8)] int32 packed int8
-// matrices; digits: [n_windows] int64. Launches on `stream`, allocates
-// nothing, returns cudaGetLastError().
-extern "C" int phe_rns_ladder(
-    const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
-    int cpad, const int64_t* m, const int64_t* mu, const int64_t* t14,
-    const int64_t* sig1, const int64_t* sig2, const int64_t* d1,
-    const int64_t* d2, const int64_t* e1, const int64_t* neg_mb,
-    const int64_t* one_dom, const int64_t* entry, const int64_t* exitc,
-    const int64_t* mbinv, const int* w1p, const int* w2p,
-    const int64_t* digits, int n_windows, int window, cudaStream_t stream) {
-  const Rows rows{m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom,
-                  entry, exitc};
-  return launch<false>(x, out, table, B, k, cpad, rows, mbinv, w1p, w2p,
-                       digits, n_windows, window, stream);
+// phe_rns_ladder_<E>: x, out: [B, cpad] int64 stored residues; table:
+// uint32 scratch of ceil(B / E) * E * 2^window * cpad words; m ... one_dom:
+// the system's [cpad] int64 constant rows; entry, exitc: [cpad] int64
+// entry and exit constants; mbinv: [1] int64; w1p, w2p: the extension
+// matrices in fragment order (cuda_rns._pack_fragments), 16-byte aligned;
+// digits: [n_windows] int64. phe_rns_ladder_vec_<E> takes digits: [B,
+// n_windows] int8, one MSB-first schedule per element. Each launches on
+// `stream`, allocates nothing, and returns cudaGetLastError().
+#define PHE_RNS_LADDER_ENTRY(NAME, VEC, E, DIGIT_T)                            \
+  extern "C" int NAME(                                                         \
+      const int64_t* x, int64_t* out, unsigned int* table, int B, int k,      \
+      int cpad, const int64_t* m, const int64_t* mu, const int64_t* t14,      \
+      const int64_t* sig1, const int64_t* sig2, const int64_t* d1,            \
+      const int64_t* d2, const int64_t* e1, const int64_t* neg_mb,            \
+      const int64_t* one_dom, const int64_t* entry, const int64_t* exitc,     \
+      const int64_t* mbinv, const int* w1p, const int* w2p,                   \
+      const DIGIT_T* digits, int n_windows, int window, cudaStream_t stream) { \
+    const Rows rows{m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom,      \
+                    entry, exitc};                                             \
+    return launch<VEC, E>(x, out, table, B, k, cpad, rows, mbinv, w1p, w2p,   \
+                          digits, n_windows, window, stream);                 \
+  }
+
+PHE_RNS_LADDER_ENTRY(phe_rns_ladder_8, false, 8, int64_t)
+PHE_RNS_LADDER_ENTRY(phe_rns_ladder_16, false, 16, int64_t)
+PHE_RNS_LADDER_ENTRY(phe_rns_ladder_32, false, 32, int64_t)
+PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_8, true, 8, int8_t)
+PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_16, true, 16, int8_t)
+PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_32, true, 32, int8_t)
+
+// Shared-memory bytes of one block of `elems` elements at k: the wrapper
+// chooses E with its own copy of this formula, which the GPU tests hold
+// against this one.
+extern "C" int phe_rns_ladder_smem(int k, int elems) {
+  return static_cast<int>(smem_bytes(k, elems));
 }
 
-// As phe_rns_ladder, with digits: [B, n_windows] int8, one MSB-first
-// schedule per element.
-extern "C" int phe_rns_ladder_vec(
-    const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
-    int cpad, const int64_t* m, const int64_t* mu, const int64_t* t14,
-    const int64_t* sig1, const int64_t* sig2, const int64_t* d1,
-    const int64_t* d2, const int64_t* e1, const int64_t* neg_mb,
-    const int64_t* one_dom, const int64_t* entry, const int64_t* exitc,
-    const int64_t* mbinv, const int* w1p, const int* w2p,
-    const int8_t* digits, int n_windows, int window, cudaStream_t stream) {
-  const Rows rows{m, mu, t14, sig1, sig2, d1, d2, e1, neg_mb, one_dom,
-                  entry, exitc};
-  return launch<true>(x, out, table, B, k, cpad, rows, mbinv, w1p, w2p,
-                      digits, n_windows, window, stream);
+#ifdef PHE_LADDER_PHASES
+extern "C" int phe_rns_ladder_phases(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, phase_clock, sizeof(phase_clock)));
 }
-
-// Elements per block: the wrapper sizes the table scratch with it.
-extern "C" int phe_rns_ladder_elems() { return kElems; }
+#endif

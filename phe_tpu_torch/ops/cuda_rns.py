@@ -8,6 +8,14 @@ for residues on the card and run the plain PyTorch versions,
 any other device raises. Every residue is canonical, so kernel and plain
 version are bit-equal: the same integers at every step.
 
+The kernel runs both base extensions of each product as int8 tensor-core
+products (``mma.sync`` m16n8k32) with the block's elements as the N
+dimension. What it needs from the host lives here, where the CPU tests
+reach it: the padded geometry (``_geometry``), the extension matrices
+packed in the MMA's A-fragment order (``_pack_fragments``), the block's
+shared memory (``_smem``) and the elements a block holds (``_elems``),
+chosen per launch from (k, B) among the kernel's instantiations.
+
 ``launches`` counts the kernel launches of each form; nothing else changes
 it.
 """
@@ -29,33 +37,105 @@ _ROWS = ("m", "mu", "t14", "sig1", "sig2", "d1", "d2", "e1", "neg_mb",
 # for the kernel, built at the system's first launch.
 _packed = WeakIdKeyDictionary()
 
+# Elements a block holds: the kernel's instantiations, widest first.
+ELEMS = (32, 16, 8)
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
-def _lib(vec):
+
+def _lib(vec, elems):
+    """The kernel's C entry point for one mode and one E."""
     lib = _build.load("rns_ladder")
-    if lib.phe_rns_ladder_elems.argtypes is None:
-        for fn in (lib.phe_rns_ladder, lib.phe_rns_ladder_vec):
-            fn.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * (len(_ROWS) + 6)
-                + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-        lib.phe_rns_ladder_elems.restype = ctypes.c_int
-        lib.phe_rns_ladder_elems.argtypes = []
-    fn = lib.phe_rns_ladder_vec if vec else lib.phe_rns_ladder
-    return fn, lib.phe_rns_ladder_elems()
+    if lib.phe_rns_ladder_smem.argtypes is None:
+        for e in ELEMS:
+            for form in ("phe_rns_ladder_%d", "phe_rns_ladder_vec_%d"):
+                fn = getattr(lib, form % e)
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p] * (len(_ROWS) + 6)
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                )
+                fn.restype = ctypes.c_int
+        lib.phe_rns_ladder_smem.argtypes = [ctypes.c_int] * 2
+        lib.phe_rns_ladder_smem.restype = ctypes.c_int
+    return getattr(lib, ("phe_rns_ladder_vec_%d" if vec
+                         else "phe_rns_ladder_%d") % elems)
 
 
-def _pack(w):
-    """int8 [3K, 2k] -> int32 [2k/4, 3K]: row r's 4-digit words, column-wise."""
-    return w.contiguous().view(torch.int32).t().contiguous()
+def _geometry(k):
+    """(K1p, Kp): each extension's output rows k + 8 padded to the MMA's
+    16-row slabs, and its depth 2k padded to the MMA's 32-digit K-steps."""
+    return -(-(k + 8) // 16) * 16, -(-2 * k // 32) * 32
+
+
+def _smem(k, elems):
+    """Shared-memory bytes of one block (csrc/rns_ladder.cu's smem_bytes):
+    per element the accumulator and the raw products (cpad + 4 uint32
+    each: a 4-word skew), the digit row (Kp bytes and a 16-byte skew) and
+    beta."""
+    _, Kp = _geometry(k)
+    return elems * (8 * (2 * k + 12) + Kp + 16 + 4)
+
+
+def _elems(k, B):
+    """Elements a block holds for B rows at k: the widest instantiation
+    whose shared memory fits and whose ceil(B / E) blocks still cover the
+    card's SMs; when none does, the narrowest that fits (the most
+    blocks). Wider blocks divide the extension matrices' L2 reads by E."""
+    fits = [e for e in ELEMS if _smem(k, e) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError("no RNS ladder block fits %d bytes of shared memory "
+                         "at k = %d" % (SMEM_LIMIT, k))
+    for e in fits:
+        if -(-B // e) >= SMS:
+            return e
+    return fits[-1]
+
+
+def _pack_fragments(w, k):
+    """int8 [3(k+8), 2k] -> int32 [S, KS, 3, 32, 4] in mma.sync's A order.
+
+    The matrix is cut into its three digit blocks (rows b K1 ... (b+1) K1),
+    each zero-padded to [K1p, Kp], then into S = K1p / 16 row slabs and
+    KS = Kp / 32 K-steps. Entry [s, ks, b, lane] holds the four registers
+    of lane's m16n8k32 A fragment of block b's tile (s, ks): with
+    g = lane / 4 and t = lane % 4, register j holds the four digits of row
+    16 s + g + 8 (j % 2) at columns 32 ks + 4 t + 16 (j / 2), the lowest
+    column in the lowest byte. A warp reads one tile of one block as 512
+    contiguous bytes, 16 a lane.
+    """
+    K1p, Kp = _geometry(k)
+    K1 = k + 8
+    S, KS = K1p // 16, Kp // 32
+    blocks = torch.zeros((3, K1p, Kp), dtype=torch.int8, device=w.device)
+    blocks[:, :K1, : 2 * k] = w.reshape(3, K1, 2 * k)
+    # [b, s, h, g, ks, jh, t, byte] -> [s, ks, b, g, t, jh, h, byte]
+    tiles = blocks.reshape(3, S, 2, 8, KS, 2, 4, 4)
+    tiles = tiles.permute(1, 4, 0, 3, 6, 5, 2, 7).contiguous()
+    return tiles.view(torch.int32).reshape(S, KS, 3, 32, 4)
+
+
+def _unpack_fragments(packed, k):
+    """The inverse of _pack_fragments: int8 [3 K1p, Kp], padding kept."""
+    K1p, Kp = _geometry(k)
+    S, KS = K1p // 16, Kp // 32
+    tiles = packed.reshape(S, KS, 3, 8, 4, 2, 2, 1).view(torch.int8)
+    return tiles.permute(2, 0, 6, 3, 1, 5, 4, 7).reshape(3 * K1p, Kp)
+
+
+def _table(B, elems, window, cpad, dev):
+    """The kernel's table scratch: 2^window rows of cpad words for each
+    of the ceil(B / elems) * elems elements its blocks hold."""
+    return torch.empty((-(-B // elems) * elems, 1 << window, cpad),
+                       dtype=torch.int32, device=dev)
 
 
 def _columns(sys_):
     """(w_ext1, w_ext2) packed for the kernel, once per system."""
     cols = _packed.get(sys_.w_ext1)
     if cols is None:
-        cols = _packed[sys_.w_ext1] = (_pack(sys_.w_ext1), _pack(sys_.w_ext2))
+        cols = _packed[sys_.w_ext1] = (_pack_fragments(sys_.w_ext1, sys_.k),
+                                       _pack_fragments(sys_.w_ext2, sys_.k))
     return cols
 
 
@@ -106,7 +186,10 @@ def _row(t, name, C, dev):
     return t.data_ptr()
 
 
-def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec):
+def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec, elems):
+    """One launch of the kernel's instantiation for `elems` elements a
+    block. The wrappers take elems from _elems; chip_smoke.py's
+    one-product split compares instantiations on the same rows."""
     dev = x_res.device
     C, k = sys_.cpad, sys_.k
     if x_res.dim() != 2 or x_res.shape[1] != C:
@@ -133,11 +216,13 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec):
     out = torch.empty_like(x_res)
     if B == 0:
         return out
+    if _smem(k, elems) > SMEM_LIMIT:
+        raise ValueError("an RNS ladder block of %d elements at k = %d needs "
+                         "%d bytes of shared memory, over %d"
+                         % (elems, k, _smem(k, elems), SMEM_LIMIT))
     w1p, w2p = _columns(sys_)
-    fn, elems = _lib(vec)
-    table = torch.empty(
-        (-(-B // elems) * elems, 1 << window, C), dtype=torch.int32, device=dev
-    )
+    fn = _lib(vec, elems)
+    table = _table(B, elems, window, C, dev)
     rc = fn(
         x_res.data_ptr(), out.data_ptr(), table.data_ptr(), B, k, C,
         *rows, w1p.data_ptr(), w2p.data_ptr(),
@@ -160,7 +245,7 @@ def ladder(x_res, digits, sys_, window=rns.DEFAULT_WINDOW, exit_res=None,
     """
     if x_res.device.type == "cuda":
         return _launch(x_res, digits, sys_, window, exit_res, entry_res,
-                       vec=False)
+                       False, _elems(sys_.k, x_res.shape[0]))
     if x_res.device.type == "cpu":
         return rns.ladder_plain(x_res, digits, sys_, window=window,
                                 exit_res=exit_res, entry_res=entry_res)
@@ -176,7 +261,7 @@ def ladder_vec(x_res, digits, sys_, window=rns.DEFAULT_WINDOW, exit_res=None,
     """
     if x_res.device.type == "cuda":
         return _launch(x_res, digits, sys_, window, exit_res, entry_res,
-                       vec=True)
+                       True, _elems(sys_.k, x_res.shape[0]))
     if x_res.device.type == "cpu":
         return rns.ladder_vec_plain(x_res, digits, sys_, window=window,
                                     exit_res=exit_res, entry_res=entry_res)

@@ -4,10 +4,13 @@ The PyTorch counterpart of phe_tpu/ops/rns.py: the host-side system
 builder, the residue conversions, one fused tau-domain Montgomery product,
 and the plain versions of the two ladders (shared and per-element
 exponent) that the CUDA kernel (phe_tpu_torch/csrc/rns_ladder.cu)
-computes. phe_tpu/ops/rns.py's module docstring derives the algorithm and
-every bound; this port keeps the same channel primes, constants and
-staging, so every residue it produces is the same integer as the
-reference's.
+computes. The kernel runs both base extensions of every product on the
+int8 tensor cores (mma.sync, the batch as the N dimension); the plain
+versions here run them through limb_math.matmul_exact, and both compute
+the same integers. phe_tpu/ops/rns.py's module docstring derives the
+algorithm and every bound; this port keeps the same channel primes,
+constants and staging, so every residue it produces is the same integer
+as the reference's.
 
 In short: a value x < 2kN lives as its residues modulo 2k + 1 distinct
 14-bit primes (base A, base B, one redundant channel m_r), with 7 replica

@@ -11,9 +11,12 @@ PyTorch and the CUDA toolkit (the tests' conftest imports jax, hence
 Montgomery products and the limb-engine modexps are held value-equal mod
 M and inside the kernel contract's bounds, up to the 8192-bit key's n^2
 (L = 1,176 limbs); both ladders and the issue-rate chain are held
-bit-equal. Tolerance zero throughout: all exact integer arithmetic.
+bit-equal. The ladders run every width of block the wrapper picks
+(cuda_rns._elems), reached through the batch size, on ragged batches.
+Tolerance zero throughout: all exact integer arithmetic.
 """
 
+import functools
 import random
 
 import numpy as np
@@ -338,3 +341,97 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
     assert [v % M for v in hl.limbs_to_ints(plain.cpu().numpy())] == want
     assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
     assert all(100 * v < 101 * M for v in g)
+
+
+@functools.lru_cache(maxsize=None)
+def _rns_geometry(which):
+    """(M, RNSSystem on the card, input limbs, conversion) of the 256-bit
+    test key's n^2, or the fixed 2048-bit key's p^2 (k = 152) or n^2
+    (k = 304), or the fixed 8192-bit key's p^2 (k = 624)."""
+    dev = torch.device("cuda")
+    if which == "256":
+        M = pt.generate_paillier_keypair(n_length=256)[0].nsquare
+    else:
+        pub, priv = benchmarks.fixed_key(8192 if which == "p2_8192" else 2048)
+        M = pub.nsquare if which == "n2" else priv.psquare
+    sys_ = rns.build_rns(M, dev)
+    Lin = mg.num_limbs_for_modulus(M.bit_length())
+    return M, sys_, Lin, rns.build_conversion(sys_, Lin)
+
+
+def _widths():
+    """(B, E): batches of 1, E - 1, E, E + 1 and 21 rows at E = 8, and for
+    E = 16 and 32 the smallest batches that take that width with their
+    last block holding 1, E - 1 and E elements."""
+    out = [(B, 8) for B in (1, 7, 8, 9, 21)]
+    for E in (16, 32):
+        sms = cuda_rns.SMS
+        out += [((sms - 1) * E + 1, E), (sms * E - 1, E), (sms * E, E)]
+    return out
+
+
+def _ladder_inputs(which, vec, rows, dev):
+    """Residues of values < M and, with vec, 64-bit schedules whose first
+    rows alternate all-zero and all-(2^w - 1) digits; else one schedule."""
+    M, sys_, Lin, conv = _rns_geometry(which)
+    rng = random.Random(sys_.k + vec)
+    xs = [rng.randrange(0, M) for _ in range(rows)]
+    x = rns.to_rns(_limbs(xs, Lin, dev), conv, sys_).contiguous()
+    if vec:
+        es = [(0, (1 << 64) - 1)[i % 2] if i < 4 else rng.getrandbits(64)
+              for i in range(rows)]
+        digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
+    else:
+        digits = rns.rns_pow_digits(rng.getrandbits(64) | 1 << 63, 64, 4)
+    return sys_, x, digits
+
+
+def _ladder_check(sys_, x, digits, vec, B, E):
+    """Kernel on B rows against the plain version on the first rows and
+    the last two blocks."""
+    assert cuda_rns._elems(sys_.k, B) == E
+    name = "rns_ladder_vec" if vec else "rns_ladder"
+    xb = x[:B].contiguous()
+    before = cuda_rns.launches[name]
+    if vec:
+        db = digits[:B].contiguous()
+        got = cuda_rns.ladder_vec(xb, db, sys_)
+    else:
+        got = cuda_rns.ladder(xb, digits, sys_, window=4)
+    assert cuda_rns.launches[name] == before + 1
+    rows = sorted(set(range(min(B, 4))) | set(range(max(0, B - E - 1), B)))
+    if vec:
+        plain = rns.ladder_vec_plain(xb[rows], db[rows], sys_)
+    else:
+        plain = rns.ladder_plain(xb[rows], digits, sys_, window=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[rows], plain), (B, E)
+
+
+@pytest.mark.parametrize("which", ["256", "p2", "n2"])
+@pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
+def test_ladder_every_width_and_ragged_batch_bit_equal(dev, which, vec):
+    widths = _widths()
+    sys_, x, digits = _ladder_inputs(which, vec, max(B for B, _ in widths),
+                                     dev)
+    for B, E in widths:
+        _ladder_check(sys_, x, digits, vec, B, E)
+
+
+@pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
+def test_ladder_at_k_624(dev, vec):
+    """The 8192-bit key's p^2 (k = 624): 90,784 bytes a block at E = 8,
+    and a width that would not fit raises before any launch."""
+    sys_, x, digits = _ladder_inputs("p2_8192", vec, 9, dev)
+    assert sys_.k == 624
+    _ladder_check(sys_, x, digits, vec, 9, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_rns._launch(x, digits, sys_, 4, None, None, vec, 32)
+
+
+def test_ladder_smem_formula_matches_the_kernel(dev):
+    cuda_rns._lib(False, 8)
+    lib = cuda_rns._build.load("rns_ladder")
+    for k in (8, 40, 152, 304, 392, 624, 664):
+        for E in cuda_rns.ELEMS:
+            assert lib.phe_rns_ladder_smem(k, E) == cuda_rns._smem(k, E)

@@ -242,9 +242,12 @@ def test_ladder_wrapper_host_preparation(small):
     pub, N, Lin, sys_, conv, jsys, jconv = small
     w1p, w2p = cuda_rns._columns(sys_)
     assert cuda_rns._columns(sys_)[0] is w1p  # cached per system
+    K1, k = sys_.k + 8, sys_.k
     for packed, w in ((w1p, sys_.w_ext1), (w2p, sys_.w_ext2)):
         assert packed.dtype == torch.int32 and packed.is_contiguous()
-        assert torch.equal(packed.t().contiguous().view(torch.int8), w)
+        blocks = cuda_rns._unpack_fragments(packed, k)
+        blocks = blocks.reshape(3, -1, blocks.shape[-1])
+        assert torch.equal(blocks[:, :K1, : 2 * k], w.reshape(3, K1, 2 * k))
     digits = rns.rns_pow_digits(pub.n, pub.n.bit_length(), 5)
     got = cuda_rns._digits_on(digits, 5, CPU)
     assert got.dtype == torch.int64 and torch.equal(got, torch.as_tensor(digits))
