@@ -2,10 +2,6 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-With ``--compare-ladder OLD.cu`` it builds an earlier csrc/rns_ladder.cu
-(the eight-element __dp4a design) apart from the package and times it
-against the current kernel in turns instead (compare_ladder).
-
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Build every CUDA kernel from the checkout's sources (one nvcc per
@@ -24,13 +20,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    whole batch, and four rows against Python pow; and at k = 624 (the
    8192-bit key's p^2, exponent p-1) over 512 rows, 8 of them against the
    plain version. Each prints the elements a block held (E) and fails if
-   it ran under its bound. Ragged batches (1, E - 1, E + 1 rows) of both
-   ladder modes are bit-equal on every row; one product's time at every E
-   (k = 304 over 16,384 rows, k = 624 over 512), its SM cycles phase by
-   phase (a second build with PHE_LADDER_PHASES) and torch._int_mm over
-   the extension GEMMs (a yardstick the port never calls) split the
-   ladder's time. The tolerance is zero everywhere: this is exact integer
-   arithmetic.
+   it ran under its bound. Ragged batches of both ladder modes are
+   bit-equal: at E = 8 (1, 7 and 9 rows) on every row, and at E = 32 (a
+   last block of 1 and of 31 elements) on their first rows and last two
+   blocks. One product's time at every E (k = 304 over 16,384 rows,
+   k = 624 over 512) and torch._int_mm over the extension GEMMs (a
+   yardstick the port never calls) split the ladder's time. The
+   tolerance is zero everywhere: this is exact integer arithmetic.
    The per-element-exponent kernels run at their path's shapes too: the
    RNS ladder at k = 304, window 4, over 65,536 rows of 64-bit schedules
    (bit-equal to its plain version on the first 1,024 rows, four rows
@@ -65,7 +61,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and one 16,384-row encrypt and decrypt under profiling.trace, with the
    profiler's top ten kernels by device time and the card's busy share.
 7. The limb engine at the fixed 8192-bit key, whose n^2 is past the RNS
-   channel supply (see limb_engine_path).
+   channel supply (see limb_engine_path), with one of its decrypts under
+   profiling.trace.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is the device record. Kernel times are
@@ -211,6 +208,14 @@ def sync():
     torch.cuda.synchronize()
 
 
+def block_elems(k, rows):
+    """The elements a ladder block holds for rows at k on this card, as
+    the wrappers choose them."""
+    from phe_tpu_torch.ops import cuda_rns
+
+    return cuda_rns._elems(k, rows, cuda_rns._sms(torch.device("cuda")))
+
+
 def _counters():
     from phe_tpu_torch.ops import cuda_microbench, cuda_modexp, cuda_rns
 
@@ -325,13 +330,13 @@ def check_vec_kernels(pub, dev, rng):
     bms, by = ladder_bound(rows, st.rsys.k, n_windows, 4, vec=True)
     select_ms = 1e3 * (rows * n_windows * 16 * st.rsys.cpad * 4
                        / HBM_BYTES_PER_S)
-    elems = cuda_rns._elems(st.rsys.k, rows)
+    elems = block_elems(st.rsys.k, rows)
     print("rns_ladder_vec k=%d windows=%d: bit-equal on %d rows, Python pow "
           "on %d; kernel %.3f ms at %d rows, E = %d (%.3f ms at %d, E = %d), "
           "plain %.3f ms at %d, bound %.3f ms at %d (%s); the table select's "
           "reads alone %.3f ms at HBM rate"
           % (st.rsys.k, n_windows, few, len(tail), ms, rows, elems, ms_few,
-             few, cuda_rns._elems(st.rsys.k, few), plain_ms, few, bms, rows,
+             few, block_elems(st.rsys.k, few), plain_ms, few, bms, rows,
              by, select_ms))
     check(ms >= bms, "rns_ladder_vec ran under its bound: ladder_bound's "
           "count no longer matches the kernel")
@@ -589,8 +594,10 @@ def check_ragged_ladders(pub, dev, rng):
     """Phase 2, ragged batches at the 2048-bit n^2 geometry (k = 304): the
     shared ladder (the encrypt's exponent n, window 5) and the per-element
     ladder (64-bit schedules, window 4, the first two all-zero and
-    all-ones) over B = 1, E - 1 and E + 1 rows, E being the width _elems
-    picks for them, bit-equal on every row to their plain versions."""
+    all-ones), bit-equal to their plain versions. At E = 8, batches of 1,
+    7 and 9 rows on every row; at E = 32, the smallest batches that take
+    it on this card with a last block of 1 and of 31 elements, on their
+    first 9 rows and their last two blocks."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_rns, rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -598,11 +605,17 @@ def check_ragged_ladders(pub, dev, rng):
 
     dc = pub.device_context(dev)
     st, rsys = dc.rns_state(), dc.rns_state().rsys
-    E = cuda_rns._elems(rsys.k, 1)
-    sizes = (1, E - 1, E + 1)
-    check(all(cuda_rns._elems(rsys.k, B) == E for B in sizes),
-          "ragged ladder batches %s do not share one width" % (sizes,))
-    rows = max(sizes)
+    sms = cuda_rns._sms(dev)
+    sizes = {8: (1, 7, 9), 32: ((sms - 1) * 32 + 1, sms * 32 - 1)}
+    for E, Bs in sizes.items():
+        check(all(block_elems(rsys.k, B) == E for B in Bs),
+              "ragged ladder batches %s do not take E = %d" % (Bs, E))
+    rows = max(sizes[32])
+    # The rows each batch is checked on: all of an E = 8 batch; the head
+    # and the last two blocks (the partial one and a full one) at E = 32.
+    head = list(range(max(sizes[8])))
+    tail = list(range(min(sizes[32]) - 1 - 32, rows))
+    checked = head + tail
     xs = [rng.randrange(1, pub.nsquare) for _ in range(rows)]
     x = rns.to_rns(mg._tensor(hl.ints_to_limbs(xs, dc.L), dev), st.conv,
                    rsys).contiguous()
@@ -610,21 +623,26 @@ def check_ragged_ladders(pub, dev, rng):
     digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
     vec = dict(entry_res=st.entry_mont, exit_res=st.exit_r)
     t0 = time.perf_counter()
-    ref = rns.ladder_plain(x, dc.n_digits, rsys, window=5)
-    ref_vec = rns.ladder_vec_plain(x, digits, rsys, **vec)
+    ref = rns.ladder_plain(x[checked], dc.n_digits, rsys, window=5)
+    ref_vec = rns.ladder_vec_plain(x[checked], digits[checked], rsys, **vec)
     sync()
     plain_s = time.perf_counter() - t0
-    for B in sizes:
+    for B in sizes[8] + sizes[32]:
         xb = x[:B].contiguous()
         got = cuda_rns.ladder(xb, dc.n_digits, rsys, window=5)
         got_vec = cuda_rns.ladder_vec(xb, digits[:B].contiguous(), rsys, **vec)
-        check(torch.equal(got, ref[:B]) and torch.equal(got_vec, ref_vec[:B]),
+        at = [i for i, r in enumerate(checked) if r < B]
+        rs = [checked[i] for i in at]
+        check(torch.equal(got[rs], ref[at])
+              and torch.equal(got_vec[rs], ref_vec[at]),
               "rns_ladder k=%d: a ragged batch of %d rows differs from the "
               "plain version" % (rsys.k, B))
-    print("rns_ladder, rns_ladder_vec k=%d: ragged batches of %s rows (E = "
-          "%d) bit-equal to the plain versions on every row (plain %.1f s "
-          "for %d rows)" % (rsys.k, ", ".join(map(str, sizes)), E, plain_s,
-                            rows))
+    print("rns_ladder, rns_ladder_vec k=%d: ragged batches bit-equal to the "
+          "plain versions, %s rows (E = 8) on every row, %s rows (E = 32, "
+          "%d SMs) on their first %d rows and last two blocks (plain %.1f s "
+          "for %d rows)" % (rsys.k, ", ".join(map(str, sizes[8])),
+                            ", ".join(map(str, sizes[32])), sms, len(head),
+                            plain_s, len(checked)))
 
 
 def ladder_sass():
@@ -635,7 +653,7 @@ def ladder_sass():
     import os
     import subprocess
 
-    from phe_tpu_torch.ops import _build
+    from phe_tpu_torch.ops import _build, cuda_rns
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build._paths("rns_ladder")[1]],
@@ -652,8 +670,9 @@ def ladder_sass():
         elif name:
             counts[name][0] += "IMMA" in line
             counts[name][1] += "IDP4A" in line
-    check(len(counts) == 6, "cuobjdump shows %d rns_ladder_kernel "
-          "instantiations, not 6" % len(counts))
+    want = 2 * len(cuda_rns.ELEMS)
+    check(len(counts) == want, "cuobjdump shows %d rns_ladder_kernel "
+          "instantiations, not %d" % (len(counts), want))
     for name, (imma, dp4a) in sorted(counts.items()):
         print("rns_ladder SASS %s: %d IMMA, %d IDP4A" % (name, imma, dp4a))
         check(imma > 0 and dp4a == 0, "%s does not run its base extensions "
@@ -705,7 +724,7 @@ def one_product_split(rsys, rows, dev, card, yardstick=False):
     print("one product bound, k=%d, %d rows: %.3f ns an element-product (%s); "
           "the wrapper picks E = %d"
           % (k, rows, 1e6 * (bms - bms2) / (62 * rows), by,
-             cuda_rns._elems(k, rows)))
+             block_elems(k, rows)))
     if not yardstick:
         return split
     dig = torch.as_tensor(g.integers(0, 128, (rows, 2 * k)), dtype=torch.int8,
@@ -721,171 +740,6 @@ def one_product_split(rsys, rows, dev, card, yardstick=False):
           "[%d, %d] %.4f ms, %.3f ns an element-product [%s]"
           % (k, rows, 2 * k, 2 * k, 3 * (k + 8), ms, 1e6 * ms / rows, card))
     return split
-
-
-PHASES = ("channel product", "sigma", "extension 1", "tau digits",
-          "extension 2", "beta", "final reduction")
-
-
-def ladder_phases(cases, dev, card):
-    """Phase 2, where one ladder product's cycles go. csrc/rns_ladder.cu is
-    built a second time with PHE_LADDER_PHASES into build/ladder_phases,
-    which the package never loads, and run through the wrapper on the
-    one-product split's input (window 1, 31 zero digits) for each
-    (system, rows, E) of cases; block 0's thread 0 stamps the SM clock in
-    its 40th product: PHASES, each ending at a block barrier, and the MMAs
-    and epilogue of its first slab of extension 1."""
-    import ctypes
-    import os
-    import subprocess
-
-    from phe_tpu_torch.ops import _build, cuda_rns
-
-    out_dir = os.path.join(os.path.dirname(_build.config.build_dir()),
-                           "ladder_phases")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "rns_ladder_phases.so")
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-DPHE_LADDER_PHASES",
-                    "-o", so, _build._paths("rns_ladder")[0]],
-                   check=True, capture_output=True)
-    package_lib = _build.load("rns_ladder")
-    lib = _build._loaded["rns_ladder"] = ctypes.CDLL(so)
-    stamps = (ctypes.c_longlong * 11)()
-    g = np.random.default_rng(SEED + 6)
-    out = {}
-    for rsys, rows, E in cases:
-        x = (torch.as_tensor(g.integers(0, 1 << 14, (rows, rsys.cpad)),
-                             device=dev) % rsys.m).contiguous()
-        zeros = torch.zeros(31, dtype=torch.int64, device=dev)
-        cuda_rns._launch(x, zeros, rsys, 1, None, None, False, E)
-        sync()
-        check(lib.phe_rns_ladder_phases(stamps) == 0,
-              "could not read the ladder's phase stamps")
-        t = list(stamps)
-        cycles = {name: t[i + 1] - t[i] for i, name in enumerate(PHASES)}
-        cycles["extension 1, first slab's MMAs"] = t[9] - t[8]
-        cycles["extension 1, first slab's epilogue"] = t[10] - t[9]
-        total = t[7] - t[0]
-        check(all(v > 0 for v in cycles.values()),
-              "the ladder's phase stamps are out of order")
-        out["k=%d, %d rows, E=%d" % (rsys.k, rows, E)] = dict(
-            cycles, total=total)
-        print("rns_ladder phases, k=%d, %d rows, E=%d: %d SM cycles a "
-              "product on block 0: %s [%s]"
-              % (rsys.k, rows, E, total,
-                 ", ".join("%s %d" % kv for kv in cycles.items()), card))
-    _build._loaded["rns_ladder"] = package_lib
-    return out
-
-
-def compare_ladder(old_src, card):
-    """Old and new ladder kernels in turns (old, new, new, old) on the same
-    inputs at the path's shapes, each pair bit-equal: python3 chip_smoke.py
-    --compare-ladder OLD.cu, where OLD.cu is an earlier csrc/rns_ladder.cu
-    with the eight-element __dp4a design's C interface (phe_rns_ladder,
-    phe_rns_ladder_vec, phe_rns_ladder_elems). It is built into
-    build/ladder_old, which the package never loads."""
-    import ctypes
-    import os
-    import subprocess
-
-    from phe_tpu_torch import batch as tbatch
-    from phe_tpu_torch import benchmarks
-    from phe_tpu_torch.ops import _build, cuda_rns, rns
-    from phe_tpu_torch.ops import montgomery as mg
-    from phe_tpu_torch.utils import limbs as hl
-
-    dev = torch.device("cuda")
-    out_dir = os.path.join(os.path.dirname(_build.config.build_dir()),
-                           "ladder_old")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "rns_ladder_old.so")
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", so, old_src],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(so)
-    for fn in (lib.phe_rns_ladder, lib.phe_rns_ladder_vec):
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * (len(cuda_rns._ROWS) + 6)
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    old_elems = lib.phe_rns_ladder_elems()
-    packed = {}
-
-    def old(x, digits, rsys, window, entry, exitc, vec):
-        if rsys.k not in packed:
-            packed[rsys.k] = [w.contiguous().view(torch.int32).t().contiguous()
-                              for w in (rsys.w_ext1, rsys.w_ext2)]
-        B, C = x.shape
-        out = torch.empty_like(x)
-        table = torch.empty((-(-B // old_elems) * old_elems, 1 << window, C),
-                            dtype=torch.int32, device=dev)
-        rows = [getattr(rsys, f).data_ptr() for f in cuda_rns._ROWS]
-        fn = lib.phe_rns_ladder_vec if vec else lib.phe_rns_ladder
-        rc = fn(x.data_ptr(), out.data_ptr(), table.data_ptr(), B, rsys.k, C,
-                *rows, entry.data_ptr(), exitc.data_ptr(),
-                rsys.mbinv_r.data_ptr(), packed[rsys.k][0].data_ptr(),
-                packed[rsys.k][1].data_ptr(), digits.data_ptr(),
-                digits.shape[-1], window, _build.stream_handle(dev))
-        check(rc == 0, "old ladder launch failed: CUDA error %d" % rc)
-        return out
-
-    def new(x, digits, rsys, window, entry, exitc, vec):
-        fn = cuda_rns.ladder_vec if vec else cuda_rns.ladder
-        return fn(x, digits, rsys, window=window, entry_res=entry,
-                  exit_res=exitc)
-
-    g = random.Random(SEED + 9)
-    cases = []
-    pub, priv = benchmarks.fixed_key(2048)
-    pub8, priv8 = benchmarks.fixed_key(8192)
-    st = pub.device_context(dev).rns_state()
-    dc, pdc = pub.device_context(dev), priv.device_context(dev)
-    pdc8 = priv8.device_context(dev)
-    for name, rsys, conv, N, Lin, digits, rows in (
-            ("k=304 shared, window 5", st.rsys, st.conv, pub.nsquare, dc.L,
-             dc.n_digits, BATCH),
-            ("k=152 shared, window 5", pdc.rns_state()[0][0],
-             pdc.rns_state()[0][1], priv.psquare,
-             pdc.consts.ctx_p.num_limbs, pdc.consts.dp_digits, BATCH),
-            ("k=624 shared, window 5", pdc8.rns_state()[0][0],
-             pdc8.rns_state()[0][1], priv8.psquare,
-             pdc8.consts.ctx_p.num_limbs, pdc8.consts.dp_digits, LIMB_ROWS)):
-        cases.append((name, rsys, conv, N, Lin, digits, rows, 5,
-                      rsys.r2_dom, rsys.scale, False))
-    es = [g.getrandbits(64) for _ in range(MUL_ROWS)]
-    cases.append(("k=304 per-element, window 4, 16 windows", st.rsys,
-                  st.conv, pub.nsquare, dc.L,
-                  torch.as_tensor(tbatch._digits_rows(es, 64), device=dev),
-                  MUL_ROWS, 4, st.entry_mont, st.exit_r, True))
-    result = {}
-    for (name, rsys, conv, N, Lin, digits, rows, window, entry, exitc,
-         vec) in cases:
-        xs = [g.randrange(1, N) for _ in range(rows)]
-        x = rns.to_rns(mg._tensor(hl.ints_to_limbs(xs, Lin), dev), conv,
-                       rsys).contiguous()
-        digits = torch.as_tensor(digits, device=dev).contiguous()
-        times = {"old": [], "new": []}
-        outs = {}
-        for fn in (old, new):  # one untimed launch each: allocations, loading
-            fn(x, digits, rsys, window, entry, exitc, vec)
-        for which in ("old", "new", "new", "old"):
-            fn = old if which == "old" else new
-            outs[which], ms = cuda_once(
-                lambda: fn(x, digits, rsys, window, entry, exitc, vec))
-            times[which].append(ms)
-        check(torch.equal(outs["old"], outs["new"]),
-              "%s: old and new ladders differ" % name)
-        bms, by = ladder_bound(rows, rsys.k, digits.shape[-1], window,
-                               vec=vec)
-        result[name] = dict(rows=rows, old_ms=times["old"],
-                            new_ms=times["new"], bound_ms=bms, bound_by=by,
-                            new_elems=cuda_rns._elems(rsys.k, rows),
-                            old_elems=old_elems)
-        print("%s, %d rows: old %s ms, new %s ms (E = %d), bound %.3f ms "
-              "(%s); bit-equal [%s]"
-              % (name, rows, times["old"], times["new"],
-                 cuda_rns._elems(rsys.k, rows), bms, by, card))
-    print(json.dumps({"ladder_old_vs_new": result, "card": card}))
 
 
 def chain_bound(body, K, n):
@@ -977,7 +831,7 @@ def benchmark_phase(pub, priv, dev, card, totals):
     """Phase 6: bench.main (BENCH_RUNS timed, BENCH_WARMUP untimed streamed
     passes per op), benchmarks.main at 1024 and 2048 bits with --mem, and
     one BATCH-row encrypt and decrypt under profiling.trace."""
-    from phe_tpu_torch import bench, benchmarks, profiling
+    from phe_tpu_torch import bench, benchmarks
     from phe_tpu_torch.batch import EncryptedBatch
 
     lines, sec, n = run_step(
@@ -994,23 +848,32 @@ def benchmark_phase(pub, priv, dev, card, totals):
 
     values = [float(v) for v in
               np.random.default_rng(SEED + 6).uniform(-1e6, 1e6, BATCH)]
+    out = profiled("%d-row encrypt and decrypt" % BATCH, lambda: (
+        EncryptedBatch.encrypt(pub, values, device=dev).decrypt(priv)), card)
+    check(out == values, "profiled round trip: decrypt(encrypt(x)) != x")
+
+
+def profiled(what, fn, card):
+    """fn() under profiling.trace: its host-clock time, the card's busy
+    share and the top ten kernels by device time are printed; fn's
+    result is returned."""
+    from phe_tpu_torch import profiling
+
     with profiling.trace() as prof:
         t0 = time.perf_counter()
-        out = EncryptedBatch.encrypt(pub, values, device=dev).decrypt(priv)
+        out = fn()
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    check(out == values, "profiled round trip: decrypt(encrypt(x)) != x")
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("profiler: no device time over the %d-row encrypt and decrypt "
-              "(%.1f ms on the host clock) [%s]" % (BATCH, wall_us / 1e3,
-                                                    card))
-        return
+        print("profiler: no device time over the %s (%.1f ms on the host "
+              "clock) [%s]" % (what, wall_us / 1e3, card))
+        return out
     busy = _busy_us(kernels)
-    print("profiler: %d-row encrypt and decrypt, %.1f ms on the host clock, "
-          "device busy %.1f ms (%.1f %%), %d kernel launches [%s]"
-          % (BATCH, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
+    print("profiler: %s, %.1f ms on the host clock, device busy %.1f ms "
+          "(%.1f %%), %d kernel launches [%s]"
+          % (what, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
              len(kernels), card))
     rows = [a for a in prof.key_averages()
             if a.device_type == torch.autograd.DeviceType.CUDA]
@@ -1019,6 +882,7 @@ def benchmark_phase(pub, priv, dev, card, totals):
     for a in rows[:10]:
         print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3, a.count,
                                     a.key[:100]))
+    return out
 
 
 def limb_engine_path(pub, priv, dev, card, totals):
@@ -1085,6 +949,9 @@ def limb_engine_path(pub, priv, dev, card, totals):
         "rns_ladder": 2, "mont_mul": 3, "mont_mul_const": 6})
     report("decrypt", rows, sec, n, "paillier_decrypt_8192_batched")
     check(dec == xs, "8192-bit decrypt(encrypt(x)) != x")
+    again = profiled("8192-bit %d-row decrypt" % rows,
+                     lambda: enc.decrypt(priv), card)
+    check(again == xs, "profiled 8192-bit decrypt(encrypt(x)) != x")
 
     few = xs[:4]
     rs = [rng.randrange(1, pub.n) for _ in few]
@@ -1201,7 +1068,7 @@ def limb_engine_path(pub, priv, dev, card, totals):
     return rates, wide
 
 
-def main(argv):
+def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1231,11 +1098,6 @@ def main(argv):
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
     sass = ladder_sass()
-    if argv:
-        check(len(argv) == 2 and argv[0] == "--compare-ladder",
-              "usage: python3 chip_smoke.py [--compare-ladder OLD.cu]")
-        compare_ladder(argv[1], card)
-        return
 
     pub, priv = benchmarks.fixed_key(2048)
     pub8, priv8 = benchmarks.fixed_key(8192)
@@ -1341,12 +1203,12 @@ def main(argv):
         ms_few = cuda_ms(lambda: run(head), 1)
         bms, by = ladder_bound(rows, rsys.k, len(digits), 5)
         bms_few, _ = ladder_bound(few, rsys.k, len(digits), 5)
-        elems = cuda_rns._elems(rsys.k, rows)
+        elems = block_elems(rsys.k, rows)
         print("rns_ladder k=%d cpad=%d windows=%d: bit-equal on %d rows, "
               "Python pow on 4; kernel %.3f ms at %d rows, E = %d (%.3f ms "
               "at %d, E = %d), plain %.3f ms at %d, bound %.3f ms at %d (%s)"
               % (rsys.k, rsys.cpad, len(digits), few, ms, rows, elems,
-                 ms_few, few, cuda_rns._elems(rsys.k, few), plain_ms, few,
+                 ms_few, few, block_elems(rsys.k, few), plain_ms, few,
                  bms, rows, by))
         check(ms >= bms, "rns_ladder k=%d ran under its bound: ladder_bound's "
               "count no longer matches the kernel" % rsys.k)
@@ -1377,9 +1239,6 @@ def main(argv):
     check_ragged_ladders(pub, dev, rng)
     split = one_product_split(st.rsys, BATCH, dev, card, yardstick=True)
     split_624 = one_product_split(rsys8, LIMB_ROWS, dev, card)
-    phases = ladder_phases(
-        [(rs, rows, cuda_rns._elems(rs.k, rows))
-         for rs, rows in ((st.rsys, BATCH), (rsys8, LIMB_ROWS))], dev, card)
     vec_checks = check_vec_kernels(pub, dev, rng)
 
     # -- 3. the main path --------------------------------------------------
@@ -1468,7 +1327,6 @@ def main(argv):
                 "vpu_microbench": "scripts/vpu_microbench.py:36"}
     ladder_checks[0]["one_product_split"] = split
     ladder_checks[2]["one_product_split"] = split_624
-    ladder_checks[0]["phase_cycles"] = phases
     ladder_checks[0]["sass_imma_idp4a"] = sass
     checks = {"mont_mul": mul_checks["mont_mul"],
               "mont_mul_const": mul_checks["mont_mul_const"],
@@ -1500,4 +1358,4 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

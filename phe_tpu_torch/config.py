@@ -24,13 +24,22 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def resolve_device(device=None):
-    """The torch.device to run on: CUDA unless the caller says otherwise."""
+    """The torch.device to run on: CUDA unless the caller says otherwise.
+
+    A CUDA device always carries its index, as a tensor's .device does:
+    the keys' per-device constants are cached under what this returns
+    and looked up again by a batch's tensor device, and "cuda" and
+    "cuda:0" are different keys.
+    """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch versions"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA was requested but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

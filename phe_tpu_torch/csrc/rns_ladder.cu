@@ -19,7 +19,7 @@
 // windows of w squarings and one table product, and an exit product with
 // the exit constant.
 //
-// Design. One block runs E batch elements (E in {8, 16, 32}, a template
+// Design. One block runs E batch elements (E in {8, 32}, a template
 // parameter that ops/cuda_rns.py's _elems picks per launch from (k, B))
 // through the whole ladder. Per element, shared memory holds the
 // accumulator and the raw channel products (cpad + 4 uint32 each, the
@@ -30,8 +30,8 @@
 // at k = 624 and E = 8. The channel phases between the MMAs run
 // channel-major: a thread loads a channel's constants once and walks the
 // E elements as E independent chains, all E loads issued before the first
-// store. Blocks of 32 or 16 elements run one to an SM (168 registers a
-// thread at most); blocks of 8 two (80). The table lives in a
+// store. Blocks of 32 elements run one to an SM (168 registers a thread
+// at most); blocks of 8 two (80). The table lives in a
 // device-memory scratch the wrapper allocates ([ceil(B/E) E, 2^w, cpad]
 // uint32).
 //
@@ -66,13 +66,14 @@
 // from L2 once per block-product: 36 KB an element-product at E = 32. The
 // int32 channel work is the floor (chip_smoke.ladder_bound). Measured
 // (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 6.75 ns an
-// element-product at E = 32, 10.9 at 16 and at 8 (one_product_split), the
-// stream at 5.4, 6.7 and 13.4 TB/s; 270.8 ms for the k = 304 ladder of
-// 16,384 rows, 3.7 times its bound. The two extensions take 81 % of a
-// product's SM cycles at E = 32 (ladder_phases, built with
-// PHE_LADDER_PHASES): per K-step a warp's three 16-byte fragment loads,
-// eight B-fragment loads and twelve MMAs, about 420 cycles with one
-// block on the SM. The channel phases take the other 19 %. The design
+// element-product at E = 32 and 10.9 at E = 8 (one_product_split), the
+// stream at 5.4 and 13.4 TB/s; 270.8 ms for the k = 304 ladder of 16,384
+// rows, 3.7 times its bound. SM clock stamps around each phase of one
+// product put 81 % of its cycles at E = 32 in the two extensions: per
+// K-step a warp's three 16-byte fragment loads, eight B-fragment loads
+// and twelve MMAs, about 420 cycles with one block on the SM. The channel
+// phases take the other 19 %. A 16-element block measured no faster than
+// an 8-element one, so there is none. The design
 // before this one ran the extensions as __dp4a on the integer pipes, 8
 // elements a block: 1,954.510 ms for the same ladder (NVIDIA H100 80GB
 // HBM3, 700.00 W).
@@ -144,20 +145,6 @@ __device__ __forceinline__ void mma_s8(int* c, const int4& a, unsigned int b0,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-#ifdef PHE_LADDER_PHASES
-// Phase timing for chip_smoke.ladder_phases, which builds this file a
-// second time with the macro: block 0's thread 0 stamps the SM clock at the
-// start of its 40th product, after each of the product's seven barriers,
-// and around the MMAs of its first slab in extension 1 (8, 9, 10).
-__device__ long long phase_clock[11];
-#define PHASE(i)                                                      \
-  if ((i) == 0) ++products;                                           \
-  if (blockIdx.x == 0 && threadIdx.x == 0 && products == 40)         \
-  phase_clock[i] = clock64()
-#else
-#define PHASE(i)
-#endif
-
 // The system's constant rows, each int64 [cpad], and the ladder's entry
 // and exit constants.
 struct Rows {
@@ -177,9 +164,6 @@ struct Ladder {
   unsigned int* raw;    // shared [E, rs]
   unsigned char* dig;   // shared [E, ds]; columns [2k, ds) stay zero
   unsigned int* beta;   // shared [E]
-#ifdef PHE_LADDER_PHASES
-  int products = 0;
-#endif
 
   // acc <- acc * y (one RNS Montgomery product per element), where y is
   // acc itself, the table row `trow` of each element, or a constant. The
@@ -191,7 +175,6 @@ struct Ladder {
   __device__ void montmul(YSource src, const unsigned int* tab, size_t tstride,
                           int trow, const int64_t* yconst) {
     const int tid = threadIdx.x, nt = blockDim.x;
-    PHASE(0);
     unsigned int v[E];
     for (int c = tid; c < cpad; c += nt) {
       const unsigned int yc = src == kYConst ? ld(yconst, c) : 0u;
@@ -208,7 +191,6 @@ struct Ladder {
       }
     }
     __syncthreads();
-    PHASE(1);
 
     // sigma over base A, as int8 digits (lo block, hi block).
     for (int i = tid; i < k; i += nt) {
@@ -225,11 +207,9 @@ struct Ladder {
       }
     }
     __syncthreads();
-    PHASE(2);
 
     extension<true>(w1p);  // q^, then u~ on B u r u pads (channels k + j)
     __syncthreads();
-    PHASE(3);
 
     // The stored B residues are tau: their digits feed extension 2.
     for (int j = tid; j < k; j += nt) {
@@ -242,11 +222,9 @@ struct Ladder {
       }
     }
     __syncthreads();
-    PHASE(4);
 
     extension<false>(w2p);  // S on A u r u pads (row i < k: channel i)
     __syncthreads();
-    PHASE(5);
 
     // beta from the redundant channel (S row k, u~ channel 2k): row k lies
     // in another warp's slab, hence the barrier above.
@@ -257,7 +235,6 @@ struct Ladder {
       beta[tid] = barrett((sr + (mr - ur)) * mbinv, mr, mur);
     }
     __syncthreads();
-    PHASE(6);
 
     unsigned int bt[E];
 #pragma unroll
@@ -272,7 +249,6 @@ struct Ladder {
       }
     }
     __syncthreads();
-    PHASE(7);
   }
 
   // One slab's three digit-block sums over the block's elements:
@@ -333,9 +309,7 @@ struct Ladder {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     for (int s = warp; s < slabs; s += nw) {
       int c[3][kTiles][4];
-      if (kFirst && s == 0) { PHASE(8); }
       slab(wp, s, c);
-      if (kFirst && s == 0) { PHASE(9); }
       // Extension 1 reads the channel products of its outputs' channels,
       // all of them before its first store (see montmul).
       unsigned int rin[2][kTiles][2];
@@ -378,7 +352,6 @@ struct Ladder {
           }
         }
       }
-      if (kFirst && s == 0) { PHASE(10); }
     }
   }
 };
@@ -564,10 +537,8 @@ int launch(const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
   }
 
 PHE_RNS_LADDER_ENTRY(phe_rns_ladder_8, false, 8, int64_t)
-PHE_RNS_LADDER_ENTRY(phe_rns_ladder_16, false, 16, int64_t)
 PHE_RNS_LADDER_ENTRY(phe_rns_ladder_32, false, 32, int64_t)
 PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_8, true, 8, int8_t)
-PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_16, true, 16, int8_t)
 PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_32, true, 32, int8_t)
 
 // Shared-memory bytes of one block of `elems` elements at k: the wrapper
@@ -576,10 +547,3 @@ PHE_RNS_LADDER_ENTRY(phe_rns_ladder_vec_32, true, 32, int8_t)
 extern "C" int phe_rns_ladder_smem(int k, int elems) {
   return static_cast<int>(smem_bytes(k, elems));
 }
-
-#ifdef PHE_LADDER_PHASES
-extern "C" int phe_rns_ladder_phases(long long* out) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(out, phase_clock, sizeof(phase_clock)));
-}
-#endif

@@ -38,9 +38,8 @@ _ROWS = ("m", "mu", "t14", "sig1", "sig2", "d1", "d2", "e1", "neg_mb",
 _packed = WeakIdKeyDictionary()
 
 # Elements a block holds: the kernel's instantiations, widest first.
-ELEMS = (32, 16, 8)
+ELEMS = (32, 8)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _lib(vec, elems):
@@ -77,19 +76,25 @@ def _smem(k, elems):
     return elems * (8 * (2 * k + 12) + Kp + 16 + 4)
 
 
-def _elems(k, B):
-    """Elements a block holds for B rows at k: the widest instantiation
-    whose shared memory fits and whose ceil(B / E) blocks still cover the
-    card's SMs; when none does, the narrowest that fits (the most
-    blocks). Wider blocks divide the extension matrices' L2 reads by E."""
+def _elems(k, B, sms):
+    """Elements a block holds for B rows at k on a card of `sms`
+    multiprocessors: the widest instantiation whose shared memory fits and
+    whose ceil(B / E) blocks still cover the SMs; when none does, the
+    narrowest that fits (the most blocks). Wider blocks divide the
+    extension matrices' L2 reads by E."""
     fits = [e for e in ELEMS if _smem(k, e) <= SMEM_LIMIT]
     if not fits:
         raise ValueError("no RNS ladder block fits %d bytes of shared memory "
                          "at k = %d" % (SMEM_LIMIT, k))
     for e in fits:
-        if -(-B // e) >= SMS:
+        if -(-B // e) >= sms:
             return e
     return fits[-1]
+
+
+def _sms(dev):
+    """The streaming multiprocessors of the card `dev`."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _pack_fragments(w, k):
@@ -245,7 +250,8 @@ def ladder(x_res, digits, sys_, window=rns.DEFAULT_WINDOW, exit_res=None,
     """
     if x_res.device.type == "cuda":
         return _launch(x_res, digits, sys_, window, exit_res, entry_res,
-                       False, _elems(sys_.k, x_res.shape[0]))
+                       False, _elems(sys_.k, x_res.shape[0],
+                                     _sms(x_res.device)))
     if x_res.device.type == "cpu":
         return rns.ladder_plain(x_res, digits, sys_, window=window,
                                 exit_res=exit_res, entry_res=entry_res)
@@ -261,7 +267,8 @@ def ladder_vec(x_res, digits, sys_, window=rns.DEFAULT_WINDOW, exit_res=None,
     """
     if x_res.device.type == "cuda":
         return _launch(x_res, digits, sys_, window, exit_res, entry_res,
-                       True, _elems(sys_.k, x_res.shape[0]))
+                       True, _elems(sys_.k, x_res.shape[0],
+                                     _sms(x_res.device)))
     if x_res.device.type == "cpu":
         return rns.ladder_vec_plain(x_res, digits, sys_, window=window,
                                     exit_res=exit_res, entry_res=entry_res)

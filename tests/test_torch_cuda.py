@@ -359,15 +359,13 @@ def _rns_geometry(which):
     return M, sys_, Lin, rns.build_conversion(sys_, Lin)
 
 
-def _widths():
-    """(B, E): batches of 1, E - 1, E, E + 1 and 21 rows at E = 8, and for
-    E = 16 and 32 the smallest batches that take that width with their
-    last block holding 1, E - 1 and E elements."""
-    out = [(B, 8) for B in (1, 7, 8, 9, 21)]
-    for E in (16, 32):
-        sms = cuda_rns.SMS
-        out += [((sms - 1) * E + 1, E), (sms * E - 1, E), (sms * E, E)]
-    return out
+def _widths(dev):
+    """(B, E): batches of 1, E - 1, E, E + 1 and 21 rows at E = 8, and at
+    E = 32 the smallest batches that take that width on this card with
+    their last block holding 1, E - 1 and E elements."""
+    sms = cuda_rns._sms(dev)
+    return [(B, 8) for B in (1, 7, 8, 9, 21)] + [
+        ((sms - 1) * 32 + 1, 32), (sms * 32 - 1, 32), (sms * 32, 32)]
 
 
 def _ladder_inputs(which, vec, rows, dev):
@@ -389,7 +387,7 @@ def _ladder_inputs(which, vec, rows, dev):
 def _ladder_check(sys_, x, digits, vec, B, E):
     """Kernel on B rows against the plain version on the first rows and
     the last two blocks."""
-    assert cuda_rns._elems(sys_.k, B) == E
+    assert cuda_rns._elems(sys_.k, B, cuda_rns._sms(x.device)) == E
     name = "rns_ladder_vec" if vec else "rns_ladder"
     xb = x[:B].contiguous()
     before = cuda_rns.launches[name]
@@ -411,7 +409,7 @@ def _ladder_check(sys_, x, digits, vec, B, E):
 @pytest.mark.parametrize("which", ["256", "p2", "n2"])
 @pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
 def test_ladder_every_width_and_ragged_batch_bit_equal(dev, which, vec):
-    widths = _widths()
+    widths = _widths(dev)
     sys_, x, digits = _ladder_inputs(which, vec, max(B for B, _ in widths),
                                      dev)
     for B, E in widths:
@@ -435,3 +433,17 @@ def test_ladder_smem_formula_matches_the_kernel(dev):
     for k in (8, 40, 152, 304, 392, 624, 664):
         for E in cuda_rns.ELEMS:
             assert lib.phe_rns_ladder_smem(k, E) == cuda_rns._smem(k, E)
+
+
+def test_key_constants_built_once_per_card(dev):
+    """A key's device constants built for "cuda" are the ones a batch on
+    the card finds again by its tensors' device (cuda:N): one set a card,
+    so a key's first decrypt does not rebuild them."""
+    pub, priv = pt.generate_paillier_keypair(n_length=256)
+    batch = tbatch.EncryptedBatch.encrypt(pub, [1.5, -2.0], device=dev)
+    assert (batch * [2, 3]).decrypt(priv) == [3.0, -6.0]
+    assert batch.mont.device.index is not None
+    assert pub.device_context(dev) is pub.device_context(batch.mont.device)
+    assert priv.device_context() is priv.device_context(batch.mont.device)
+    assert len(pub._device_contexts) == 1
+    assert len(priv._device_contexts) == 1

@@ -209,3 +209,17 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         config.resolve_device(None)
     assert config.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_device_resolves_with_its_index(monkeypatch):
+    # The keys cache their device constants under what resolve_device
+    # returns and look them up again by a tensor's device, which always
+    # carries its index.
+    from phe_tpu_torch import config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert config.resolve_device(None) == torch.device("cuda", 0)
+    assert config.resolve_device("cuda") == torch.device("cuda", 0)
+    assert config.resolve_device(torch.device("cuda", 1)) == torch.device(
+        "cuda", 1)

@@ -23,6 +23,7 @@ from phe_tpu_torch.ops import cuda_rns
 from phe_tpu_torch.ops import rns
 
 CPU = torch.device("cpu")
+H100_SMS = 132  # multiprocessors of an H100 SXM
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,7 +91,7 @@ def test_fragment_pack_unpacks_and_emulates_block_matmul(which):
         assert torch.equal(blocks[:, :K1, : 2 * k], w.reshape(3, K1, 2 * k))
         assert not blocks[:, K1:].any() and not blocks[:, :, 2 * k:].any()
     # The digits are the kernel's: canonical residues < 2^14, lo then hi.
-    E = 16 if which == "256" else 8
+    E = 32 if which == "256" else 8
     values = torch.as_tensor(rng.integers(0, 1 << 14, (E, k)))
     dig = rns._digits_i8(values)
     for w in (sys_.w_ext1, sys_.w_ext2):
@@ -106,22 +107,25 @@ def test_elems_fit_and_pick_the_path_shapes():
     top = (len(rns._channel_supply()) - 1) // 2
     for k in range(8, top + 1, 8):
         for B in (1, 7, 9, 512, 2112, 4224, 16384, 65536):
-            e = cuda_rns._elems(k, B)
+            e = cuda_rns._elems(k, B, H100_SMS)
             assert e in cuda_rns.ELEMS
             assert cuda_rns._smem(k, e) <= cuda_rns.SMEM_LIMIT
     # The main path's shapes, as csrc/rns_ladder.cu's note gives them.
-    assert cuda_rns._elems(304, 16384) == 32
-    assert cuda_rns._elems(304, 65536) == 32
-    assert cuda_rns._elems(152, 16384) == 32
-    assert cuda_rns._elems(624, 512) == 8
+    assert cuda_rns._elems(304, 16384, H100_SMS) == 32
+    assert cuda_rns._elems(304, 65536, H100_SMS) == 32
+    assert cuda_rns._elems(152, 16384, H100_SMS) == 32
+    assert cuda_rns._elems(624, 512, H100_SMS) == 8
     assert cuda_rns._smem(304, 32) == 178816
     assert cuda_rns._smem(624, 8) == 90784
     assert cuda_rns._smem(624, 32) > cuda_rns.SMEM_LIMIT
-    # Small batches take the narrowest block; each width is reached.
-    assert [cuda_rns._elems(40, B) for B in (1, 21, 132 * 16, 132 * 32)] == [
-        8, 8, 16, 32]
+    # Small batches take the narrowest block; E = 32 from the first batch
+    # whose blocks cover every SM, on whatever count the card reports.
+    for sms in (H100_SMS, 114):
+        assert [cuda_rns._elems(40, B, sms)
+                for B in (1, 21, (sms - 1) * 32, (sms - 1) * 32 + 1)] == [
+            8, 8, 8, 32]
     for B in (1, 7, 8, 9, 21, 4225):
-        e = cuda_rns._elems(304, B)
+        e = cuda_rns._elems(304, B, H100_SMS)
         tab = cuda_rns._table(B, e, 5, 616, "meta")
         assert tab.shape[0] % e == 0 and B <= tab.shape[0] < B + e
         assert tuple(tab.shape[1:]) == (32, 616)
