@@ -7,9 +7,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. Build every CUDA kernel from the checkout's sources (one nvcc per
    source, started together); print the build seconds, the compiler's
    per-kernel register and spill report, and the card's name and power
-   limit. Read the ladder's SASS (cuobjdump): every instantiation runs
-   its base extensions on the int8 tensor cores (IMMA) and none on
-   __dp4a (IDP4A).
+   limit. Read the SASS (cuobjdump) of the ladder and the limb-engine
+   modexp: every instantiation of each runs its digit products (the
+   ladder's base extensions, the modexp's two REDC products) on the int8
+   tensor cores (IMMA) and none on __dp4a (IDP4A).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: 16,384 rows at the fixed 2048-bit key. The
    Montgomery product runs at L = 296 (n^2), 152 (p^2) and 80 (p) and is
@@ -32,9 +33,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (bit-equal to its plain version on the first 1,024 rows, four rows
    against Python pow, its E printed, no faster than its bound); the
    limb-engine modexp at L = 296 over 16,384
-   rows of 320-bit schedules (value-equal on 1,024 rows, four against
-   Python pow); its shared-exponent form with the exponent n on one row
-   and on 128 rows.
+   rows of 320-bit schedules (value-equal on 1,024 rows, six against
+   Python pow, its E printed, no faster than its bound); its
+   shared-exponent form with the exponent n on one row and on 128 rows;
+   both forms on ragged batches at E = 8 (1, 7 and 9 rows) and E = 32 (a
+   last block of 1 and of 31 rows), against their plain versions and
+   Python pow.
 3. The main path at 16,384 ciphertexts: EncryptedBatch.encrypt of seeded
    uniform floats in +-1e6, then decrypt, with every kernel's launch count
    read around it; a pinned-r batch against the host's raw_encrypt; one
@@ -62,7 +66,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    profiler's top ten kernels by device time and the card's busy share.
 7. The limb engine at the fixed 8192-bit key, whose n^2 is past the RNS
    channel supply (see limb_engine_path), with one of its decrypts under
-   profiling.trace.
+   profiling.trace, and its modexp kernel timed at the encrypt's own
+   launch (r^n over 512 rows at L = 1,176) and on 2 rows.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is the device record. Kernel times are
@@ -193,15 +198,23 @@ def ladder_bound(rows, k, n_windows, window, vec=False):
     return bound_ms(nbytes, int8_macs=int8, int32_ops=int32)
 
 
-def mont_pow_bound(rows, L, products, digit_bytes):
-    """Windowed limb-engine modexp: `products` two-operand Montgomery
-    products per row, each counted as mont_mul_bound counts one (12 L^2
-    int8 multiply-adds for REDC, L^2 int32 for a*b). Bytes: the int64 base
-    rows in and out, M, M' and R mod M, the digits and the REDC digit
-    matrices, each read once."""
-    nbytes = 8 * (2 * rows * L + 3 * L) + digit_bytes + 12 * L * L
-    return bound_ms(nbytes, int8_macs=rows * products * 12 * L * L,
-                    int32_ops=rows * products * L * L)
+def pow_products(window, n_windows):
+    """(squarings, multiplies) a row of the windowed modexp runs: the
+    table's 2^w - 2 products, then w squarings and one product a window."""
+    return window * n_windows, (2**window - 2) + n_windows
+
+
+def mont_pow_bound(rows, L, window, n_windows, digit_bytes):
+    """Windowed limb-engine modexp, per row pow_products(window,
+    n_windows): each product's REDC as 12 L^2 int8 multiply-adds (the two
+    digit matmuls), its a*b as L^2 int32 multiply-adds, or L (L + 1) / 2
+    for a squaring (each cross term once). Bytes: the int64 base rows in
+    and out, R mod M, the digits and the REDC digit matrices, each read
+    once."""
+    sq, mul = pow_products(window, n_windows)
+    nbytes = 8 * (2 * rows * L + L) + digit_bytes + 12 * L * L
+    return bound_ms(nbytes, int8_macs=rows * (sq + mul) * 12 * L * L,
+                    int32_ops=rows * (sq * L * (L + 1) // 2 + mul * L * L))
 
 
 def sync():
@@ -214,6 +227,14 @@ def block_elems(k, rows):
     from phe_tpu_torch.ops import cuda_rns
 
     return cuda_rns._elems(k, rows, cuda_rns._sms(torch.device("cuda")))
+
+
+def pow_elems(L, rows):
+    """The rows a limb-engine modexp block holds for rows at L on this
+    card, as the wrappers choose them."""
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+
+    return cuda_modexp._pow_elems(L, rows, cuda_rns._sms(torch.device("cuda")))
 
 
 def _counters():
@@ -370,15 +391,22 @@ def check_vec_kernels(pub, dev, rng):
               "mont_pow: value differs from Python pow")
     ms = cuda_ms(lambda: cuda_modexp.mont_pow(base, digits, ctx), 1,
                  warm=False)
-    products = (2**4 - 2) + n_windows * 5
-    bms, by = mont_pow_bound(rows, L, products, rows * n_windows)
+    products = sum(pow_products(4, n_windows))
+    bms, by = mont_pow_bound(rows, L, 4, n_windows, rows * n_windows)
+    select_ms = 1e3 * rows * n_windows * 16 * L * 4 / HBM_BYTES_PER_S
+    elems = pow_elems(L, rows)
     print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
-          "6; kernel %.3f ms at %d rows, plain %.3f ms at %d, bound %.3f ms "
-          "(%s, %d products a row)"
-          % (L, n_windows, few, ms, rows, plain_ms, few, bms, by, products))
-    out["mont_pow"] = dict(L=L, rows=rows, max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, plain_rows=few, bound_ms=bms,
-                           bound_by=by, products=products)
+          "6; kernel %.3f ms at %d rows, E = %d, plain %.3f ms at %d, bound "
+          "%.3f ms (%s, %d products a row); the table select's reads alone "
+          "%.3f ms at HBM rate"
+          % (L, n_windows, few, ms, rows, elems, plain_ms, few, bms, by,
+             products, select_ms))
+    check(ms >= bms, "mont_pow ran under its bound: mont_pow_bound's count "
+          "no longer matches the kernel")
+    out["mont_pow"] = dict(L=L, rows=rows, elems=elems, max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, plain_rows=few,
+                           bound_ms=bms, bound_by=by, products=products,
+                           select_bytes_ms=select_ms)
     del base, got, ref
 
     # mont_pow_shared: h = x^n, one row per key (window 5), and 128 rows.
@@ -405,18 +433,89 @@ def check_vec_kernels(pub, dev, rng):
               "mont_pow_shared: value differs from Python pow")
     ms = cuda_ms(lambda: run(base[:1].contiguous()), 3)
     ms_rows = cuda_ms(lambda: run(base), 1, warm=False)
-    products = (2**5 - 2) + len(ndig) * 6
-    bms, by = mont_pow_bound(1, L, products, 8 * len(ndig))
+    products = sum(pow_products(5, len(ndig)))
+    bms, by = mont_pow_bound(1, L, 5, len(ndig), 8 * len(ndig))
+    check(ms >= bms and ms_rows >= mont_pow_bound(rows, L, 5, len(ndig),
+                                                  8 * len(ndig))[0],
+          "mont_pow_shared ran under its bound")
     print("mont_pow_shared L=%d windows=%d: value-equal on 1 and %d rows, "
-          "Python pow on 4; kernel %.3f ms at 1 row (%.3f ms at %d), plain "
-          "%.3f ms at 1 row (%.3f ms at %d), bound %.4f ms at 1 row (%s, "
-          "%d products)" % (L, len(ndig), rows, ms, ms_rows, rows, plain_ms,
-                            plain_ms_rows, rows, bms, by, products))
+          "Python pow on 4; kernel %.3f ms at 1 row, E = %d (%.3f ms at %d, "
+          "E = %d), plain %.3f ms at 1 row (%.3f ms at %d), bound %.4f ms at "
+          "1 row (%s, %d products)"
+          % (L, len(ndig), rows, ms, pow_elems(L, 1), ms_rows, rows,
+             pow_elems(L, rows), plain_ms, plain_ms_rows, rows, bms, by,
+             products))
     out["mont_pow_shared"] = dict(
-        L=L, rows=1, max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_rows=1,
-        ms_at_128_rows=ms_rows, plain_ms_at_128_rows=plain_ms_rows,
-        bound_ms=bms, bound_by=by, products=products)
+        L=L, rows=1, elems=pow_elems(L, 1), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, plain_rows=1, ms_at_128_rows=ms_rows,
+        plain_ms_at_128_rows=plain_ms_rows, bound_ms=bms, bound_by=by,
+        products=products)
     return out
+
+
+def check_ragged_pows(pub, dev, rng):
+    """Phase 2, ragged batches of both limb-engine modexp forms at the
+    2048-bit n^2 (L = 296; 64-bit exponents, window 4, the per-row
+    schedules' first two all-zero and all-ones), value-equal to their
+    plain versions and Python pow: at E = 8 batches of 1, 7 and 9 rows on
+    every row; at E = 32 the smallest batches that take it on this card
+    with a last block of 1 and of 31 rows, on their first rows and last
+    two blocks."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    ctx, L, N = pub.device_context(dev).ctx, pub.device_context(dev).L, \
+        pub.nsquare
+    R = 1 << (14 * L)
+    R_inv = pow(R, -1, N)
+    sms = cuda_rns._sms(dev)
+    sizes = {8: (1, 7, 9), 32: ((sms - 1) * 32 + 1, sms * 32 - 1)}
+    for E, Bs in sizes.items():
+        check(all(pow_elems(L, B) == E for B in Bs),
+              "ragged modexp batches %s do not take E = %d" % (Bs, E))
+    rows = max(sizes[32])
+    head = list(range(max(sizes[8])))
+    tail = list(range(min(sizes[32]) - 1 - 32, rows))
+    checked = head + tail
+    xs = [rng.randrange(0, 2 * N) for _ in range(rows)]
+    base = mg._tensor(hl.ints_to_limbs(xs, L), dev)
+    es = [0, (1 << 64) - 1] + [rng.getrandbits(64) for _ in range(rows - 2)]
+    e_shared = rng.getrandbits(64) | 1 << 63
+    digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
+    sdig = torch.as_tensor(mg.exponent_digits(e_shared, 64), device=dev)
+    t0 = time.perf_counter()
+    ref = mg.mont_pow_shared_plain(base[checked], sdig, ctx)
+    ref_vec = mg.mont_pow_plain(base[checked], digits[checked], ctx)
+    sync()
+    plain_s = time.perf_counter() - t0
+    want = [pow(xs[i] * R_inv, e_shared, N) * R % N for i in checked]
+    want_vec = [pow(xs[i] * R_inv, es[i], N) * R % N for i in checked]
+
+    def values(t):
+        return [v % N for v in hl.limbs_to_ints(t.cpu().numpy())]
+
+    check(values(ref) == want and values(ref_vec) == want_vec,
+          "the plain modexps differ from Python pow")
+    for B in sizes[8] + sizes[32]:
+        b = base[:B].contiguous()
+        got = cuda_modexp.mont_pow_shared(b, sdig, ctx)
+        got_vec = cuda_modexp.mont_pow(b, digits[:B].contiguous(), ctx)
+        at = [i for i, r in enumerate(checked) if r < B]
+        rs = [checked[i] for i in at]
+        check(values(got[rs]) == [want[i] for i in at]
+              and values(got_vec[rs]) == [want_vec[i] for i in at]
+              and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+              and int(got_vec.min()) >= 0 and int(got_vec.max()) <= 1 << 14,
+              "mont_pow L=%d: a ragged batch of %d rows differs from the "
+              "plain version" % (L, B))
+    print("mont_pow_shared, mont_pow L=%d: ragged batches value-equal to the "
+          "plain versions and Python pow, %s rows (E = 8) on every row, %s "
+          "rows (E = 32, %d SMs) on their first %d rows and last two blocks "
+          "(plain %.1f s for %d rows)"
+          % (L, ", ".join(map(str, sizes[8])), ", ".join(map(str, sizes[32])),
+             sms, len(head), plain_s, len(checked)))
 
 
 def arithmetic_path(pub, priv, dev, card, totals):
@@ -645,37 +744,37 @@ def check_ragged_ladders(pub, dev, rng):
                             plain_s, len(checked)))
 
 
-def ladder_sass():
-    """Phase 1, the ladder's instructions as the card runs them: every
-    instantiation of rns_ladder_kernel in cuobjdump -sass of the built
-    library holds int8 tensor-core MMAs (IMMA) and no __dp4a (IDP4A).
-    {instantiation: (IMMA count, IDP4A count)}."""
+def tensor_core_sass(source, kernel, elems):
+    """Phase 1, a kernel's instructions as the card runs them: every
+    instantiation <kVec, E> of `kernel` in cuobjdump -sass of the library
+    built from `source` holds int8 tensor-core MMAs (IMMA) and no __dp4a
+    (IDP4A). {instantiation: (IMMA count, IDP4A count)}."""
     import os
     import subprocess
 
-    from phe_tpu_torch.ops import _build, cuda_rns
+    from phe_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _build._paths("rns_ladder")[1]],
+    sass = subprocess.run([tool, "-sass", _build._paths(source)[1]],
                           check=True, capture_output=True, text=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            # rns_ladder_kernel<kVec, E>, mangled as ...ILb<kVec>ELi<E>E...
-            m = re.search(r"rns_ladder_kernelILb([01])ELi(\d+)E", line)
-            name = m and "rns_ladder_kernel<%s, %s>" % (
-                ("false", "true")[int(m.group(1))], m.group(2))
+            # kernel<kVec, E>, mangled as ...ILb<kVec>ELi<E>E...
+            m = re.search(kernel + r"ILb([01])ELi(\d+)E", line)
+            name = m and "%s<%s, %s>" % (
+                kernel, ("false", "true")[int(m.group(1))], m.group(2))
             if name:
                 counts[name] = [0, 0]
         elif name:
             counts[name][0] += "IMMA" in line
             counts[name][1] += "IDP4A" in line
-    want = 2 * len(cuda_rns.ELEMS)
-    check(len(counts) == want, "cuobjdump shows %d rns_ladder_kernel "
-          "instantiations, not %d" % (len(counts), want))
+    want = 2 * len(elems)
+    check(len(counts) == want, "cuobjdump shows %d %s instantiations, not %d"
+          % (len(counts), kernel, want))
     for name, (imma, dp4a) in sorted(counts.items()):
-        print("rns_ladder SASS %s: %d IMMA, %d IDP4A" % (name, imma, dp4a))
-        check(imma > 0 and dp4a == 0, "%s does not run its base extensions "
+        print("%s SASS %s: %d IMMA, %d IDP4A" % (source, name, imma, dp4a))
+        check(imma > 0 and dp4a == 0, "%s does not run its digit products "
               "on the int8 tensor cores alone" % name)
     return counts
 
@@ -1011,27 +1110,41 @@ def limb_engine_path(pub, priv, dev, card, totals):
     R = 1 << (14 * L)
     R_inv = pow(R, -1, nsq)
     wide = {}
-    xs2 = [rng.randrange(0, 2 * nsq) for _ in range(2)]
+    # The encrypt's own launch: r^n over LIMB_ROWS rows (the first two
+    # held against Python's pow), and the same kernel on 2 rows.
+    xs2 = [rng.randrange(0, 2 * nsq) for _ in range(rows)]
     base = mg._tensor(hl.ints_to_limbs(xs2, L), dev)
-    got, ms = cuda_once(lambda: cuda_modexp.mont_pow_shared(
-        base, dc.n_digits, ctx, window=5))
+    nd = len(dc.n_digits)
+    run = lambda b: cuda_modexp.mont_pow_shared(b, dc.n_digits, ctx, window=5)
+    got, ms_rows = cuda_once(lambda: run(base))
+    two = base[:2].contiguous()
+    got2, ms = cuda_once(lambda: run(two))
     t0 = time.perf_counter()
-    want = [pow(x * R_inv, pub.n, nsq) * R % nsq for x in xs2]
+    want = [pow(x * R_inv, pub.n, nsq) * R % nsq for x in xs2[:2]]
     py_ms = 1e3 * (time.perf_counter() - t0)
     gi = hl.limbs_to_ints(got.cpu().numpy())
-    check([v % nsq for v in gi] == want and int(got.min()) >= 0
-          and int(got.max()) <= 1 << 14 and all(100 * v < 101 * nsq
-                                                 for v in gi),
+    check([v % nsq for v in gi[:2]] == want
+          and hl.limbs_to_ints(got2.cpu().numpy()) == gi[:2]
+          and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+          and all(100 * v < 101 * nsq for v in gi),
           "mont_pow_shared L=%d: value differs from Python pow" % L)
-    products = (2**5 - 2) + len(dc.n_digits) * 6
-    bms, by = mont_pow_bound(2, L, products, 8 * len(dc.n_digits))
+    products = sum(pow_products(5, nd))
+    bms, by = mont_pow_bound(2, L, 5, nd, 8 * nd)
+    bms_rows, by_rows = mont_pow_bound(rows, L, 5, nd, 8 * nd)
+    check(ms >= bms and ms_rows >= bms_rows,
+          "mont_pow_shared L=%d ran under its bound" % L)
     print("mont_pow_shared L=%d windows=%d: Python pow on 2 rows; kernel "
-          "%.3f ms at 2 rows, Python pow %.1f ms, bound %.4f ms (%s, %d "
-          "products a row)" % (L, len(dc.n_digits), ms, py_ms, bms, by,
-                               products))
+          "%.3f ms at %d rows, E = %d (bound %.3f ms, %s), %.3f ms at 2 rows, "
+          "E = %d (bound %.4f ms, %s), Python pow %.1f ms for 2, %d products "
+          "a row [%s]" % (L, nd, ms_rows, rows, pow_elems(L, rows), bms_rows,
+                          by_rows, ms, pow_elems(L, 2), bms, by, py_ms,
+                          products, card))
     wide["mont_pow_shared"] = dict(
-        L=L, rows=2, max_abs_err=0, ms=ms, plain_ms=None, plain_rows=0,
-        python_pow_ms=py_ms, bound_ms=bms, bound_by=by, products=products)
+        L=L, rows=rows, elems=pow_elems(L, rows), max_abs_err=0, ms=ms_rows,
+        plain_ms=None, plain_rows=0, bound_ms=bms_rows, bound_by=by_rows,
+        ms_at_2_rows=ms, bound_ms_at_2_rows=bms, python_pow_ms=py_ms,
+        products=products)
+    del base, got
 
     rows_p = LIMB_POW_ROWS
     xs3 = [rng.randrange(0, 2 * nsq) for _ in range(rows_p)]
@@ -1054,14 +1167,17 @@ def limb_engine_path(pub, priv, dev, card, totals):
         check(gi[i] % nsq == pow(xs3[i] * R_inv, es[i], nsq) * R % nsq,
               "mont_pow L=%d: value differs from Python pow" % L)
     n_windows = digits.shape[1]
-    products = (2**4 - 2) + n_windows * 5
-    bms, by = mont_pow_bound(rows_p, L, products, rows_p * n_windows)
+    products = sum(pow_products(4, n_windows))
+    bms, by = mont_pow_bound(rows_p, L, 4, n_windows, rows_p * n_windows)
+    check(ms >= bms, "mont_pow L=%d ran under its bound" % L)
     print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
-          "4; kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s, %d products "
-          "a row)" % (L, n_windows, rows_p, ms, plain_ms, bms, by, products))
-    wide["mont_pow"] = dict(L=L, rows=rows_p, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, plain_rows=rows_p,
-                            bound_ms=bms, bound_by=by, products=products)
+          "4; kernel %.3f ms, E = %d, plain %.3f ms, bound %.4f ms (%s, %d "
+          "products a row)" % (L, n_windows, rows_p, ms, pow_elems(L, rows_p),
+                               plain_ms, bms, by, products))
+    wide["mont_pow"] = dict(L=L, rows=rows_p, elems=pow_elems(L, rows_p),
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            plain_rows=rows_p, bound_ms=bms, bound_by=by,
+                            products=products)
     print(json.dumps({"paillier_8192": {
         m: {"value": v, "unit": "ops/s", "batch": rows}
         for m, v in rates.items()}, "card": card}))
@@ -1097,7 +1213,9 @@ def main():
     print("torch %s, CUDA %s, %s x%d" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
-    sass = ladder_sass()
+    sass = tensor_core_sass("rns_ladder", "rns_ladder_kernel", cuda_rns.ELEMS)
+    pow_sass = tensor_core_sass("mont_pow", "mont_pow_kernel",
+                                cuda_modexp.POW_ELEMS)
 
     pub, priv = benchmarks.fixed_key(2048)
     pub8, priv8 = benchmarks.fixed_key(8192)
@@ -1237,6 +1355,7 @@ def main():
         rsys8, conv8, L8, pdc8.consts.dp_digits, E_p8, priv8.psquare,
         rows=LIMB_ROWS, few=PLAIN_LADDER_ROWS_624))
     check_ragged_ladders(pub, dev, rng)
+    check_ragged_pows(pub, dev, rng)
     split = one_product_split(st.rsys, BATCH, dev, card, yardstick=True)
     split_624 = one_product_split(rsys8, LIMB_ROWS, dev, card)
     vec_checks = check_vec_kernels(pub, dev, rng)
@@ -1328,6 +1447,7 @@ def main():
     ladder_checks[0]["one_product_split"] = split
     ladder_checks[2]["one_product_split"] = split_624
     ladder_checks[0]["sass_imma_idp4a"] = sass
+    vec_checks["mont_pow"]["sass_imma_idp4a"] = pow_sass
     checks = {"mont_mul": mul_checks["mont_mul"],
               "mont_mul_const": mul_checks["mont_mul_const"],
               "rns_ladder": ladder_checks}

@@ -1,11 +1,11 @@
 // Windowed Montgomery exponentiation over 14-bit redundant limbs, with the
-// exponent shared by the batch or one exponent per row.
+// exponent shared by the batch or one exponent per row, E rows a block and
+// both constant products of each reduction on the int8 tensor cores.
 //
-// Replaces phe_tpu/ops/pallas_modexp.py: mont_pow_shared_cols (:252-312),
-// whose kernel body is _pow_kernel (:199-248), and mont_pow_cols
-// (:519-583), whose body is _pow_vec_kernel (:458-515). One kernel body
-// serves both, as mont_mul.cu serves the two-operand and shared-b products:
-// a template flag says whether the digits are shared or per row.
+// Replaces phe_tpu/ops/pallas_modexp.py: mont_pow_shared_cols (call :302),
+// whose kernel body is _pow_kernel (:199-248), and mont_pow_cols (call
+// :570), whose body is _pow_vec_kernel (:458-515). One kernel body serves
+// both: a template flag says whether the digits are shared or per row.
 //
 // What it computes: for a Montgomery-domain base x < 2.01 M (limbs in
 // [0, 2^14]), a 2^w-entry table (tab[0] = R mod M, tab[1] = x,
@@ -13,162 +13,591 @@
 // table product, MSB first. The output is congruent to x^e R mod M, limbs
 // in [0, 2^14], value < 1.01 M: value-equal to the plain version
 // (phe_tpu_torch.ops.montgomery.mont_pow_plain / mont_pow_shared_plain),
-// not limb-equal. Every product is phe::mont_product (mont_core.cuh).
+// not limb-equal.
 //
-// Design: one block per row runs the whole modexp. The accumulator, the
-// table ([2^w, L] uint32: 19 KB at L = 296, w = 4), the selected factor,
-// M, M' and the product's 2 x 2L uint64 scratch all stay in shared memory,
-// 4L (2^w + 4) + 32 L bytes in all (33 KB at L = 296, w = 4); nothing goes
-// to device memory between products. The shared form indexes the table by
-// the digit, as _pow_kernel does (:242): its exponent is the public key's.
-// The per-row form selects in constant time, as _pow_vec_kernel's one-hot
-// sum does (:503-512): every table row is read and the wanted one kept by
-// a mask, with no address or branch that depends on the digit.
+// Each Montgomery product is phe_tpu's MXU formulation (_mont_mul_into,
+// :155-190): T = a b on the CUDA cores; q = T_lo M' mod R as w_mq [2L, 2L]
+// times the 2L block-order 7-bit digits of T_lo, and q M as w_m [4L, 2L]
+// times the digits of q, both as mma.sync m16n8k32 s8 x s8 -> s32 with the
+// block's E rows as N; then U = T + q M and U / R. The matrices are
+// phe_tpu's own (ops/montgomery.py build_redc_matrices), packed by the
+// host in A-fragment order (cuda_rns.pack_blocks: two row blocks, the low
+// and the high digit of each output limb, so a warp's two accumulators of
+// one slab hold both digits of the same limbs and the epilogue recombines
+// them from registers), read with 16-byte __ldg loads kStages - 1 K-steps
+// ahead and streamed from L2 once per block-product. Signedness: a limb of
+// exactly 2^14 has a high digit of 128, so the B operand's high digits are
+// biased by -64 into [-64, 64], as phe_tpu's are, and the epilogue adds
+// the compensation vectors c_mq, c_m (64 times the high-digit columns'
+// sums). Every int32 MMA sum is below 2L * 127 * 128 (3.8e7 at L = 1,176);
+// the epilogue recombines lo + (hi << 7) in 64 bits, so no L is refused
+// (phe_tpu's uint32 slots stop at L = 507).
 //
-// Larger keys: at the 8192-bit geometry (L = 1176) the layout takes 131 KB
-// at w = 4 and 207 KB at w = 5, both inside the 227 KB a block can have.
+// a * b: each thread computes a run of kRun adjacent columns of one row in
+// registers. Its i loop walks kRun operand limbs at a time: kRun limbs of
+// a and 2 kRun - 1 of b in registers feed kRun^2 multiply-adds (32-bit
+// partial sums of kRun products below 2^28, folded into 64-bit columns),
+// and each step loads kRun new limbs of each operand. Operand rows carry
+// kPad zero limbs either side, so no load is bounds-checked. A squaring
+// sums each cross term once, doubled, plus the diagonal. A warp's lanes
+// hold E rows of the same run (at E = 32) or adjacent runs, so their loop
+// bounds agree.
 //
-// What bounds it on an H100: integer multiply-add issue, as for
-// mont_mul.cu. A product costs about 2.5 L^2 64-bit multiply-adds (219k at
-// L = 296); a row of short obfuscation runs 14 + 80 * 5 = 414 of them
-// (320-bit exponent, w = 4) and reads and writes 2 L int64 limbs, so
-// device-memory traffic is negligible. 128 threads split each product's
-// columns. Later work: the REDC products as int8 tensor-core matmuls, and
-// several rows per block.
+// Carries: a run is normalised in registers as it is produced (its
+// carry-out, below 2^26, goes to shared memory); a second pass ripples the
+// previous run's carry-out through each run (leaving a carry of 0 or 1),
+// and that bit is added to the next run's first limb by whoever reads it
+// next, so limbs end in [0, 2^14]. T, q (mod R) and U each take these two
+// passes; U's low half is 0 or exactly R, so U / R is its high half plus
+// one iff any low limb is non-zero (a per-row flag). Every phase works on
+// all E rows between block barriers: 12 barriers a product, shared by E
+// rows.
+//
+// Layout: shared memory holds per row the accumulator (with its pads), T,
+// a scratch H (the selected factor, then q's two halves, then U's carry
+// half), the two carry arrays, the flag and the digit row: smem_bytes(L,
+// E), 232,448 bytes at L = 296, E = 32 and 227,072 at L = 1,176, E = 8.
+// The window table lives in device memory (a scratch of ceil(B/E) E rows
+// of 2^w L words the wrapper allocates). The shared form reads the entry
+// its public digit names; the per-row form selects in constant time, as
+// _pow_vec_kernel's one-hot sum (:503-512) does: every table entry is read
+// and the wanted one kept by a mask, with no address or branch that
+// depends on the digit.
+//
+// What bounds it on an H100: per row-product 12 L^2 int8 multiply-adds
+// (1.05 M at L = 296) on the tensor cores, about 0.6 L^2 int32
+// multiply-adds of a b (squarings halved) and the carry passes on the CUDA
+// cores, and the packed matrices (12 L^2 bytes and their padding) from L2
+// once per block-product: 33 KB a row-product at L = 296, E = 32, and
+// 2.1 MB at L = 1,176, E = 8, where that stream is the likely limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mont_core.cuh"
-
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 8;      // columns of one a*b job; runs of the carry passes
+constexpr int kPad = 14;     // zero limbs either side of an operand row
+constexpr int kStages = 3;   // K-steps of A fragments held in registers
+constexpr int kSmemLimit = 232448;
+constexpr unsigned int kMask = (1u << 14) - 1;
 
-// dst <- a * b * R^-1 mod M; dst may alias a or b.
-__device__ void mont_product_into(unsigned int* dst, const unsigned int* a,
-                                  const unsigned int* b,
-                                  const unsigned int* m,
-                                  const unsigned int* mp,
-                                  unsigned long long* t,
-                                  unsigned long long* w, int L) {
-  const unsigned long long* h = phe::mont_product(a, b, m, mp, t, w, L);
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    dst[i] = static_cast<unsigned int>(h[i]);
-  }
-  __syncthreads();
+// Strides in 32-bit words (odd, so E rows of one column fall in E banks)
+// and bytes; ops/cuda_modexp.py's _pow_geometry and _pow_smem mirror them.
+__host__ __device__ inline int op_stride(int L) { return L + 2 * kPad + 1; }
+__host__ __device__ inline int wide_stride(int L) { return 2 * L + 1; }
+__host__ __device__ inline int h_stride(int L) {
+  return (2 * L > L + 2 * kPad ? 2 * L : L + 2 * kPad) + 1;
 }
+__host__ __device__ inline int n_runs(int L) { return 2 * L / kRun; }
+__host__ __device__ inline int k_pad(int L) { return (2 * L + 31) / 32 * 32; }
+__host__ __device__ inline int dig_stride(int L) { return k_pad(L) + 16; }
+__host__ __device__ inline int q_slabs(int L) { return (L + 15) / 16; }
+inline size_t smem_bytes(int L, int elems) {
+  const size_t words = static_cast<size_t>(op_stride(L)) + wide_stride(L) +
+                       h_stride(L) + 2 * n_runs(L) + 1;
+  return static_cast<size_t>(elems) * (4 * words + dig_stride(L));
+}
+
+// c += A B for one m16n8k32 tile: A's four registers, B's two.
+__device__ __forceinline__ void mma_s8(int* c, const int4& a, unsigned int b0,
+                                       unsigned int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+template <int E>
+struct Pow {
+  static constexpr int kTiles = E / 8;  // n-tiles of 8 rows
+  int L, sa, st, sh, nr, ds, ksteps, live;
+  unsigned int* acc;   // [E, sa]: limbs at [kPad, kPad + L), zero pads
+  unsigned int* T;     // [E, st]: T = a b, then U
+  unsigned int* H;     // [E, sh]: the factor (padded as acc), q, U's carries
+  unsigned int* c1;    // [E, nr]: each run's carry-out
+  unsigned int* c2;    // [E, nr]: each run's carry after the ripple
+  unsigned int* flag;  // [E]: U's low half is non-zero
+  unsigned char* dig;  // [E, ds]: the B operand's digits; [2L, ds) zero
+  const int4 *wq, *wm;  // the packed REDC matrices
+  const int *cq, *cm;   // their compensation vectors
+
+  // Jobs of one kind over the live rows: job idx is (run idx / live, row
+  // idx % live), so a warp's lanes share a run or hold adjacent ones.
+  __device__ __forceinline__ int jobs(int runs) const { return runs * live; }
+
+  // One block of kRun operand limbs i0 ... i0 + kRun - 1 into the run's
+  // columns c0 ... c0 + kRun - 1: kRun^2 multiply-adds from registers,
+  // with kMasked keeping only the terms i < c - i (a squaring's cross
+  // terms). Then the window slides kRun limbs down for the next block.
+  template <bool kMasked>
+  static __device__ __forceinline__ void block(
+      const unsigned int* A, const unsigned int* B, int c0, int i0,
+      unsigned int (&bb)[2 * kRun - 1], unsigned long long (&s)[kRun]) {
+    unsigned int a[kRun];
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) {
+      bb[m] = B[c0 - i0 - kRun + 1 + m];
+      a[m] = A[i0 + m];
+    }
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      unsigned int p = 0;  // kRun products below 2^28: below 2^31
+#pragma unroll
+      for (int ii = 0; ii < kRun; ++ii) {
+        const unsigned int t = a[ii] * bb[j - ii + kRun - 1];
+        p += (!kMasked || 2 * (i0 + ii) < c0 + j) ? t : 0u;
+      }
+      s[j] += p;
+    }
+#pragma unroll
+    for (int m = kRun - 2; m >= 0; --m) bb[kRun + m] = bb[m];
+  }
+
+  // T <- a * b for a = acc and b = the factor in H (or acc itself when
+  // square), normalised run by run; c1 <- each run's carry-out.
+  template <bool kSquare>
+  __device__ void mul_runs() {
+    const unsigned int* bsrc = kSquare ? acc : H;
+    const int sb = kSquare ? sa : sh;
+    for (int idx = threadIdx.x; idx < jobs(nr); idx += blockDim.x) {
+      const int k = idx / live, e = idx - k * live, c0 = k * kRun;
+      const unsigned int* A = acc + e * sa + kPad;
+      const unsigned int* B = bsrc + e * sb + kPad;
+      unsigned long long s[kRun];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) s[j] = 0;
+      int i0 = c0 - (L - 1) > 0 ? (c0 - (L - 1)) & ~(kRun - 1) : 0;
+      int i_hi = c0 + kRun - 1 < L - 1 ? c0 + kRun - 1 : L - 1;
+      if (kSquare) {
+        // Cross terms i < c - i only: some column of the run has one iff
+        // 2 i < c0 + kRun - 1.
+        const int top = (c0 + kRun - 2) / 2;
+        i_hi = i_hi < top ? i_hi : top;
+      }
+      // bb[m] = B[c0 - i0 - kRun + 1 + m]: column c0 + j takes a[i0 + ii]
+      // times bb[j - ii + kRun - 1].
+      unsigned int bb[2 * kRun - 1];
+#pragma unroll
+      for (int m = 0; m < kRun - 1; ++m) bb[kRun + m] = B[c0 - i0 + 1 + m];
+      // Squares: blocks wholly below the diagonal (every i < c - i) run
+      // unmasked; the one or two that straddle it keep i < c - i only.
+      const int i_full = kSquare ? (c0 - 2 * kRun + 2) / 2 : i_hi + 1;
+      for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
+        block<false>(A, B, c0, i0, bb, s);
+      }
+      for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
+      if (kSquare) {
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          const int c = c0 + j;
+          const unsigned int d = (c & 1) ? 0u : A[c >> 1];
+          s[j] = 2 * s[j] + static_cast<unsigned long long>(d * d);
+        }
+      }
+      unsigned long long carry = 0;
+      unsigned int* out = T + e * st + c0;
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        const unsigned long long v = s[j] + carry;
+        out[j] = static_cast<unsigned int>(v) & kMask;
+        carry = v >> 14;
+      }
+      c1[e * nr + k] = static_cast<unsigned int>(carry);  // < 2^26
+    }
+    __syncthreads();
+  }
+
+  // Columns lo[c] + hi[c - 1] of `runs` runs,
+  // normalised run by run in place over lo; c1 <- each run's carry-out.
+  __device__ void split_runs(unsigned int* lo, int sx, const unsigned int* hi,
+                             int sy, int runs) {
+    for (int idx = threadIdx.x; idx < jobs(runs); idx += blockDim.x) {
+      const int k = idx / live, e = idx - k * live, c0 = k * kRun;
+      unsigned int* x = lo + e * sx + c0;
+      const unsigned int* y = hi + e * sy + c0;
+      unsigned int v[kRun], h[kRun];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        v[j] = x[j];
+        h[j] = c0 + j > 0 ? y[j - 1] : 0u;
+      }
+      unsigned int carry = 0;
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        const unsigned int t = v[j] + h[j] + carry;  // < 2^14 + 2^20 + 2^7
+        x[j] = t & kMask;
+        carry = t >> 14;
+      }
+      c1[e * nr + k] = carry;
+    }
+    __syncthreads();
+  }
+
+  // Ripple the previous run's carry-out (c1) through each run of x; c2 <-
+  // the carry left (0 or 1). With kFlag, runs below L set the row's flag
+  // when their limbs, or the bit they pass up inside the low half, are
+  // non-zero.
+  template <bool kFlag>
+  __device__ void ripple(unsigned int* xs, int sx, int runs) {
+    for (int idx = threadIdx.x; idx < jobs(runs); idx += blockDim.x) {
+      const int k = idx / live, e = idx - k * live;
+      unsigned int carry = k > 0 ? c1[e * nr + k - 1] : 0u;
+      unsigned int* x = xs + e * sx + k * kRun;
+      unsigned int v[kRun];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) v[j] = x[j];
+      unsigned int any = 0;
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        const unsigned int t = v[j] + carry;
+        v[j] = t & kMask;
+        carry = t >> 14;
+        any |= v[j];
+      }
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) x[j] = v[j];
+      c2[e * nr + k] = carry;
+      if (kFlag && k < L / kRun &&
+          (any != 0 || (k + 1 < L / kRun && carry != 0))) {
+        flag[e] = 1;
+      }
+    }
+    __syncthreads();
+  }
+
+  // Limb c of a rippled buffer row: its value plus the bit the run below
+  // passed up, when c starts a run.
+  __device__ __forceinline__ unsigned int limb(const unsigned int* x, int e,
+                                               int c) const {
+    const int k = c / kRun;
+    return x[c] + ((c == k * kRun && k > 0) ? c2[e * nr + k - 1] : 0u);
+  }
+
+  // The 2L block-order digits of limbs [0, L) of x into the digit rows:
+  // the low 7 bits, then the high bits biased by -64. With kFold, the
+  // carry bits are folded into x too (T keeps them for U).
+  template <bool kFold>
+  __device__ void digits_of(unsigned int* x, int sx, int n) {
+    for (int idx = threadIdx.x; idx < live * n; idx += blockDim.x) {
+      const int e = idx / n, c = idx - e * n;
+      const unsigned int v = limb(x + e * sx, e, c);
+      if (kFold) x[e * sx + c] = v;
+      if (c < L) {
+        dig[e * ds + c] = static_cast<unsigned char>(v & 0x7F);
+        dig[e * ds + L + c] =
+            static_cast<unsigned char>(static_cast<int>(v >> 7) - 64);
+      }
+    }
+    __syncthreads();
+  }
+
+  // One slab's two row-block sums over the block's rows: c[b][n][i] is
+  // block b, n-tile n, register i of the m16n8 C fragment (row g + 8 (i/2),
+  // row 8 n + 2 t + i % 2 of the batch).
+  __device__ __forceinline__ void slab(const int4* wp, int s,
+                                       int (&c)[2][kTiles][4]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[b][n][i] = 0;
+    const int4* ap = wp + static_cast<size_t>(s) * ksteps * 64 + lane;
+    const unsigned char* dbase = dig + g * ds + 4 * t;
+    int4 a[kStages][2];
+#pragma unroll
+    for (int st_ = 0; st_ < kStages - 1; ++st_) {
+      if (st_ < ksteps) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) a[st_][b] = __ldg(ap + st_ * 64 + b * 32);
+      }
+    }
+    for (int ks0 = 0; ks0 < ksteps; ks0 += kStages) {
+#pragma unroll
+      for (int st_ = 0; st_ < kStages; ++st_) {
+        const int ks = ks0 + st_;
+        if (ks < ksteps) {
+          const int nx = ks + kStages - 1;
+          if (nx < ksteps) {
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              a[(st_ + kStages - 1) % kStages][b] =
+                  __ldg(ap + nx * 64 + b * 32);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < kTiles; ++n) {
+            const unsigned char* d = dbase + n * 8 * ds + ks * 32;
+            const unsigned int b0 = *reinterpret_cast<const unsigned int*>(d);
+            const unsigned int b1 =
+                *reinterpret_cast<const unsigned int*>(d + 16);
+            mma_s8(c[0][n], a[st_][0], b0, b1);
+            mma_s8(c[1][n], a[st_][1], b0, b1);
+          }
+        }
+      }
+    }
+  }
+
+  // q's slots from w_mq: limb j < L of row e gets (lo + cq[j]) +
+  // ((hi + cq[L + j]) << 7), stored split as its low 14 bits (H[j]) and
+  // the rest (H[L + j]).
+  __device__ void mma_q() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    for (int s = warp; s < q_slabs(L); s += kWarps) {
+      int c[2][kTiles][4];
+      slab(wq, s, c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = s * 16 + g + 8 * h;
+        if (j >= L) continue;  // a zero padding row
+        const int clo = __ldg(cq + j), chi = __ldg(cq + L + j);
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int e = n * 8 + 2 * t + x, i = 2 * h + x;
+            const unsigned long long v =
+                static_cast<unsigned long long>(c[0][n][i] + clo) +
+                (static_cast<unsigned long long>(c[1][n][i] + chi) << 7);
+            H[e * sh + j] = static_cast<unsigned int>(v) & kMask;
+            H[e * sh + L + j] = static_cast<unsigned int>(v >> 14);
+          }
+      }
+    }
+    __syncthreads();
+  }
+
+  // U = T + q M from w_m: limb j < 2L of row e gets T[j] + (lo + cm[j]) +
+  // ((hi + cm[2L + j]) << 7), stored split over T[j] and H[j].
+  __device__ void mma_m() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    for (int s = warp; s < 2 * L / 16; s += kWarps) {
+      int c[2][kTiles][4];
+      slab(wm, s, c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = s * 16 + g + 8 * h;
+        const int clo = __ldg(cm + j), chi = __ldg(cm + 2 * L + j);
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int e = n * 8 + 2 * t + x, i = 2 * h + x;
+            const unsigned long long v =
+                T[e * st + j] +
+                static_cast<unsigned long long>(c[0][n][i] + clo) +
+                (static_cast<unsigned long long>(c[1][n][i] + chi) << 7);
+            T[e * st + j] = static_cast<unsigned int>(v) & kMask;
+            H[e * sh + j] = static_cast<unsigned int>(v >> 14);
+          }
+      }
+    }
+    __syncthreads();
+  }
+
+  // acc <- acc * factor * R^-1 mod M for every row (factor: acc itself
+  // when kSquare, else H as the factor phase left it).
+  template <bool kSquare>
+  __device__ void product() {
+    mul_runs<kSquare>();             // T = a b, runs normalised; c1
+    ripple<false>(T, st, nr);        // c2
+    digits_of<true>(T, st, 2 * L);   // T's carry bits folded; digits of T_lo
+    if (threadIdx.x < E) flag[threadIdx.x] = 0;
+    mma_q();                         // q slots split over H[0, 2L)
+    split_runs(H, sh, H + L, sh, L / kRun);
+    ripple<false>(H, sh, L / kRun);
+    digits_of<false>(H, sh, L);      // digits of q mod R (top carry dropped)
+    mma_m();                         // U split over T and H
+    split_runs(T, st, H, sh, nr);
+    ripple<true>(T, st, nr);         // c2 and the low half's flag
+    // U / R: the high half, its carry bits, and one iff the low half is R.
+    for (int idx = threadIdx.x; idx < live * L; idx += blockDim.x) {
+      const int e = idx / L, i = idx - e * L;
+      acc[e * sa + kPad + i] =
+          limb(T + e * st, e, L + i) + (i == 0 ? flag[e] : 0u);
+    }
+    __syncthreads();
+  }
+};
 
 // kVec = false: digits is int64 [n_windows], shared by the batch.
 // kVec = true: digits is int8 [B, n_windows], one schedule per row.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+template <bool kVec, int E>
+__global__ void __launch_bounds__(kThreads, 1)
 mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
-                const int64_t* __restrict__ mod,
-                const int64_t* __restrict__ mprime,
-                const int64_t* __restrict__ one,
-                const void* __restrict__ digits, int L, int n_windows,
-                int window) {
+                unsigned int* __restrict__ table,
+                const int64_t* __restrict__ one, const int4* __restrict__ wq,
+                const int4* __restrict__ wm, const int* __restrict__ cq,
+                const int* __restrict__ cm, const void* __restrict__ digits,
+                int B, int L, int n_windows, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned long long* t = reinterpret_cast<unsigned long long*>(smem_raw);
-  unsigned long long* w = t + 2 * L;
-  unsigned int* sm = reinterpret_cast<unsigned int*>(w + 2 * L);
-  unsigned int* sp = sm + L;
-  unsigned int* acc = sp + L;
-  unsigned int* fac = acc + L;  // the selected table factor (kVec)
-  unsigned int* tab = fac + L;  // [2^w, L]
-  const int ntab = 1 << window;
+  Pow<E> p;
+  p.L = L;
+  p.sa = op_stride(L);
+  p.st = wide_stride(L);
+  p.sh = h_stride(L);
+  p.nr = n_runs(L);
+  p.ds = dig_stride(L);
+  p.ksteps = k_pad(L) / 32;
+  p.wq = wq;
+  p.wm = wm;
+  p.cq = cq;
+  p.cm = cm;
+  p.acc = reinterpret_cast<unsigned int*>(smem_raw);
+  p.T = p.acc + E * p.sa;
+  p.H = p.T + E * p.st;
+  p.c1 = p.H + E * p.sh;
+  p.c2 = p.c1 + E * p.nr;
+  p.flag = p.c2 + E * p.nr;
+  p.dig = reinterpret_cast<unsigned char*>(p.flag + E);
 
-  const size_t row = blockIdx.x;
-  const int64_t* brow = base + row * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    sm[i] = static_cast<unsigned int>(mod[i]);
-    sp[i] = static_cast<unsigned int>(mprime[i]);
-    tab[i] = static_cast<unsigned int>(one[i]);
-    tab[L + i] = static_cast<unsigned int>(brow[i]);
-    acc[i] = static_cast<unsigned int>(one[i]);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t e0 = static_cast<size_t>(blockIdx.x) * E;
+  p.live = B - static_cast<int>(e0) < E ? B - static_cast<int>(e0) : E;
+  const int live = p.live, sa = p.sa, sh = p.sh;
+  const int ntab = 1 << window;
+  const size_t tstride = static_cast<size_t>(ntab) * L;  // a row's table
+  unsigned int* tab = table + e0 * tstride;
+
+  // Zero everything (the operand pads and the digit padding stay zero),
+  // then the rows: acc = x; tab[0] = R mod M, tab[1] = x.
+  {
+    unsigned int* w = p.acc;
+    const int words = static_cast<int>((p.dig - smem_raw) / 4) +
+                      E * p.ds / 4;
+    for (int i = tid; i < words; i += nt) w[i] = 0;
   }
   __syncthreads();
-  for (int j = 2; j < ntab; ++j) {
-    mont_product_into(tab + j * L, tab + (j - 1) * L, tab + L, sm, sp, t, w,
-                      L);
+  for (int idx = tid; idx < live * L; idx += nt) {
+    const int e = idx / L, i = idx - e * L;
+    const unsigned int x = static_cast<unsigned int>(base[(e0 + e) * L + i]);
+    p.acc[e * sa + kPad + i] = x;
+    tab[e * tstride + i] = static_cast<unsigned int>(one[i]);
+    tab[e * tstride + L + i] = x;
   }
+  __syncthreads();
 
-  const unsigned int mask = static_cast<unsigned int>(ntab - 1);
-  for (int wi = 0; wi < n_windows; ++wi) {
-    for (int s = 0; s < window; ++s) {
-      mont_product_into(acc, acc, acc, sm, sp, t, w, L);
-    }
-    // Digits come from host schedules, in [0, 2^window); the mask keeps
-    // any other value inside the table.
-    const unsigned int* factor;
-    if (kVec) {
-      const unsigned int d =
-          static_cast<unsigned int>(static_cast<const uint8_t*>(
-              digits)[row * n_windows + wi]) & mask;
-      for (int i = threadIdx.x; i < L; i += blockDim.x) {
-        unsigned int v = 0;
-        for (int j = 0; j < ntab; ++j) {
-          v |= tab[j * L + i] &
-               (0u - static_cast<unsigned int>(static_cast<unsigned int>(j) ==
-                                               d));
+  // The factor into H at the operand offset, its pads zero: table entry
+  // `j` of each row (sel: each row's own digit for window wi, selected in
+  // constant time).
+  auto load_factor = [&](int j, bool sel, int wi) {
+    const int span = L + 2 * kPad;
+    for (int idx = tid; idx < live * span; idx += nt) {
+      const int e = idx / span, i = idx - e * span - kPad;
+      unsigned int v = 0;
+      if (i >= 0 && i < L) {
+        const unsigned int* col = tab + e * tstride + i;
+        if (sel) {
+          const unsigned int d =
+              static_cast<unsigned int>(static_cast<const uint8_t*>(
+                  digits)[(e0 + e) * n_windows + wi]) &
+              static_cast<unsigned int>(ntab - 1);
+          for (int jj = 0; jj < ntab; ++jj) {
+            v |= col[static_cast<size_t>(jj) * L] &
+                 (0u - static_cast<unsigned int>(
+                           static_cast<unsigned int>(jj) == d));
+          }
+        } else {
+          v = col[static_cast<size_t>(j) * L];
         }
-        fac[i] = v;
       }
-      __syncthreads();
-      factor = fac;
-    } else {
-      const int d = static_cast<int>(
-          static_cast<const int64_t*>(digits)[wi] & mask);
-      factor = tab + d * L;
+      p.H[e * sh + i + kPad] = v;
     }
-    mont_product_into(acc, acc, factor, sm, sp, t, w, L);
+    __syncthreads();
+  };
+
+  for (int j = 2; j < ntab; ++j) {
+    load_factor(1, false, 0);
+    p.template product<false>();  // acc = tab[j-1] * x
+    for (int idx = tid; idx < live * L; idx += nt) {
+      const int e = idx / L, i = idx - e * L;
+      tab[e * tstride + static_cast<size_t>(j) * L + i] =
+          p.acc[e * sa + kPad + i];
+    }
+  }
+  for (int idx = tid; idx < live * L; idx += nt) {
+    const int e = idx / L, i = idx - e * L;
+    p.acc[e * sa + kPad + i] = static_cast<unsigned int>(one[i]);
+  }
+  __syncthreads();
+
+  for (int wi = 0; wi < n_windows; ++wi) {
+    for (int s = 0; s < window; ++s) p.template product<true>();
+    if (kVec) {
+      load_factor(0, true, wi);
+    } else {
+      // Digits come from the host schedule, in [0, 2^window); the mask
+      // keeps any other value inside the table.
+      load_factor(static_cast<int>(static_cast<const int64_t*>(digits)[wi]) &
+                      (ntab - 1),
+                  false, 0);
+    }
+    p.template product<false>();
   }
 
-  int64_t* orow = out + row * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    orow[i] = static_cast<int64_t>(acc[i]);
+  for (int idx = tid; idx < live * L; idx += nt) {
+    const int e = idx / L, i = idx - e * L;
+    out[(e0 + e) * L + i] = static_cast<int64_t>(p.acc[e * sa + kPad + i]);
   }
 }
 
-template <bool kVec>
-int launch(const int64_t* base, int64_t* out, const int64_t* mod,
-           const int64_t* mprime, const int64_t* one, const void* digits,
-           int B, int L, int n_windows, int window, cudaStream_t stream) {
-  const size_t smem = 2 * 2 * L * sizeof(unsigned long long) +
-                      (4 + (static_cast<size_t>(1) << window)) * L *
-                          sizeof(unsigned int);
+template <bool kVec, int E>
+int launch(const int64_t* base, int64_t* out, unsigned int* table,
+           const int64_t* one, const int* wq, const int* wm, const int* cq,
+           const int* cm, const void* digits, int B, int L, int n_windows,
+           int window, cudaStream_t stream) {
+  const size_t smem = smem_bytes(L, E);
+  if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < 16 ||
+      window < 1 || window > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      mont_pow_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mont_pow_kernel<kVec, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mont_pow_kernel<kVec><<<B, kThreads, smem, stream>>>(
-      base, out, mod, mprime, one, digits, L, n_windows, window);
+  const int blocks = (B + E - 1) / E;
+  mont_pow_kernel<kVec, E><<<blocks, kThreads, smem, stream>>>(
+      base, out, table, one, reinterpret_cast<const int4*>(wq),
+      reinterpret_cast<const int4*>(wm), cq, cm, digits, B, L, n_windows,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// base, out: [B, L] int64 Montgomery-domain rows; mod, mprime, one: [L]
-// int64 (M, M' and R mod M); digits: [n_windows] int64, MSB first. All on
-// the device, contiguous. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
-extern "C" int phe_mont_pow_shared(const int64_t* base, int64_t* out,
-                                   const int64_t* mod, const int64_t* mprime,
-                                   const int64_t* one, const int64_t* digits,
-                                   int B, int L, int n_windows, int window,
-                                   cudaStream_t stream) {
-  return launch<false>(base, out, mod, mprime, one, digits, B, L, n_windows,
-                       window, stream);
-}
+// phe_mont_pow_shared_<E>: base, out: [B, L] int64 Montgomery-domain rows;
+// table: uint32 scratch of ceil(B / E) * E * 2^window * L words; one: [L]
+// int64 R mod M; wq, wm: w_mq and w_m in fragment order
+// (cuda_rns.pack_blocks, two row blocks), 16-byte aligned; cq, cm: [2L]
+// and [4L] int32 compensation vectors; digits: [n_windows] int64, MSB
+// first. phe_mont_pow_<E> takes digits: [B, n_windows] int8, one schedule
+// per row. All on the device, contiguous. Each launches on `stream`,
+// allocates nothing, and returns cudaGetLastError().
+#define PHE_MONT_POW_ENTRY(NAME, VEC, E, DIGIT_T)                              \
+  extern "C" int NAME(const int64_t* base, int64_t* out, unsigned int* table, \
+                      const int64_t* one, const int* wq, const int* wm,       \
+                      const int* cq, const int* cm, const DIGIT_T* digits,    \
+                      int B, int L, int n_windows, int window,                \
+                      cudaStream_t stream) {                                  \
+    return launch<VEC, E>(base, out, table, one, wq, wm, cq, cm, digits, B,   \
+                          L, n_windows, window, stream);                      \
+  }
 
-// As phe_mont_pow_shared, with digits: [B, n_windows] int8, one MSB-first
-// schedule per row.
-extern "C" int phe_mont_pow(const int64_t* base, int64_t* out,
-                            const int64_t* mod, const int64_t* mprime,
-                            const int64_t* one, const int8_t* digits, int B,
-                            int L, int n_windows, int window,
-                            cudaStream_t stream) {
-  return launch<true>(base, out, mod, mprime, one, digits, B, L, n_windows,
-                      window, stream);
+PHE_MONT_POW_ENTRY(phe_mont_pow_shared_8, false, 8, int64_t)
+PHE_MONT_POW_ENTRY(phe_mont_pow_shared_32, false, 32, int64_t)
+PHE_MONT_POW_ENTRY(phe_mont_pow_8, true, 8, int8_t)
+PHE_MONT_POW_ENTRY(phe_mont_pow_32, true, 32, int8_t)
+
+// Shared-memory bytes of one block of `elems` rows at L: the wrapper
+// chooses E with its own copy of this formula, which the GPU tests hold
+// against this one.
+extern "C" int phe_mont_pow_smem(int L, int elems) {
+  return static_cast<int>(smem_bytes(L, elems));
 }

@@ -32,10 +32,17 @@ def _t(a, device):
 
 
 def montgomery_context(d, device):
-    """phe_tpu MontgomeryContext (its int8 REDC matrices are not carried)."""
-    return mg.MontgomeryContext(
+    """phe_tpu MontgomeryContext. Its int8 REDC matrices and their
+    compensation vectors, where d has them, become the context's own
+    (mg.redc_matrices returns them), so both packages reduce with the
+    same constants."""
+    ctx = mg.MontgomeryContext(
         **{f: _t(d[f], device) for f in mg.MontgomeryContext._fields}
     )
+    if d.get("w_mq") is not None and d["w_mq"].dtype != object:
+        mg.attach_redc_matrices(ctx, mg.RedcMatrices(
+            **{f: _t(d[f], device) for f in mg.RedcMatrices._fields}))
+    return ctx
 
 
 def excess_reducer(d, device):

@@ -24,16 +24,22 @@ it.
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from phe_tpu_torch.ops import _build
 from phe_tpu_torch.ops import cuda_rns
 from phe_tpu_torch.ops import montgomery as mg
 
 # The dynamic shared memory a block can have on Hopper (227 KB). mont_mul
-# takes 48 L bytes (L <= 4842), mont_pow 4L (2^w + 4) + 32 L.
+# takes 48 L bytes (L <= 4842), mont_pow _pow_smem(L, E).
 MAX_SMEM = 232448
 launches = {"mont_mul": 0, "mont_mul_const": 0, "mont_pow_shared": 0,
             "mont_pow": 0}
+# Rows a modexp block holds: the kernel's instantiations, widest first.
+POW_ELEMS = (32, 8)
+# Per REDC matrices (keyed by their w_mq tensor): the kernel's packed
+# operands, built at the context's first launch.
+_pow_packed = WeakIdKeyDictionary()
 
 mont_mul_plain = mg.mont_mul_plain
 
@@ -49,15 +55,68 @@ def _lib():
     return fn
 
 
-def _pow_lib(vec):
+def _pow_lib(vec, elems):
+    """The modexp kernel's C entry point for one form and one E."""
     lib = _build.load("mont_pow")
-    if lib.phe_mont_pow.argtypes is None:
-        for fn in (lib.phe_mont_pow, lib.phe_mont_pow_shared):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p
-            ]
-            fn.restype = ctypes.c_int
-    return lib.phe_mont_pow if vec else lib.phe_mont_pow_shared
+    if lib.phe_mont_pow_smem.argtypes is None:
+        for e in POW_ELEMS:
+            for form in ("phe_mont_pow_%d", "phe_mont_pow_shared_%d"):
+                fn = getattr(lib, form % e)
+                fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+                    ctypes.c_void_p
+                ]
+                fn.restype = ctypes.c_int
+        lib.phe_mont_pow_smem.argtypes = [ctypes.c_int] * 2
+        lib.phe_mont_pow_smem.restype = ctypes.c_int
+    return getattr(lib, ("phe_mont_pow_%d" if vec
+                         else "phe_mont_pow_shared_%d") % elems)
+
+
+# csrc/mont_pow.cu's geometry: kRun columns a job, kPad zero limbs either
+# side of an operand row.
+POW_RUN, POW_PAD = 8, 14
+
+
+def _pow_smem(L, elems):
+    """Shared-memory bytes of one modexp block (csrc/mont_pow.cu's
+    smem_bytes): per row the operand row with its pads (L + 2 kPad + 1
+    words), T and the scratch H (2L + 1 words each, H at least the padded
+    operand), the two carry arrays (2L / kRun words each), the flag, and
+    the digit row (2L padded to 32, plus a 16-byte skew)."""
+    words = ((L + 2 * POW_PAD + 1) + (2 * L + 1)
+             + (max(2 * L, L + 2 * POW_PAD) + 1) + 2 * (2 * L // POW_RUN) + 1)
+    return elems * (4 * words + -(-2 * L // 32) * 32 + 16)
+
+
+def _pow_elems(L, B, sms):
+    """Rows a modexp block holds for B rows at L on a card of `sms`
+    multiprocessors: the widest instantiation whose shared memory fits and
+    whose ceil(B / E) blocks still cover the SMs; when none does, the
+    narrowest that fits. A wider block divides the REDC matrices' L2
+    reads by E. The window does not enter: the table lives in device
+    memory."""
+    fits = [e for e in POW_ELEMS if _pow_smem(L, e) <= MAX_SMEM]
+    if not fits:
+        raise ValueError("no modexp block fits %d bytes of shared memory at "
+                         "L = %d" % (MAX_SMEM, L))
+    for e in fits:
+        if -(-B // e) >= sms:
+            return e
+    return fits[-1]
+
+
+def _pow_columns(ctx):
+    """(w_mq, w_m packed in fragment order, c_mq, c_m as int32) for the
+    kernel, once per context and card."""
+    mats = mg.redc_matrices(ctx)
+    cols = _pow_packed.get(mats.w_mq)
+    if cols is None:
+        cols = _pow_packed[mats.w_mq] = (
+            cuda_rns.pack_blocks(mats.w_mq, 2),
+            cuda_rns.pack_blocks(mats.w_m, 2),
+            mats.c_mq.to(torch.int32).contiguous(),
+            mats.c_m.to(torch.int32).contiguous())
+    return cols
 
 
 def _check(t, name, shape, device):
@@ -118,21 +177,29 @@ def mont_mul_const(a, b_limbs, ctx):
     return _dispatch(a, b_limbs, ctx, shared=True)
 
 
-def _pow_launch(base, digits, ctx, window, vec):
+def _pow_table(B, elems, window, L, dev):
+    """The kernel's table scratch: 2^window rows of L words for each of
+    the ceil(B / elems) * elems rows its blocks hold."""
+    return torch.empty((-(-B // elems) * elems, 1 << window, L),
+                       dtype=torch.int32, device=dev)
+
+
+def _pow_launch(base, digits, ctx, window, vec, elems=None):
+    """One launch of the modexp kernel; elems (E) from _pow_elems unless
+    given (chip_smoke.py times each instantiation on the same rows)."""
     if base.dim() != 2:
         raise ValueError("base must be [B, L], got shape %s"
                          % (tuple(base.shape),))
     B, L = base.shape
-    smem = 4 * L * ((1 << window) + 4) + 32 * L if 1 <= window <= 8 else 0
-    if L != ctx.num_limbs or not 0 < smem <= MAX_SMEM:
+    if L != ctx.num_limbs or L % 8 or L < 16 or not 1 <= window <= 8:
         raise ValueError(
-            "limb count %d at window %d: need the context's L = %d and "
-            "window in [1, 8] with 4L(2^w + 4) + 32L <= %d bytes"
-            % (L, window, ctx.num_limbs, MAX_SMEM)
+            "limb count %d at window %d: need the context's L = %d (a "
+            "multiple of 8, at least 16) and window in [1, 8]"
+            % (L, window, ctx.num_limbs)
         )
     dev = base.device
     _check(base, "base", (B, L), dev)
-    for name in ("m", "m_prime", "one"):
+    for name in ("m", "one"):
         _check(getattr(ctx, name), "ctx." + name, (L,), dev)
     if vec:
         digits = cuda_rns._digit_rows_on(digits, window, B, dev)
@@ -141,10 +208,19 @@ def _pow_launch(base, digits, ctx, window, vec):
     out = torch.empty_like(base)
     if B == 0:
         return out
-    rc = _pow_lib(vec)(
-        base.data_ptr(), out.data_ptr(), ctx.m.data_ptr(),
-        ctx.m_prime.data_ptr(), ctx.one.data_ptr(), digits.data_ptr(), B, L,
-        digits.shape[-1], window, _build.stream_handle(dev),
+    if elems is None:
+        elems = _pow_elems(L, B, cuda_rns._sms(dev))
+    if _pow_smem(L, elems) > MAX_SMEM:
+        raise ValueError("a modexp block of %d rows at L = %d needs %d bytes "
+                         "of shared memory, over %d"
+                         % (elems, L, _pow_smem(L, elems), MAX_SMEM))
+    wq, wm, cq, cm = _pow_columns(ctx)
+    table = _pow_table(B, elems, window, L, dev)
+    rc = _pow_lib(vec, elems)(
+        base.data_ptr(), out.data_ptr(), table.data_ptr(),
+        ctx.one.data_ptr(), wq.data_ptr(), wm.data_ptr(), cq.data_ptr(),
+        cm.data_ptr(), digits.data_ptr(), B, L, digits.shape[-1], window,
+        _build.stream_handle(dev),
     )
     name = "mont_pow" if vec else "mont_pow_shared"
     if rc != 0:

@@ -97,35 +97,47 @@ def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _pack_fragments(w, k):
-    """int8 [3(k+8), 2k] -> int32 [S, KS, 3, 32, 4] in mma.sync's A order.
+def pack_blocks(w, nb):
+    """int8 [nb * rows, K] -> int32 [S, KS, nb, 32, 4] in mma.sync's A order.
 
-    The matrix is cut into its three digit blocks (rows b K1 ... (b+1) K1),
-    each zero-padded to [K1p, Kp], then into S = K1p / 16 row slabs and
-    KS = Kp / 32 K-steps. Entry [s, ks, b, lane] holds the four registers
-    of lane's m16n8k32 A fragment of block b's tile (s, ks): with
-    g = lane / 4 and t = lane % 4, register j holds the four digits of row
+    The matrix is cut into its nb row blocks (rows b rows ... (b+1) rows),
+    each zero-padded to [Rp, Kp] (rows to the MMA's 16-row slabs, K to its
+    32-digit K-steps), then into S = Rp / 16 row slabs and KS = Kp / 32
+    K-steps. Entry [s, ks, b, lane] holds the four registers of lane's
+    m16n8k32 A fragment of block b's tile (s, ks): with g = lane / 4 and
+    t = lane % 4, register j holds the four digits of row
     16 s + g + 8 (j % 2) at columns 32 ks + 4 t + 16 (j / 2), the lowest
     column in the lowest byte. A warp reads one tile of one block as 512
     contiguous bytes, 16 a lane.
     """
-    K1p, Kp = _geometry(k)
-    K1 = k + 8
-    S, KS = K1p // 16, Kp // 32
-    blocks = torch.zeros((3, K1p, Kp), dtype=torch.int8, device=w.device)
-    blocks[:, :K1, : 2 * k] = w.reshape(3, K1, 2 * k)
+    rows, K = w.shape[0] // nb, w.shape[1]
+    Rp, Kp = -(-rows // 16) * 16, -(-K // 32) * 32
+    S, KS = Rp // 16, Kp // 32
+    blocks = torch.zeros((nb, Rp, Kp), dtype=torch.int8, device=w.device)
+    blocks[:, :rows, :K] = w.reshape(nb, rows, K)
     # [b, s, h, g, ks, jh, t, byte] -> [s, ks, b, g, t, jh, h, byte]
-    tiles = blocks.reshape(3, S, 2, 8, KS, 2, 4, 4)
+    tiles = blocks.reshape(nb, S, 2, 8, KS, 2, 4, 4)
     tiles = tiles.permute(1, 4, 0, 3, 6, 5, 2, 7).contiguous()
-    return tiles.view(torch.int32).reshape(S, KS, 3, 32, 4)
+    return tiles.view(torch.int32).reshape(S, KS, nb, 32, 4)
+
+
+def unpack_blocks(packed):
+    """The inverse of pack_blocks: int8 [nb Rp, Kp], padding kept."""
+    S, KS, nb = packed.shape[:3]
+    tiles = packed.reshape(S, KS, nb, 8, 4, 2, 2, 1).view(torch.int8)
+    return tiles.permute(2, 0, 6, 3, 1, 5, 4, 7).reshape(nb * 16 * S, 32 * KS)
+
+
+def _pack_fragments(w, k):
+    """The ladder's extension matrix int8 [3(k+8), 2k] -> int32
+    [S, KS, 3, 32, 4] (pack_blocks over its three digit blocks; the padded
+    geometry is _geometry(k))."""
+    return pack_blocks(w, 3)
 
 
 def _unpack_fragments(packed, k):
     """The inverse of _pack_fragments: int8 [3 K1p, Kp], padding kept."""
-    K1p, Kp = _geometry(k)
-    S, KS = K1p // 16, Kp // 32
-    tiles = packed.reshape(S, KS, 3, 8, 4, 2, 2, 1).view(torch.int8)
-    return tiles.permute(2, 0, 6, 3, 1, 5, 4, 7).reshape(3 * K1p, Kp)
+    return unpack_blocks(packed)
 
 
 def _table(B, elems, window, cpad, dev):

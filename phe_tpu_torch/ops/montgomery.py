@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from phe_tpu_torch.ops import limb_math as lm
 from phe_tpu_torch.utils import limbs as hl
@@ -40,9 +41,14 @@ class MontgomeryContext(NamedTuple):
 
     m: the modulus M; m_prime: M' = -M^-1 mod R; r2: R^2 mod M (the
     to-Montgomery factor); one: R mod M (Montgomery 1); m_comp: R - M (the
-    branch-free conditional subtract). phe_tpu's context also carries int8
-    REDC matrices for the MXU; the CUDA kernel reduces by schoolbook, so
-    the port has no reader for them and builds none.
+    branch-free conditional subtract).
+
+    The int8 REDC matrices that phe_tpu's context carries as fields ride
+    beside it: ``redc_matrices(ctx)`` builds them at first use and keeps
+    them with the context (keyed by its ``m`` tensor), or returns the ones
+    ``interop.montgomery_context`` carried across from phe_tpu. The
+    modexp kernel (csrc/mont_pow.cu) reads them; the Montgomery-product
+    kernel (csrc/mont_mul.cu) still reduces by schoolbook.
     """
 
     m: torch.Tensor
@@ -78,6 +84,85 @@ def build_context(modulus, device, num_limbs=None):
         one=pack(R % modulus),
         m_comp=pack(R - modulus),
     )
+
+
+class RedcMatrices(NamedTuple):
+    """phe_tpu's int8 REDC matrices for one modulus (montgomery.py
+    _build_redc_matrices), turning both constant products of Montgomery's
+    reduction into digit matmuls.
+
+    w_mq: int8 [2L, 2L]; row k is output digit k of q = T_lo M' mod R in
+      block order (rows [0, L) the low 7 bits of limb k, [L, 2L) the high
+      7 bits), column i input digit i in the same order: the digits of
+      (2^w_i M') mod R, w_i = 14 i or 14 (i - L) + 7.
+    w_m: int8 [4L, 2L], the same for q M over 2L output limbs.
+    c_mq, c_m: int64 [2L], [4L]: 64 times the high-digit columns' sums. The
+      input's high digits are carried biased by -64 (a limb of exactly
+      2^14 has a high digit of 128, past int8), and the vectors restore
+      the exact sums.
+    """
+
+    w_mq: torch.Tensor
+    w_m: torch.Tensor
+    c_mq: torch.Tensor
+    c_m: torch.Tensor
+
+
+# Per context, keyed by its m tensor: its RedcMatrices, built at first use
+# or carried across from phe_tpu.
+_redc = WeakIdKeyDictionary()
+
+
+def build_redc_matrices(modulus, num_limbs, device):
+    """RedcMatrices for M = modulus at L = num_limbs, array-equal to
+    phe_tpu's _build_redc_matrices wherever that accepts L (L <= 507).
+
+    phe_tpu refuses L > 507 because its kernel forms uint32 slots
+    lo + (hi << 7) before a carry fix; the CUDA kernel recombines in 64
+    bits, and the matmul's own int32 sums stay below 2L * 127 * 128
+    (3.8e7 at L = 1,176), so every L is accepted here. The rows are
+    shifted copies of M's and M''s limbs, so no per-entry Python int is
+    formed.
+    """
+    L = num_limbs
+    R = 1 << (lm.LIMB_BITS * L)
+    m_prime = (-pow(modulus, -1, R)) % R
+    mp = hl.int_to_limbs(m_prime, L)
+    mp7 = hl.int_to_limbs((m_prime << 7) % R, L)
+    m = hl.int_to_limbs(modulus, 2 * L)
+    m7 = hl.int_to_limbs(modulus << 7, 2 * L)
+    q_rows = np.zeros((2 * L, L), np.uint32)
+    m_rows = np.zeros((2 * L, 2 * L), np.uint32)
+    for i in range(L):
+        q_rows[i, i:] = mp[: L - i]
+        q_rows[L + i, i:] = mp7[: L - i]
+        m_rows[i, i:] = m[: 2 * L - i]
+        m_rows[L + i, i:] = m7[: 2 * L - i]
+    # Input digit i's row -> the block-order digits of its constant.
+    a_q = np.concatenate([q_rows & 0x7F, q_rows >> 7], axis=1)
+    a_m = np.concatenate([m_rows & 0x7F, m_rows >> 7], axis=1)
+    c_q = 64 * a_q[L:].sum(axis=0, dtype=np.int64)
+    c_m = 64 * a_m[L:].sum(axis=0, dtype=np.int64)
+    i8 = lambda a: torch.as_tensor(np.ascontiguousarray(a.T.astype(np.int8)),
+                                   device=device)
+    return RedcMatrices(w_mq=i8(a_q), w_m=i8(a_m), c_mq=_tensor(c_q, device),
+                        c_m=_tensor(c_m, device))
+
+
+def redc_matrices(ctx):
+    """The context's RedcMatrices on its device, built once (from M's
+    limbs, one host copy) and kept with it."""
+    mats = _redc.get(ctx.m)
+    if mats is None:
+        modulus = hl.limbs_to_int(ctx.m.cpu().numpy())
+        mats = _redc[ctx.m] = build_redc_matrices(modulus, ctx.num_limbs,
+                                                  ctx.m.device)
+    return mats
+
+
+def attach_redc_matrices(ctx, mats):
+    """Keep mats (carried across from phe_tpu) as the context's own."""
+    _redc[ctx.m] = mats
 
 
 def redc(t, ctx):

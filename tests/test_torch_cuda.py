@@ -317,9 +317,9 @@ def test_issue_chain_wrapper_checks(dev):
 
 
 def test_mont_pow_at_the_8192_bit_geometry(dev):
-    """mont_pow at L = 1,176 (n^2 of an 8192-bit key, window 4: 131 KB of
-    shared memory a block), on 64-bit schedules, against its plain
-    version and Python pow."""
+    """mont_pow at L = 1,176 (n^2 of an 8192-bit key, window 4: 8 rows a
+    block in 227,072 bytes of shared memory, the table in device memory),
+    on 64-bit schedules, against its plain version and Python pow."""
     rng = random.Random(8192)
     M = rng.getrandbits(16384) | (1 << 16383) | 1
     ctx = mg.build_context(M, dev)
@@ -341,6 +341,74 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
     assert [v % M for v in hl.limbs_to_ints(plain.cpu().numpy())] == want
     assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
     assert all(100 * v < 101 * M for v in g)
+
+
+def _pow_widths(dev, L):
+    """(B, E): batches of 1, 7, 8 and 9 rows at E = 8 and, where a block
+    of 32 rows fits, the smallest batches that take it on this card with
+    their last block holding 1 and 31 rows."""
+    sms = cuda_rns._sms(dev)
+    out = [(B, 8) for B in (1, 7, 8, 9)]
+    if cuda_modexp._pow_smem(L, 32) <= cuda_modexp.MAX_SMEM:
+        out += [((sms - 1) * 32 + 1, 32), (sms * 32 - 1, 32)]
+    return out
+
+
+@pytest.mark.parametrize("which", ["256", "2048", "8192"])
+@pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
+def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
+    """Both modexp forms at every E the wrapper picks, reached through the
+    batch size, at L = 40, 296 and 1,176 (64-bit exponents, window 4):
+    value-equal to the plain version and Python pow on the first rows and
+    the last two blocks, limbs in [0, 2^14], value < 1.01 M."""
+    rng = random.Random(len(which) + vec)
+    if which == "256":
+        M = _key(256)[0].nsquare
+    else:
+        M = benchmarks.fixed_key(int(which))[0].nsquare
+    ctx = mg.build_context(M, dev)
+    L = ctx.num_limbs
+    widths = _pow_widths(dev, L)
+    rows = max(B for B, _ in widths)
+    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    base = _limbs(xs, L, dev)
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    if vec:
+        es = [(0, (1 << 64) - 1)[i % 2] if i < 4 else rng.getrandbits(64)
+              for i in range(rows)]
+        digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
+    else:
+        e = rng.getrandbits(64) | 1 << 63
+        es = [e] * rows
+        digits = torch.as_tensor(mg.exponent_digits(e, 64), device=dev)
+    name = "mont_pow" if vec else "mont_pow_shared"
+    fn = cuda_modexp.mont_pow if vec else cuda_modexp.mont_pow_shared
+    plain = mg.mont_pow_plain if vec else mg.mont_pow_shared_plain
+    for B, E in widths:
+        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == E
+        before = cuda_modexp.launches[name]
+        db = digits[:B].contiguous() if vec else digits
+        got = fn(base[:B].contiguous(), db, ctx)
+        assert cuda_modexp.launches[name] == before + 1
+        idx = sorted(set(range(min(B, 4))) | set(range(max(0, B - E - 1), B)))
+        ref = plain(base[idx], digits[idx] if vec else digits, ctx)
+        torch.cuda.synchronize()
+        g = hl.limbs_to_ints(got[idx].cpu().numpy())
+        want = [pow(xs[i] * Rinv, es[i], M) * R % M for i in idx]
+        assert [v % M for v in g] == want, (B, E)
+        assert [v % M for v in hl.limbs_to_ints(ref.cpu().numpy())] == want
+        assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+        assert all(100 * v < 101 * M
+                   for v in hl.limbs_to_ints(got.cpu().numpy()))
+
+
+def test_pow_smem_formula_matches_the_kernel(dev):
+    cuda_modexp._pow_lib(False, 8)
+    lib = cuda_modexp._build.load("mont_pow")
+    for L in (16, 24, 40, 152, 296, 304, 592, 1176):
+        for E in cuda_modexp.POW_ELEMS:
+            assert lib.phe_mont_pow_smem(L, E) == cuda_modexp._pow_smem(L, E)
 
 
 @functools.lru_cache(maxsize=None)
