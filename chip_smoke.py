@@ -1020,6 +1020,13 @@ def limb_engine_path(pub, priv, dev, card, totals):
     print("8192-bit key: n^2 on the limb engine (L = %d); decrypt halves on "
           "the RNS ladder (k = %d, %d)" % (dc.L, halves[0][0].k,
                                            halves[1][0].k))
+    # The modexp's REDC matrices, built and packed at the context's first
+    # launch: key set-up, kept out of the timed encrypt.
+    t0 = time.perf_counter()
+    cuda_modexp._pow_columns(dc.ctx)
+    sync()
+    print("8192-bit key: REDC matrices of n^2 (%d bytes) built and packed "
+          "in %.3f s" % (12 * dc.L * dc.L, time.perf_counter() - t0))
     g = np.random.default_rng(SEED + 8)
     rng = random.Random(SEED + 8)
     rows, nsq = LIMB_ROWS, pub.nsquare

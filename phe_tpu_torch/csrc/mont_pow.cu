@@ -76,11 +76,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRun = 8;      // columns of one a*b job; runs of the carry passes
 constexpr int kPad = 14;     // zero limbs either side of an operand row
-constexpr int kStages = 3;   // K-steps of A fragments held in registers
+constexpr int kStages = 6;   // K-steps of A fragments held in registers
 constexpr int kSmemLimit = 232448;
 constexpr unsigned int kMask = (1u << 14) - 1;
 
