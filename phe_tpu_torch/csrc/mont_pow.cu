@@ -24,8 +24,9 @@
 // host in A-fragment order (cuda_rns.pack_blocks: two row blocks, the low
 // and the high digit of each output limb, so a warp's two accumulators of
 // one slab hold both digits of the same limbs and the epilogue recombines
-// them from registers), read with 16-byte __ldg loads kStages - 1 K-steps
-// ahead and streamed from L2 once per block-product. Signedness: a limb of
+// them from registers), streamed from L2 once per block-product by
+// 16-byte cp.async copies kStages - 1 K-steps ahead into a per-warp ring
+// in shared memory. Signedness: a limb of
 // exactly 2^14 has a high digit of 128, so the B operand's high digits are
 // biased by -64 into [-64, 64], as phe_tpu's are, and the epilogue adds
 // the compensation vectors c_mq, c_m (64 times the high-digit columns'
@@ -80,7 +81,7 @@ constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRun = 8;      // columns of one a*b job; runs of the carry passes
 constexpr int kPad = 14;     // zero limbs either side of an operand row
-constexpr int kStages = 6;   // K-steps of A fragments held in registers
+constexpr int kStages = 4;   // K-steps of A fragments in flight (the ring)
 constexpr int kSmemLimit = 232448;
 constexpr unsigned int kMask = (1u << 14) - 1;
 
@@ -95,10 +96,20 @@ __host__ __device__ inline int n_runs(int L) { return 2 * L / kRun; }
 __host__ __device__ inline int k_pad(int L) { return (2 * L + 31) / 32 * 32; }
 __host__ __device__ inline int dig_stride(int L) { return k_pad(L) + 16; }
 __host__ __device__ inline int q_slabs(int L) { return (L + 15) / 16; }
+// The accumulator rows and the carry arrays come first: the MMA phases
+// use that region, idle then, as their ring (kWarps x kStages slots of
+// 1 KB), and a block is never smaller than the ring.
+__host__ __device__ inline size_t ring_region(int L, int elems) {
+  const size_t rows = 4 * static_cast<size_t>(elems) *
+                      (op_stride(L) + 2 * n_runs(L));
+  const size_t ring = static_cast<size_t>(kWarps) * kStages * 64 * 16;
+  return rows > ring ? rows : ring;
+}
 inline size_t smem_bytes(int L, int elems) {
-  const size_t words = static_cast<size_t>(op_stride(L)) + wide_stride(L) +
-                       h_stride(L) + 2 * n_runs(L) + 1;
-  return static_cast<size_t>(elems) * (4 * words + dig_stride(L));
+  return ring_region(L, elems) +
+         static_cast<size_t>(elems) *
+             (4 * (static_cast<size_t>(wide_stride(L)) + h_stride(L) + 1) +
+              dig_stride(L));
 }
 
 // c += A B for one m16n8k32 tile: A's four registers, B's two.
@@ -108,6 +119,23 @@ __device__ __forceinline__ void mma_s8(int* c, const int4& a, unsigned int b0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously, past
+// L1 (cp.async.cg); completion is awaited per thread by commit group.
+__device__ __forceinline__ void cp_async16(int4* smem, const int4* gmem) {
+  const unsigned int s =
+      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <int E>
@@ -121,6 +149,7 @@ struct Pow {
   unsigned int* c2;    // [E, nr]: each run's carry after the ripple
   unsigned int* flag;  // [E]: U's low half is non-zero
   unsigned char* dig;  // [E, ds]: the B operand's digits; [2L, ds) zero
+  int4* ring;          // over acc, c1, c2 during the MMA phases
   const int4 *wq, *wm;  // the packed REDC matrices
   const int *cq, *cm;   // their compensation vectors
 
@@ -307,38 +336,36 @@ struct Pow {
 #pragma unroll
         for (int i = 0; i < 4; ++i) c[b][n][i] = 0;
     const int4* ap = wp + static_cast<size_t>(s) * ksteps * 64 + lane;
+    // This warp's kStages ring slots of both blocks' fragments: each lane
+    // copies its own 16 bytes and reads them back, so a lane's wait on
+    // its own copies is the only synchronisation.
+    int4* slots = ring + (threadIdx.x >> 5) * (kStages * 64) + lane;
     const unsigned char* dbase = dig + g * ds + 4 * t;
-    int4 a[kStages][2];
-#pragma unroll
     for (int st_ = 0; st_ < kStages - 1; ++st_) {
       if (st_ < ksteps) {
-#pragma unroll
-        for (int b = 0; b < 2; ++b) a[st_][b] = __ldg(ap + st_ * 64 + b * 32);
+        cp_async16(slots + st_ * 64, ap + st_ * 64);
+        cp_async16(slots + st_ * 64 + 32, ap + st_ * 64 + 32);
       }
+      cp_commit();
     }
-    for (int ks0 = 0; ks0 < ksteps; ks0 += kStages) {
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int nx = ks + kStages - 1;
+      if (nx < ksteps) {
+        const int slot = nx % kStages;
+        cp_async16(slots + slot * 64, ap + nx * 64);
+        cp_async16(slots + slot * 64 + 32, ap + nx * 64 + 32);
+      }
+      cp_commit();
+      cp_wait<kStages - 1>();  // step ks's copies have landed
+      const int cur = ks % kStages;
+      const int4 a0 = slots[cur * 64], a1 = slots[cur * 64 + 32];
 #pragma unroll
-      for (int st_ = 0; st_ < kStages; ++st_) {
-        const int ks = ks0 + st_;
-        if (ks < ksteps) {
-          const int nx = ks + kStages - 1;
-          if (nx < ksteps) {
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              a[(st_ + kStages - 1) % kStages][b] =
-                  __ldg(ap + nx * 64 + b * 32);
-            }
-          }
-#pragma unroll
-          for (int n = 0; n < kTiles; ++n) {
-            const unsigned char* d = dbase + n * 8 * ds + ks * 32;
-            const unsigned int b0 = *reinterpret_cast<const unsigned int*>(d);
-            const unsigned int b1 =
-                *reinterpret_cast<const unsigned int*>(d + 16);
-            mma_s8(c[0][n], a[st_][0], b0, b1);
-            mma_s8(c[1][n], a[st_][1], b0, b1);
-          }
-        }
+      for (int n = 0; n < kTiles; ++n) {
+        const unsigned char* d = dbase + n * 8 * ds + ks * 32;
+        const unsigned int b0 = *reinterpret_cast<const unsigned int*>(d);
+        const unsigned int b1 = *reinterpret_cast<const unsigned int*>(d + 16);
+        mma_s8(c[0][n], a0, b0, b1);
+        mma_s8(c[1][n], a1, b0, b1);
       }
     }
   }
@@ -417,11 +444,14 @@ struct Pow {
     mma_m();                         // U split over T and H
     split_runs(T, st, H, sh, nr);
     ripple<true>(T, st, nr);         // c2 and the low half's flag
-    // U / R: the high half, its carry bits, and one iff the low half is R.
-    for (int idx = threadIdx.x; idx < live * L; idx += blockDim.x) {
-      const int e = idx / L, i = idx - e * L;
+    // U / R: the high half, its carry bits, and one iff the low half is R;
+    // the pads, which the ring overwrote, zero again.
+    for (int idx = threadIdx.x; idx < live * sa; idx += blockDim.x) {
+      const int e = idx / sa, i = idx - e * sa - kPad;
       acc[e * sa + kPad + i] =
-          limb(T + e * st, e, L + i) + (i == 0 ? flag[e] : 0u);
+          i >= 0 && i < L
+              ? limb(T + e * st, e, L + i) + (i == 0 ? flag[e] : 0u)
+              : 0u;
     }
     __syncthreads();
   }
@@ -450,12 +480,13 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
   p.wm = wm;
   p.cq = cq;
   p.cm = cm;
+  p.ring = reinterpret_cast<int4*>(smem_raw);
   p.acc = reinterpret_cast<unsigned int*>(smem_raw);
-  p.T = p.acc + E * p.sa;
-  p.H = p.T + E * p.st;
-  p.c1 = p.H + E * p.sh;
+  p.c1 = p.acc + E * p.sa;
   p.c2 = p.c1 + E * p.nr;
-  p.flag = p.c2 + E * p.nr;
+  p.T = reinterpret_cast<unsigned int*>(smem_raw + ring_region(L, E));
+  p.H = p.T + E * p.st;
+  p.flag = p.H + E * p.sh;
   p.dig = reinterpret_cast<unsigned char*>(p.flag + E);
 
   const int tid = threadIdx.x, nt = blockDim.x;

@@ -46,7 +46,7 @@
 // the q^ Barrett and u~ after extension 1; combine_raw into S after
 // extension 2) runs from registers. The B fragment is the element's digit
 // row as it lies in shared memory (two 32-bit loads a lane). The weights are
-// packed by the host in fragment order (cuda_rns._pack_fragments): a
+// packed by the host in fragment order (cuda_rns.pack_blocks): a
 // lane's four A registers of one block's tile are 16 contiguous bytes, a
 // warp's 512, read with coalesced 16-byte __ldg loads kept kStages - 1
 // K-steps ahead of the MMAs in registers (no shared-memory ring).
@@ -517,7 +517,7 @@ int launch(const int64_t* x, int64_t* out, unsigned int* table, int B, int k,
 // uint32 scratch of ceil(B / E) * E * 2^window * cpad words; m ... one_dom:
 // the system's [cpad] int64 constant rows; entry, exitc: [cpad] int64
 // entry and exit constants; mbinv: [1] int64; w1p, w2p: the extension
-// matrices in fragment order (cuda_rns._pack_fragments), 16-byte aligned;
+// matrices in fragment order (cuda_rns.pack_blocks), 16-byte aligned;
 // digits: [n_windows] int64. phe_rns_ladder_vec_<E> takes digits: [B,
 // n_windows] int8, one MSB-first schedule per element. Each launches on
 // `stream`, allocates nothing, and returns cudaGetLastError().

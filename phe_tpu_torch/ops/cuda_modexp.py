@@ -73,19 +73,23 @@ def _pow_lib(vec, elems):
 
 
 # csrc/mont_pow.cu's geometry: kRun columns a job, kPad zero limbs either
-# side of an operand row.
-POW_RUN, POW_PAD = 8, 14
+# side of an operand row, and the MMA phases' ring of A fragments (kWarps
+# x kStages slots of 1 KB).
+POW_RUN, POW_PAD, POW_RING = 8, 14, 12 * 4 * 1024
 
 
 def _pow_smem(L, elems):
     """Shared-memory bytes of one modexp block (csrc/mont_pow.cu's
     smem_bytes): per row the operand row with its pads (L + 2 kPad + 1
-    words), T and the scratch H (2L + 1 words each, H at least the padded
-    operand), the two carry arrays (2L / kRun words each), the flag, and
-    the digit row (2L padded to 32, plus a 16-byte skew)."""
-    words = ((L + 2 * POW_PAD + 1) + (2 * L + 1)
-             + (max(2 * L, L + 2 * POW_PAD) + 1) + 2 * (2 * L // POW_RUN) + 1)
-    return elems * (4 * words + -(-2 * L // 32) * 32 + 16)
+    words) and the two carry arrays (2L / kRun words each), a region the
+    MMA phases reuse as their ring and never smaller than it; then per row
+    T and the scratch H (2L + 1 words each, H at least the padded
+    operand), the flag, and the digit row (2L padded to 32, plus a
+    16-byte skew)."""
+    ring = max(4 * elems * ((L + 2 * POW_PAD + 1) + 2 * (2 * L // POW_RUN)),
+               POW_RING)
+    words = (2 * L + 1) + (max(2 * L, L + 2 * POW_PAD) + 1) + 1
+    return ring + elems * (4 * words + -(-2 * L // 32) * 32 + 16)
 
 
 def _pow_elems(L, B, sms):

@@ -12,7 +12,7 @@ The kernel runs both base extensions of each product as int8 tensor-core
 products (``mma.sync`` m16n8k32) with the block's elements as the N
 dimension. What it needs from the host lives here, where the CPU tests
 reach it: the padded geometry (``_geometry``), the extension matrices
-packed in the MMA's A-fragment order (``_pack_fragments``), the block's
+packed in the MMA's A-fragment order (``pack_blocks``), the block's
 shared memory (``_smem``) and the elements a block holds (``_elems``),
 chosen per launch from (k, B) among the kernel's instantiations.
 
@@ -128,18 +128,6 @@ def unpack_blocks(packed):
     return tiles.permute(2, 0, 6, 3, 1, 5, 4, 7).reshape(nb * 16 * S, 32 * KS)
 
 
-def _pack_fragments(w, k):
-    """The ladder's extension matrix int8 [3(k+8), 2k] -> int32
-    [S, KS, 3, 32, 4] (pack_blocks over its three digit blocks; the padded
-    geometry is _geometry(k))."""
-    return pack_blocks(w, 3)
-
-
-def _unpack_fragments(packed, k):
-    """The inverse of _pack_fragments: int8 [3 K1p, Kp], padding kept."""
-    return unpack_blocks(packed)
-
-
 def _table(B, elems, window, cpad, dev):
     """The kernel's table scratch: 2^window rows of cpad words for each
     of the ceil(B / elems) * elems elements its blocks hold."""
@@ -151,8 +139,8 @@ def _columns(sys_):
     """(w_ext1, w_ext2) packed for the kernel, once per system."""
     cols = _packed.get(sys_.w_ext1)
     if cols is None:
-        cols = _packed[sys_.w_ext1] = (_pack_fragments(sys_.w_ext1, sys_.k),
-                                       _pack_fragments(sys_.w_ext2, sys_.k))
+        cols = _packed[sys_.w_ext1] = (pack_blocks(sys_.w_ext1, 3),
+                                       pack_blocks(sys_.w_ext2, 3))
     return cols
 
 

@@ -1,13 +1,14 @@
 """Time build variants of csrc/mont_pow.cu on one NVIDIA GPU, in turns.
 
-    python3 pow_variants.py STAGES,THREADS[,FLAGS] ...
+    python3 pow_variants.py STAGES,THREADS[,FLAGS[,SOURCE]] ...
 
 Each variant is the checkout's mont_pow.cu with kStages and kThreads set
 as given and FLAGS: c loads the packed matrices with __ldcg (L2 only), n
 with ld.global.nc.L1::no_allocate, s stamps the SM clock (clock64) of
 block 0 after each phase of a product and prints the cycles a product
 spends in each (mul_runs, ripple, digits, mma_q, split, ripple, digits,
-mma_m, split, ripple, out). Every variant runs the paths' shapes twice,
+mma_m, split, ripple, out). SOURCE, when given, takes the place of the
+checkout's mont_pow.cu (an earlier version of it). Every variant runs the paths' shapes twice,
 in turns (forward, then reversed), each output value-equal to the first
 variant's; every line names the card and its power limit.
 """
@@ -34,9 +35,9 @@ def stamp(src):
     for i, ph in enumerate(PHASES):
         assert src.count("    " + ph) == 1, ph
         src = src.replace("    " + ph, "    " + ph + " STAMP(%d)" % i)
-    tail = "          limb(T + e * st, e, L + i) + (i == 0 ? flag[e] : 0u);\n    }\n    __syncthreads();\n"
+    tail = "    __syncthreads();\n  }\n};\n"  # the end of product()
     assert src.count(tail) == 1
-    src = src.replace(tail, tail + "    STAMP(10)\n")
+    src = src.replace(tail, "    __syncthreads();\n    STAMP(10)\n  }\n};\n")
     src += """
 extern "C" int phe_pow_stamps(unsigned long long* h, int reset) {
   if (reset) { unsigned long long z[16] = {0}; return cudaMemcpyToSymbol(g_stamps, z, sizeof(z)); }
@@ -55,10 +56,13 @@ __device__ __forceinline__ int4 ld_na(const int4* p) {
 """
 
 
-def build(stages, threads, flags=""):
-    tag = "s%d_t%d_%s" % (stages, threads, flags)
-    src = stamp(SRC) if "s" in flags else SRC
-    assert src.count("__ldg(ap") == 2
+def build(stages, threads, flags="", path=""):
+    tag = "s%d_t%d_%s%s" % (stages, threads, flags, "_" + os.path.basename(
+        os.path.dirname(path)) if path else "")
+    base = open(path).read() if path else SRC
+    src = stamp(base) if "s" in flags else base
+    if "c" in flags or "n" in flags:
+        assert src.count("__ldg(ap") == 2
     if "c" in flags:
         src = src.replace("__ldg(ap", "__ldcg(ap")
     if "n" in flags:
@@ -94,7 +98,7 @@ def main():
     dev = torch.device("cuda")
     card = profiling.card_line()
     combos = [c.split(",") for c in sys.argv[1:]]
-    libs = [build(int(c[0]), int(c[1]), c[2] if len(c) > 2 else '') for c in combos]
+    libs = [build(int(c[0]), int(c[1]), *c[2:]) for c in combos]
     rng = random.Random(5)
     pub2 = benchmarks.fixed_key(2048)[0]
     pub8 = benchmarks.fixed_key(8192)[0]

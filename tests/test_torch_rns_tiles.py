@@ -2,7 +2,7 @@
 
 csrc/rns_ladder.cu runs both base extensions as mma.sync m16n8k32 int8
 products over the block's elements, reading the extension matrices in the
-order ops/cuda_rns.py's _pack_fragments writes them. The kernel cannot run
+order ops/cuda_rns.py's pack_blocks writes them. The kernel cannot run
 here, so these tests hold what surrounds it: the packed matrices unpack to
 w_ext1 / w_ext2 with zero padding; a numpy walk of the packed tiles, slab
 by slab and K-step by K-step with each lane's A, B and C fragments as the
@@ -84,10 +84,10 @@ def test_fragment_pack_unpacks_and_emulates_block_matmul(which):
     assert K1p % 16 == 0 and Kp % 32 == 0 and K1p >= K1 and Kp >= 2 * k
     rng = np.random.default_rng(k)
     for w in (sys_.w_ext1, sys_.w_ext2):
-        packed = cuda_rns._pack_fragments(w, k)
+        packed = cuda_rns.pack_blocks(w, 3)
         assert packed.dtype == torch.int32
         assert tuple(packed.shape) == (K1p // 16, Kp // 32, 3, 32, 4)
-        blocks = cuda_rns._unpack_fragments(packed, k).reshape(3, K1p, Kp)
+        blocks = cuda_rns.unpack_blocks(packed).reshape(3, K1p, Kp)
         assert torch.equal(blocks[:, :K1, : 2 * k], w.reshape(3, K1, 2 * k))
         assert not blocks[:, K1:].any() and not blocks[:, :, 2 * k:].any()
     # The digits are the kernel's: canonical residues < 2^14, lo then hi.
@@ -95,7 +95,7 @@ def test_fragment_pack_unpacks_and_emulates_block_matmul(which):
     values = torch.as_tensor(rng.integers(0, 1 << 14, (E, k)))
     dig = rns._digits_i8(values)
     for w in (sys_.w_ext1, sys_.w_ext2):
-        got = _emulate(cuda_rns._pack_fragments(w, k), dig.numpy(), k)
+        got = _emulate(cuda_rns.pack_blocks(w, 3), dig.numpy(), k)
         want = rns._block_matmul(w, dig)
         for b in range(3):
             np.testing.assert_array_equal(got[b, :K1].T, want[b].numpy())
