@@ -70,7 +70,14 @@
 // multiply-adds of a b (squarings halved) and the carry passes on the CUDA
 // cores, and the packed matrices (12 L^2 bytes and their padding) from L2
 // once per block-product: 33 KB a row-product at L = 296, E = 32, and
-// 2.1 MB at L = 1,176, E = 8, where that stream is the likely limit.
+// 2.1 MB at L = 1,176, E = 8. Twelve warps a block, one block an SM.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; SM clock stamps of block 0
+// per product): at L = 296, E = 32, 124 k cycles a block-product, a b
+// 36 %, the two MMA phases 35 %, carries and digits the rest; at L = 1,176,
+// E = 8, 490 k cycles, the matrix stream 66 % (about 50 bytes a clock an
+// SM) and a b 30 %. Staging the fragments in registers (__ldg, any depth)
+// kept about one K-step of loads in flight a warp and the stream near 29
+// bytes a clock; the cp.async ring lifted it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -39,7 +39,7 @@ def montgomery_context(d, device):
     ctx = mg.MontgomeryContext(
         **{f: _t(d[f], device) for f in mg.MontgomeryContext._fields}
     )
-    if d.get("w_mq") is not None and d["w_mq"].dtype != object:
+    if np.asarray(d.get("w_mq")).dtype == np.int8:  # None where not built
         mg.attach_redc_matrices(ctx, mg.RedcMatrices(
             **{f: _t(d[f], device) for f in mg.RedcMatrices._fields}))
     return ctx

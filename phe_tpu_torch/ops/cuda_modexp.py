@@ -188,9 +188,8 @@ def _pow_table(B, elems, window, L, dev):
                        dtype=torch.int32, device=dev)
 
 
-def _pow_launch(base, digits, ctx, window, vec, elems=None):
-    """One launch of the modexp kernel; elems (E) from _pow_elems unless
-    given (chip_smoke.py times each instantiation on the same rows)."""
+def _pow_launch(base, digits, ctx, window, vec):
+    """One launch of the modexp kernel, E rows a block from _pow_elems."""
     if base.dim() != 2:
         raise ValueError("base must be [B, L], got shape %s"
                          % (tuple(base.shape),))
@@ -212,12 +211,7 @@ def _pow_launch(base, digits, ctx, window, vec, elems=None):
     out = torch.empty_like(base)
     if B == 0:
         return out
-    if elems is None:
-        elems = _pow_elems(L, B, cuda_rns._sms(dev))
-    if _pow_smem(L, elems) > MAX_SMEM:
-        raise ValueError("a modexp block of %d rows at L = %d needs %d bytes "
-                         "of shared memory, over %d"
-                         % (elems, L, _pow_smem(L, elems), MAX_SMEM))
+    elems = _pow_elems(L, B, cuda_rns._sms(dev))
     wq, wm, cq, cm = _pow_columns(ctx)
     table = _pow_table(B, elems, window, L, dev)
     rc = _pow_lib(vec, elems)(
