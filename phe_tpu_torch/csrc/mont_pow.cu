@@ -26,9 +26,9 @@
 // one slab hold both digits of the same limbs and the epilogue recombines
 // them from registers), streamed from L2 once per block-product by
 // 16-byte cp.async copies kStages - 1 K-steps ahead into a per-warp ring
-// in shared memory. Signedness: a limb of
-// exactly 2^14 has a high digit of 128, so the B operand's high digits are
-// biased by -64 into [-64, 64], as phe_tpu's are, and the epilogue adds
+// in shared memory. Signedness: a limb of exactly 2^14 has a high digit of
+// 128, so the B operand's high digits are biased by -64 into [-64, 64], as
+// phe_tpu's are, and the epilogue adds
 // the compensation vectors c_mq, c_m (64 times the high-digit columns'
 // sums). Every int32 MMA sum is below 2L * 127 * 128 (3.8e7 at L = 1,176);
 // the epilogue recombines lo + (hi << 7) in 64 bits, so no L is refused
@@ -54,10 +54,11 @@
 // all E rows between block barriers: 12 barriers a product, shared by E
 // rows.
 //
-// Layout: shared memory holds per row the accumulator (with its pads), T,
-// a scratch H (the selected factor, then q's two halves, then U's carry
-// half), the two carry arrays, the flag and the digit row: smem_bytes(L,
-// E), 232,448 bytes at L = 296, E = 32 and 227,072 at L = 1,176, E = 8.
+// Layout: shared memory holds per row the accumulator (with its pads) and
+// the two carry arrays, a region the MMA phases borrow as their ring; then
+// T, a scratch H (the selected factor, then q's two halves, then U's carry
+// half), the flag and the digit row: smem_bytes(L, E), 232,448 bytes at
+// L = 296, E = 32 and 227,072 at L = 1,176, E = 8.
 // The window table lives in device memory (a scratch of ceil(B/E) E rows
 // of 2^w L words the wrapper allocates). The shared form reads the entry
 // its public digit names; the per-row form selects in constant time, as
