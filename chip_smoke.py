@@ -229,12 +229,16 @@ def block_elems(k, rows):
     return cuda_rns._elems(k, rows, cuda_rns._sms(torch.device("cuda")))
 
 
-def pow_elems(L, rows):
-    """The rows a limb-engine modexp block holds for rows at L on this
-    card, as the wrappers choose them."""
+def pow_tile(L, rows):
+    """(E, rows a block) of a limb-engine modexp launch of rows at L on
+    this card, as the wrappers choose them."""
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
 
     return cuda_modexp._pow_elems(L, rows, cuda_rns._sms(torch.device("cuda")))
+
+
+def tile_text(L, rows):
+    return "E = %d, %d rows a block" % pow_tile(L, rows)
 
 
 def _counters():
@@ -365,7 +369,7 @@ def check_vec_kernels(pub, dev, rng):
         k=st.rsys.k, rows=rows, elems=elems,
         max_abs_err=int((got[:few] - ref).abs().max()),
         ms=ms, plain_ms=plain_ms, plain_rows=few, ms_at_plain_rows=ms_few,
-        bound_ms=bms, bound_by=by, select_bytes_ms=select_ms)
+        bound_ms=bms, bound_by=by)
     del x_res, got, ref
 
     # mont_pow: short obfuscation's h^a, 320-bit exponents, window 4.
@@ -394,19 +398,18 @@ def check_vec_kernels(pub, dev, rng):
     products = sum(pow_products(4, n_windows))
     bms, by = mont_pow_bound(rows, L, 4, n_windows, rows * n_windows)
     select_ms = 1e3 * rows * n_windows * 16 * L * 4 / HBM_BYTES_PER_S
-    elems = pow_elems(L, rows)
+    elems = tile_text(L, rows)
     print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
-          "6; kernel %.3f ms at %d rows, E = %d, plain %.3f ms at %d, bound "
+          "6; kernel %.3f ms at %d rows, %s, plain %.3f ms at %d, bound "
           "%.3f ms (%s, %d products a row); the table select's reads alone "
           "%.3f ms at HBM rate"
           % (L, n_windows, few, ms, rows, elems, plain_ms, few, bms, by,
              products, select_ms))
     check(ms >= bms, "mont_pow ran under its bound: mont_pow_bound's count "
           "no longer matches the kernel")
-    out["mont_pow"] = dict(L=L, rows=rows, elems=elems, max_abs_err=err,
+    out["mont_pow"] = dict(L=L, rows=rows, tile=elems, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, plain_rows=few,
-                           bound_ms=bms, bound_by=by, products=products,
-                           select_bytes_ms=select_ms)
+                           bound_ms=bms, bound_by=by, products=products)
     del base, got, ref
 
     # mont_pow_shared: h = x^n, one row per key (window 5), and 128 rows.
@@ -439,14 +442,14 @@ def check_vec_kernels(pub, dev, rng):
                                                   8 * len(ndig))[0],
           "mont_pow_shared ran under its bound")
     print("mont_pow_shared L=%d windows=%d: value-equal on 1 and %d rows, "
-          "Python pow on 4; kernel %.3f ms at 1 row, E = %d (%.3f ms at %d, "
-          "E = %d), plain %.3f ms at 1 row (%.3f ms at %d), bound %.4f ms at "
+          "Python pow on 4; kernel %.3f ms at 1 row, %s (%.3f ms at %d, "
+          "%s), plain %.3f ms at 1 row (%.3f ms at %d), bound %.4f ms at "
           "1 row (%s, %d products)"
-          % (L, len(ndig), rows, ms, pow_elems(L, 1), ms_rows, rows,
-             pow_elems(L, rows), plain_ms, plain_ms_rows, rows, bms, by,
+          % (L, len(ndig), rows, ms, tile_text(L, 1), ms_rows, rows,
+             tile_text(L, rows), plain_ms, plain_ms_rows, rows, bms, by,
              products))
     out["mont_pow_shared"] = dict(
-        L=L, rows=1, elems=pow_elems(L, 1), max_abs_err=err, ms=ms,
+        L=L, rows=1, tile=tile_text(L, 1), max_abs_err=err, ms=ms,
         plain_ms=plain_ms, plain_rows=1, ms_at_128_rows=ms_rows,
         plain_ms_at_128_rows=plain_ms_rows, bound_ms=bms, bound_by=by,
         products=products)
@@ -457,10 +460,12 @@ def check_ragged_pows(pub, dev, rng):
     """Phase 2, ragged batches of both limb-engine modexp forms at the
     2048-bit n^2 (L = 296; 64-bit exponents, window 4, the per-row
     schedules' first two all-zero and all-ones), value-equal to their
-    plain versions and Python pow: at E = 8 batches of 1, 7 and 9 rows on
-    every row; at E = 32 the smallest batches that take it on this card
-    with a last block of 1 and of 31 rows, on their first rows and last
-    two blocks."""
+    plain versions and Python pow, at every (E, rows a block) the wrapper
+    picks on this card: one row a block (1, 7 and 9 rows) on every row;
+    three rows a block of E = 8, and full blocks of E = 8 and of E = 32,
+    each at the smallest and largest batch that takes it (a last block of
+    1 row, and of all but one), on their first rows and last two
+    blocks."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -471,14 +476,16 @@ def check_ragged_pows(pub, dev, rng):
     R = 1 << (14 * L)
     R_inv = pow(R, -1, N)
     sms = cuda_rns._sms(dev)
-    sizes = {8: (1, 7, 9), 32: ((sms - 1) * 32 + 1, sms * 32 - 1)}
-    for E, Bs in sizes.items():
-        check(all(pow_elems(L, B) == E for B in Bs),
-              "ragged modexp batches %s do not take E = %d" % (Bs, E))
-    rows = max(sizes[32])
-    head = list(range(max(sizes[8])))
-    tail = list(range(min(sizes[32]) - 1 - 32, rows))
-    checked = head + tail
+    sizes = {(8, 1): (1, 7, 9), (8, 3): (2 * sms + 1, 3 * sms - 1)}
+    for E in (8, 32):
+        sizes[E, E] = ((sms - 1) * E + 1, sms * E - 1)
+    for tile, Bs in sizes.items():
+        check(all(pow_tile(L, B) == tile for B in Bs),
+              "ragged modexp batches %s do not take %s" % (Bs, tile))
+    rows = max(max(Bs) for Bs in sizes.values())
+    checked = sorted(set(range(9)).union(*(
+        range(B - 2 * r, B) for (_, r), Bs in sizes.items() for B in Bs
+        if B > 9)))
     xs = [rng.randrange(0, 2 * N) for _ in range(rows)]
     base = mg._tensor(hl.ints_to_limbs(xs, L), dev)
     es = [0, (1 << 64) - 1] + [rng.getrandbits(64) for _ in range(rows - 2)]
@@ -498,7 +505,7 @@ def check_ragged_pows(pub, dev, rng):
 
     check(values(ref) == want and values(ref_vec) == want_vec,
           "the plain modexps differ from Python pow")
-    for B in sizes[8] + sizes[32]:
+    for B in sorted(B for Bs in sizes.values() for B in Bs):
         b = base[:B].contiguous()
         got = cuda_modexp.mont_pow_shared(b, sdig, ctx)
         got_vec = cuda_modexp.mont_pow(b, digits[:B].contiguous(), ctx)
@@ -511,11 +518,11 @@ def check_ragged_pows(pub, dev, rng):
               "mont_pow L=%d: a ragged batch of %d rows differs from the "
               "plain version" % (L, B))
     print("mont_pow_shared, mont_pow L=%d: ragged batches value-equal to the "
-          "plain versions and Python pow, %s rows (E = 8) on every row, %s "
-          "rows (E = 32, %d SMs) on their first %d rows and last two blocks "
-          "(plain %.1f s for %d rows)"
-          % (L, ", ".join(map(str, sizes[8])), ", ".join(map(str, sizes[32])),
-             sms, len(head), plain_s, len(checked)))
+          "plain versions and Python pow on %d checked rows, %d SMs: %s "
+          "(plain %.1f s)"
+          % (L, len(checked), sms, "; ".join(
+              "E = %d, %d rows a block: %s rows" % (E, r, ", ".join(
+                  map(str, Bs))) for (E, r), Bs in sizes.items()), plain_s))
 
 
 def arithmetic_path(pub, priv, dev, card, totals):
@@ -895,8 +902,8 @@ def calibration(card, totals):
     from phe_tpu_torch.ops import cuda_microbench as cm
 
     rates, sec, n = run_step(microbench.main, totals)
-    # Per body and K: one warm-up launch and three timings of 8 launches.
-    expect_launches("calibration", n, {"vpu_microbench": 50 * len(cm.BODIES)})
+    # Per body: one warm-up launch and 8 timed launches at each K.
+    expect_launches("calibration", n, {"vpu_microbench": 18 * len(cm.BODIES)})
     (mul_row, op_row, _), kind, assumed = profiling.chip_peaks()
     print("calibration (%.1f s): int32_mul_per_s %.6g (%.1f %% of the "
           "published %.6g; profiling.py's H100 row %.6g), "
@@ -1020,13 +1027,6 @@ def limb_engine_path(pub, priv, dev, card, totals):
     print("8192-bit key: n^2 on the limb engine (L = %d); decrypt halves on "
           "the RNS ladder (k = %d, %d)" % (dc.L, halves[0][0].k,
                                            halves[1][0].k))
-    # The modexp's REDC matrices, built and packed at the context's first
-    # launch: key set-up, kept out of the timed encrypt.
-    t0 = time.perf_counter()
-    cuda_modexp._pow_columns(dc.ctx)
-    sync()
-    print("8192-bit key: REDC matrices of n^2 (%d bytes) built and packed "
-          "in %.3f s" % (12 * dc.L * dc.L, time.perf_counter() - t0))
     g = np.random.default_rng(SEED + 8)
     rng = random.Random(SEED + 8)
     rows, nsq = LIMB_ROWS, pub.nsquare
@@ -1044,12 +1044,17 @@ def limb_engine_path(pub, priv, dev, card, totals):
                  card))
 
     xs = floats(-1e6, 1e6)
-    enc, sec, n = run_step(
-        lambda: EncryptedBatch.encrypt(pub, xs, device=dev), totals)
-    # to_mont(r) and the (n*m + 1) prologue: two shared-operand products.
-    expect_launches("8192-bit encrypt", n, {
-        "mont_pow_shared": 1, "mont_mul_const": 2, "mont_mul": 1})
-    report("encrypt", rows, sec, n, "paillier_encrypt_8192_batched")
+    # The first encrypt builds and packs the modexp's REDC matrices of n^2
+    # inside its span, as every key's first batch does; the second runs
+    # without that.
+    for step, metric in (("encrypt", "paillier_encrypt_8192_batched"),
+                         ("encrypt, second batch", None)):
+        enc, sec, n = run_step(
+            lambda: EncryptedBatch.encrypt(pub, xs, device=dev), totals)
+        # to_mont(r) and the (n*m + 1) prologue: two shared-operand products.
+        expect_launches("8192-bit " + step, n, {
+            "mont_pow_shared": 1, "mont_mul_const": 2, "mont_mul": 1})
+        report(step, rows, sec, n, metric)
     dec, sec, n = run_step(lambda: enc.decrypt(priv), totals)
     expect_launches("8192-bit decrypt", n, {
         "rns_ladder": 2, "mont_mul": 3, "mont_mul_const": 6})
@@ -1111,6 +1116,18 @@ def limb_engine_path(pub, priv, dev, card, totals):
     check(hl.limbs_to_ints(got.cpu().numpy()) == want
           and hl.limbs_to_ints(pdc._residue(head).cpu().numpy()) == want,
           "_decrypt_residue_limb differs from the RNS decrypt")
+    # Its two mont_pow_shared launches alone, on their own inputs, warm.
+    plain = mg.from_mont(head, dc.ctx)
+    k = pdc.consts
+    for half, ctx2, red, ddig in (("p", k.ctx_p, k.red_p, k.dp_digits),
+                                  ("q", k.ctx_q, k.red_q, k.dq_digits)):
+        xm = tbatch._mont_entry(mg.mod_reduce(plain, ctx2, red), ctx2)
+        ms = cuda_ms(lambda: cuda_modexp.mont_pow_shared(
+            xm, ddig, ctx2, window=tbatch.DECRYPT_WINDOW), 1)
+        print("_decrypt_residue_limb's mont_pow_shared (%s^2) L=%d windows=%d:"
+              " %.3f ms at %d rows, %s [%s]"
+              % (half, ctx2.num_limbs, len(ddig), ms, LIMB_DIRECT_ROWS,
+                 tile_text(ctx2.num_limbs, LIMB_DIRECT_ROWS), card))
 
     # The kernels at L = 1,176, as the path runs them.
     ctx, L = dc.ctx, dc.L
@@ -1141,13 +1158,13 @@ def limb_engine_path(pub, priv, dev, card, totals):
     check(ms >= bms and ms_rows >= bms_rows,
           "mont_pow_shared L=%d ran under its bound" % L)
     print("mont_pow_shared L=%d windows=%d: Python pow on 2 rows; kernel "
-          "%.3f ms at %d rows, E = %d (bound %.3f ms, %s), %.3f ms at 2 rows, "
-          "E = %d (bound %.4f ms, %s), Python pow %.1f ms for 2, %d products "
-          "a row [%s]" % (L, nd, ms_rows, rows, pow_elems(L, rows), bms_rows,
-                          by_rows, ms, pow_elems(L, 2), bms, by, py_ms,
+          "%.3f ms at %d rows, %s (bound %.3f ms, %s), %.3f ms at 2 rows, "
+          "%s (bound %.4f ms, %s), Python pow %.1f ms for 2, %d products "
+          "a row [%s]" % (L, nd, ms_rows, rows, tile_text(L, rows), bms_rows,
+                          by_rows, ms, tile_text(L, 2), bms, by, py_ms,
                           products, card))
     wide["mont_pow_shared"] = dict(
-        L=L, rows=rows, elems=pow_elems(L, rows), max_abs_err=0, ms=ms_rows,
+        L=L, rows=rows, tile=tile_text(L, rows), max_abs_err=0, ms=ms_rows,
         plain_ms=None, plain_rows=0, bound_ms=bms_rows, bound_by=by_rows,
         ms_at_2_rows=ms, bound_ms_at_2_rows=bms, python_pow_ms=py_ms,
         products=products)
@@ -1178,10 +1195,10 @@ def limb_engine_path(pub, priv, dev, card, totals):
     bms, by = mont_pow_bound(rows_p, L, 4, n_windows, rows_p * n_windows)
     check(ms >= bms, "mont_pow L=%d ran under its bound" % L)
     print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
-          "4; kernel %.3f ms, E = %d, plain %.3f ms, bound %.4f ms (%s, %d "
-          "products a row)" % (L, n_windows, rows_p, ms, pow_elems(L, rows_p),
+          "4; kernel %.3f ms, %s, plain %.3f ms, bound %.4f ms (%s, %d "
+          "products a row)" % (L, n_windows, rows_p, ms, tile_text(L, rows_p),
                                plain_ms, bms, by, products))
-    wide["mont_pow"] = dict(L=L, rows=rows_p, elems=pow_elems(L, rows_p),
+    wide["mont_pow"] = dict(L=L, rows=rows_p, tile=tile_text(L, rows_p),
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             plain_rows=rows_p, bound_ms=bms, bound_by=by,
                             products=products)

@@ -59,19 +59,25 @@
 // T, a scratch H (the selected factor, then q's two halves, then U's carry
 // half), the flag and the digit row: smem_bytes(L, E), 232,448 bytes at
 // L = 296, E = 32 and 227,072 at L = 1,176, E = 8.
-// The window table lives in device memory (a scratch of ceil(B/E) E rows
-// of 2^w L words the wrapper allocates). The shared form reads the entry
-// its public digit names; the per-row form selects in constant time, as
-// _pow_vec_kernel's one-hot sum (:503-512) does: every table entry is read
-// and the wanted one kept by a mask, with no address or branch that
-// depends on the digit.
+// A block holds `rows` of its E row slots (1 ... E, chosen per launch by
+// the wrapper): E when the batch fills the card, fewer when ceil(B / E)
+// blocks would leave multiprocessors idle, the other slots' MMA columns
+// zero. The window table lives in device memory (a scratch of 2^w L
+// words a row over ceil(B / rows) blocks, which the wrapper allocates).
+// The shared form reads the entry its public digit names; the per-row
+// form selects in constant time, as _pow_vec_kernel's one-hot sum
+// (:503-512) does: every table entry is read and the wanted one kept by a
+// mask, with no address or branch that depends on the digit.
 //
 // What bounds it on an H100: per row-product 12 L^2 int8 multiply-adds
 // (1.05 M at L = 296) on the tensor cores, about 0.6 L^2 int32
 // multiply-adds of a b (squarings halved) and the carry passes on the CUDA
 // cores, and the packed matrices (12 L^2 bytes and their padding) from L2
 // once per block-product: 33 KB a row-product at L = 296, E = 32, and
-// 2.1 MB at L = 1,176, E = 8. Twelve warps a block, one block an SM.
+// 2.1 MB at L = 1,176, E = 8. Twelve warps a block, one block an SM. So a
+// block holding fewer rows saves a b and carries but streams the same
+// matrices: past about 0.5 GB a product over all blocks (POW_STREAM in
+// ops/cuda_modexp.py), more blocks stop paying.
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; SM clock stamps of block 0
 // per product): at L = 296, E = 32, 124 k cycles a block-product, a b
 // 36 %, the two MMA phases 35 %, carries and digits the rest; at L = 1,176,
@@ -474,7 +480,7 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
                 const int64_t* __restrict__ one, const int4* __restrict__ wq,
                 const int4* __restrict__ wm, const int* __restrict__ cq,
                 const int* __restrict__ cm, const void* __restrict__ digits,
-                int B, int L, int n_windows, int window) {
+                int B, int rows, int L, int n_windows, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Pow<E> p;
   p.L = L;
@@ -498,8 +504,8 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
   p.dig = reinterpret_cast<unsigned char*>(p.flag + E);
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * E;
-  p.live = B - static_cast<int>(e0) < E ? B - static_cast<int>(e0) : E;
+  const size_t e0 = static_cast<size_t>(blockIdx.x) * rows;
+  p.live = B - static_cast<int>(e0) < rows ? B - static_cast<int>(e0) : rows;
   const int live = p.live, sa = p.sa, sh = p.sh;
   const int ntab = 1 << window;
   const size_t tstride = static_cast<size_t>(ntab) * L;  // a row's table
@@ -590,29 +596,30 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
 template <bool kVec, int E>
 int launch(const int64_t* base, int64_t* out, unsigned int* table,
            const int64_t* one, const int* wq, const int* wm, const int* cq,
-           const int* cm, const void* digits, int B, int L, int n_windows,
-           int window, cudaStream_t stream) {
+           const int* cm, const void* digits, int B, int rows, int L,
+           int n_windows, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(L, E);
   if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < 16 ||
-      window < 1 || window > 8) {
+      window < 1 || window > 8 || rows < 1 || rows > E) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
       mont_pow_kernel<kVec, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + E - 1) / E;
+  const int blocks = (B + rows - 1) / rows;
   mont_pow_kernel<kVec, E><<<blocks, kThreads, smem, stream>>>(
       base, out, table, one, reinterpret_cast<const int4*>(wq),
-      reinterpret_cast<const int4*>(wm), cq, cm, digits, B, L, n_windows,
-      window);
+      reinterpret_cast<const int4*>(wm), cq, cm, digits, B, rows, L,
+      n_windows, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// phe_mont_pow_shared_<E>: base, out: [B, L] int64 Montgomery-domain rows;
-// table: uint32 scratch of ceil(B / E) * E * 2^window * L words; one: [L]
+// phe_mont_pow_shared_<E>: base, out: [B, L] int64 Montgomery-domain rows,
+// `rows` (1 ... E) of them a block; table: uint32 scratch of
+// ceil(B / rows) * rows * 2^window * L words; one: [L]
 // int64 R mod M; wq, wm: w_mq and w_m in fragment order
 // (cuda_rns.pack_blocks, two row blocks), 16-byte aligned; cq, cm: [2L]
 // and [4L] int32 compensation vectors; digits: [n_windows] int64, MSB
@@ -623,10 +630,10 @@ int launch(const int64_t* base, int64_t* out, unsigned int* table,
   extern "C" int NAME(const int64_t* base, int64_t* out, unsigned int* table, \
                       const int64_t* one, const int* wq, const int* wm,       \
                       const int* cq, const int* cm, const DIGIT_T* digits,    \
-                      int B, int L, int n_windows, int window,                \
+                      int B, int rows, int L, int n_windows, int window,      \
                       cudaStream_t stream) {                                  \
     return launch<VEC, E>(base, out, table, one, wq, wm, cq, cm, digits, B,   \
-                          L, n_windows, window, stream);                      \
+                          rows, L, n_windows, window, stream);                \
   }
 
 PHE_MONT_POW_ENTRY(phe_mont_pow_shared_8, false, 8, int64_t)

@@ -33,15 +33,15 @@ def _t(a, device):
 
 def montgomery_context(d, device):
     """phe_tpu MontgomeryContext. Its int8 REDC matrices and their
-    compensation vectors, where d has them, become the context's own
-    (mg.redc_matrices returns them), so both packages reduce with the
-    same constants."""
+    compensation vectors, where d has them, become the context's own, on
+    the host (mg.redc_matrices returns them), so both packages reduce with
+    the same constants."""
     ctx = mg.MontgomeryContext(
         **{f: _t(d[f], device) for f in mg.MontgomeryContext._fields}
     )
     if np.asarray(d.get("w_mq")).dtype == np.int8:  # None where not built
         mg.attach_redc_matrices(ctx, mg.RedcMatrices(
-            **{f: _t(d[f], device) for f in mg.RedcMatrices._fields}))
+            **{f: _t(d[f], "cpu") for f in mg.RedcMatrices._fields}))
     return ctx
 
 

@@ -6,9 +6,9 @@ a = body(a, x) over one [256, 512] tile, one chain per element, for the
 five bodies phe_tpu measures: mul, add, muladd, shiftmul and a
 Barrett-shaped reduction step. Two K values (4,000 and 32,000) cancel the
 fixed launch cost: the time per iteration is the difference of the two
-times over the difference of the K, each time the least of three timings
-with CUDA events around n back-to-back launches. profiling.py's H100 row
-records the result.
+times over the difference of the K, each time taken with CUDA events
+around n back-to-back launches. profiling.py's H100 row records the
+result.
 
 A fold guard refuses a result whose K = 32,000 time is not at least 4x
 the K = 4,000 time: a compiler that folded the chain would leave a time
@@ -55,12 +55,8 @@ def bench(name, body, ops_per_iter, x, n=8):
     for K in (K_LO, K_HI):  # build, load and warm up
         cm.issue_chain(x, body, K)
     torch.cuda.synchronize()
-    # The least of three timings of each K: a launch delayed by the host or
-    # a clock still ramping inflates one timing, never shortens it.
-    t_lo = min(_events_s(lambda: cm.issue_chain(x, body, K_LO), n)
-               for _ in range(3))
-    t_hi = min(_events_s(lambda: cm.issue_chain(x, body, K_HI), n)
-               for _ in range(3))
+    t_lo = _events_s(lambda: cm.issue_chain(x, body, K_LO), n)
+    t_hi = _events_s(lambda: cm.issue_chain(x, body, K_HI), n)
     if t_hi < 4 * t_lo:
         raise RuntimeError(
             "%s: K = %d took %.6f s against %.6f s at K = %d, under 4x: the "

@@ -37,8 +37,14 @@ launches = {"mont_mul": 0, "mont_mul_const": 0, "mont_pow_shared": 0,
             "mont_pow": 0}
 # Rows a modexp block holds: the kernel's instantiations, widest first.
 POW_ELEMS = (32, 8)
-# Per REDC matrices (keyed by their w_mq tensor): the kernel's packed
-# operands, built at the context's first launch.
+# REDC matrix bytes (12 L^2 a block) that the blocks of one launch may
+# stream from L2 for each product before more blocks stop paying: the
+# 8192-bit encrypt's 64 blocks at L = 1,176 (1.06 GB) ran no faster
+# spread over 128, while 64 blocks at L = 592 (0.27 GB) ran faster than
+# 8 (PERF.md, section 6).
+POW_STREAM = 1 << 29
+# Per context (keyed by its m tensor): the kernel's packed REDC operands
+# on its card, built at the context's first launch.
 _pow_packed = WeakIdKeyDictionary()
 
 mont_mul_plain = mg.mont_mul_plain
@@ -62,7 +68,7 @@ def _pow_lib(vec, elems):
         for e in POW_ELEMS:
             for form in ("phe_mont_pow_%d", "phe_mont_pow_shared_%d"):
                 fn = getattr(lib, form % e)
-                fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+                fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
                     ctypes.c_void_p
                 ]
                 fn.restype = ctypes.c_int
@@ -93,11 +99,15 @@ def _pow_smem(L, elems):
 
 
 def _pow_elems(L, B, sms):
-    """Rows a modexp block holds for B rows at L on a card of `sms`
-    multiprocessors: the widest instantiation whose shared memory fits and
-    whose ceil(B / E) blocks still cover the SMs; when none does, the
-    narrowest that fits. A wider block divides the REDC matrices' L2
-    reads by E. The window does not enter: the table lives in device
+    """(E, rows) of a modexp launch of B rows at L on a card of `sms`
+    multiprocessors: the instantiation E and the rows each block holds.
+    E is the widest instantiation whose shared memory fits and whose
+    ceil(B / E) blocks still cover the SMs, a block then holding E rows;
+    when none does, the narrowest that fits, its blocks holding
+    ceil(B / sms) rows (at most E), so that a small batch spreads over
+    the card, but no fewer than keep the blocks' matrix stream within
+    POW_STREAM. A fuller block divides the REDC matrices' L2 reads by
+    its rows. The window does not enter: the table lives in device
     memory."""
     fits = [e for e in POW_ELEMS if _pow_smem(L, e) <= MAX_SMEM]
     if not fits:
@@ -105,21 +115,24 @@ def _pow_elems(L, B, sms):
                          "L = %d" % (MAX_SMEM, L))
     for e in fits:
         if -(-B // e) >= sms:
-            return e
-    return fits[-1]
+            return e, e
+    rows = max(-(-B // sms), -(-B * 12 * L * L // POW_STREAM))
+    return fits[-1], min(fits[-1], rows)
 
 
 def _pow_columns(ctx):
-    """(w_mq, w_m packed in fragment order, c_mq, c_m as int32) for the
-    kernel, once per context and card."""
-    mats = mg.redc_matrices(ctx)
-    cols = _pow_packed.get(mats.w_mq)
+    """(w_mq, w_m packed in fragment order, c_mq, c_m as int32) on the
+    context's device, packed on the host once per context and card; the
+    unpacked matrices are not kept."""
+    cols = _pow_packed.get(ctx.m)
     if cols is None:
-        cols = _pow_packed[mats.w_mq] = (
-            cuda_rns.pack_blocks(mats.w_mq, 2),
-            cuda_rns.pack_blocks(mats.w_m, 2),
-            mats.c_mq.to(torch.int32).contiguous(),
-            mats.c_m.to(torch.int32).contiguous())
+        mats = mg.redc_matrices(ctx)
+        cols = _pow_packed[ctx.m] = tuple(
+            t.to(ctx.m.device) for t in (
+                cuda_rns.pack_blocks(mats.w_mq, 2),
+                cuda_rns.pack_blocks(mats.w_m, 2),
+                mats.c_mq.to(torch.int32).contiguous(),
+                mats.c_m.to(torch.int32).contiguous()))
     return cols
 
 
@@ -181,15 +194,15 @@ def mont_mul_const(a, b_limbs, ctx):
     return _dispatch(a, b_limbs, ctx, shared=True)
 
 
-def _pow_table(B, elems, window, L, dev):
+def _pow_table(B, rows, window, L, dev):
     """The kernel's table scratch: 2^window rows of L words for each of
-    the ceil(B / elems) * elems rows its blocks hold."""
-    return torch.empty((-(-B // elems) * elems, 1 << window, L),
+    the ceil(B / rows) * rows rows its blocks hold."""
+    return torch.empty((-(-B // rows) * rows, 1 << window, L),
                        dtype=torch.int32, device=dev)
 
 
 def _pow_launch(base, digits, ctx, window, vec):
-    """One launch of the modexp kernel, E rows a block from _pow_elems."""
+    """One launch of the modexp kernel, E and its rows from _pow_elems."""
     if base.dim() != 2:
         raise ValueError("base must be [B, L], got shape %s"
                          % (tuple(base.shape),))
@@ -211,14 +224,14 @@ def _pow_launch(base, digits, ctx, window, vec):
     out = torch.empty_like(base)
     if B == 0:
         return out
-    elems = _pow_elems(L, B, cuda_rns._sms(dev))
+    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev))
     wq, wm, cq, cm = _pow_columns(ctx)
-    table = _pow_table(B, elems, window, L, dev)
+    table = _pow_table(B, rows, window, L, dev)
     rc = _pow_lib(vec, elems)(
         base.data_ptr(), out.data_ptr(), table.data_ptr(),
         ctx.one.data_ptr(), wq.data_ptr(), wm.data_ptr(), cq.data_ptr(),
-        cm.data_ptr(), digits.data_ptr(), B, L, digits.shape[-1], window,
-        _build.stream_handle(dev),
+        cm.data_ptr(), digits.data_ptr(), B, rows, L, digits.shape[-1],
+        window, _build.stream_handle(dev),
     )
     name = "mont_pow" if vec else "mont_pow_shared"
     if rc != 0:

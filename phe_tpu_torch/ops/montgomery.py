@@ -44,10 +44,10 @@ class MontgomeryContext(NamedTuple):
     branch-free conditional subtract).
 
     The int8 REDC matrices that phe_tpu's context carries as fields ride
-    beside it: ``redc_matrices(ctx)`` builds them at first use and keeps
-    them with the context (keyed by its ``m`` tensor), or returns the ones
-    ``interop.montgomery_context`` carried across from phe_tpu. The
-    modexp kernel (csrc/mont_pow.cu) reads them; the Montgomery-product
+    beside it, on the host: ``redc_matrices(ctx)`` returns the ones
+    ``interop.montgomery_context`` carried across from phe_tpu, or builds
+    them. The modexp kernel (csrc/mont_pow.cu) reads them, packed once per
+    context on its card (cuda_modexp._pow_columns); the Montgomery-product
     kernel (csrc/mont_mul.cu) still reduces by schoolbook.
     """
 
@@ -108,9 +108,9 @@ class RedcMatrices(NamedTuple):
     c_m: torch.Tensor
 
 
-# Per context, keyed by its m tensor: its RedcMatrices, built at first use
-# or carried across from phe_tpu.
-_redc = WeakIdKeyDictionary()
+# Per context, keyed by its m tensor: the RedcMatrices carried across from
+# phe_tpu, on the host.
+_carried = WeakIdKeyDictionary()
 
 
 def build_redc_matrices(modulus, num_limbs, device):
@@ -150,19 +150,19 @@ def build_redc_matrices(modulus, num_limbs, device):
 
 
 def redc_matrices(ctx):
-    """The context's RedcMatrices on its device, built once (from M's
-    limbs, one host copy) and kept with it."""
-    mats = _redc.get(ctx.m)
+    """The context's RedcMatrices on the host: the ones carried across
+    from phe_tpu, else built from M's limbs. No built copy is kept: the
+    modexp's wrapper keeps only its packed operands."""
+    mats = _carried.get(ctx.m)
     if mats is None:
         modulus = hl.limbs_to_int(ctx.m.cpu().numpy())
-        mats = _redc[ctx.m] = build_redc_matrices(modulus, ctx.num_limbs,
-                                                  ctx.m.device)
+        mats = build_redc_matrices(modulus, ctx.num_limbs, "cpu")
     return mats
 
 
 def attach_redc_matrices(ctx, mats):
     """Keep mats (carried across from phe_tpu) as the context's own."""
-    _redc[ctx.m] = mats
+    _carried[ctx.m] = mats
 
 
 def redc(t, ctx):

@@ -317,8 +317,8 @@ def test_issue_chain_wrapper_checks(dev):
 
 
 def test_mont_pow_at_the_8192_bit_geometry(dev):
-    """mont_pow at L = 1,176 (n^2 of an 8192-bit key, window 4: 8 rows a
-    block in 227,072 bytes of shared memory, the table in device memory),
+    """mont_pow at L = 1,176 (n^2 of an 8192-bit key, window 4: blocks of
+    E = 8 in 227,072 bytes of shared memory, the table in device memory),
     on 64-bit schedules, against its plain version and Python pow."""
     rng = random.Random(8192)
     M = rng.getrandbits(16384) | (1 << 16383) | 1
@@ -344,23 +344,29 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
 
 
 def _pow_widths(dev, L):
-    """(B, E): batches of 1, 7, 8 and 9 rows at E = 8 and, where a block
-    of 32 rows fits, the smallest batches that take it on this card with
-    their last block holding 1 and 31 rows."""
+    """(B, (E, rows a block)): batches of 1, 7, 8 and 9 rows at one row a
+    block of E = 8; at three rows a block of E = 8 (where their matrix
+    stream allows it), at full blocks of E = 8 and, where a block of 32
+    rows fits, of E = 32, the smallest and largest batches that take it
+    on this card, their last block holding 1 row and all but one."""
     sms = cuda_rns._sms(dev)
-    out = [(B, 8) for B in (1, 7, 8, 9)]
-    if cuda_modexp._pow_smem(L, 32) <= cuda_modexp.MAX_SMEM:
-        out += [((sms - 1) * 32 + 1, 32), (sms * 32 - 1, 32)]
+    out = [(B, (8, 1)) for B in (1, 7, 8, 9)]
+    if (3 * sms - 1) * 12 * L * L <= 3 * cuda_modexp.POW_STREAM:
+        out += [(2 * sms + 1, (8, 3)), (3 * sms - 1, (8, 3))]
+    for E in (8, 32):
+        if cuda_modexp._pow_smem(L, E) <= cuda_modexp.MAX_SMEM:
+            out += [((sms - 1) * E + 1, (E, E)), (sms * E - 1, (E, E))]
     return out
 
 
 @pytest.mark.parametrize("which", ["256", "2048", "8192"])
 @pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
 def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
-    """Both modexp forms at every E the wrapper picks, reached through the
-    batch size, at L = 40, 296 and 1,176 (64-bit exponents, window 4):
-    value-equal to the plain version and Python pow on the first rows and
-    the last two blocks, limbs in [0, 2^14], value < 1.01 M."""
+    """Both modexp forms at every (E, rows a block) the wrapper picks,
+    reached through the batch size, at L = 40, 296 and 1,176 (64-bit
+    exponents, window 4): value-equal to the plain version and Python pow
+    on the first rows and the last two blocks, limbs in [0, 2^14], value
+    < 1.01 M."""
     rng = random.Random(len(which) + vec)
     if which == "256":
         M = _key(256)[0].nsquare
@@ -385,18 +391,19 @@ def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
     name = "mont_pow" if vec else "mont_pow_shared"
     fn = cuda_modexp.mont_pow if vec else cuda_modexp.mont_pow_shared
     plain = mg.mont_pow_plain if vec else mg.mont_pow_shared_plain
-    for B, E in widths:
-        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == E
+    for B, (E, per) in widths:
+        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per)
         before = cuda_modexp.launches[name]
         db = digits[:B].contiguous() if vec else digits
         got = fn(base[:B].contiguous(), db, ctx)
         assert cuda_modexp.launches[name] == before + 1
-        idx = sorted(set(range(min(B, 4))) | set(range(max(0, B - E - 1), B)))
+        idx = sorted(set(range(min(B, 4)))
+                     | set(range(max(0, B - 2 * per), B)))
         ref = plain(base[idx], digits[idx] if vec else digits, ctx)
         torch.cuda.synchronize()
         g = hl.limbs_to_ints(got[idx].cpu().numpy())
         want = [pow(xs[i] * Rinv, es[i], M) * R % M for i in idx]
-        assert [v % M for v in g] == want, (B, E)
+        assert [v % M for v in g] == want, (B, E, per)
         assert [v % M for v in hl.limbs_to_ints(ref.cpu().numpy())] == want
         assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
         assert all(100 * v < 101 * M

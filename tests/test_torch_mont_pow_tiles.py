@@ -72,7 +72,8 @@ def test_redc_matrices_array_equal_to_phe_tpu(which):
     assert jctx.w_mq is not None
     ctx = mg.build_context(M, CPU)
     got = mg.redc_matrices(ctx)
-    assert mg.redc_matrices(ctx) is got  # built once per context
+    # Host copies: the card keeps only the kernel's packed operands.
+    assert all(getattr(got, f).device == CPU for f in mg.RedcMatrices._fields)
     for f in mg.RedcMatrices._fields:
         want = np.asarray(getattr(jctx, f))
         have = getattr(got, f).numpy()
@@ -84,6 +85,7 @@ def test_redc_matrices_array_equal_to_phe_tpu(which):
     d = {f: np.asarray(getattr(jctx, f)) for f in jctx._fields}
     carried = interop.montgomery_context(d, CPU)
     mats = mg.redc_matrices(carried)
+    assert mg.redc_matrices(carried) is mats
     for f in mg.RedcMatrices._fields:
         assert torch.equal(getattr(mats, f).long(), getattr(got, f).long()), f
     if which == "2048":
@@ -311,22 +313,33 @@ def test_pow_elems_and_smem_fit_the_path_shapes():
     # Every L the limb engine runs (multiples of 8 up to the 8192-bit n^2)
     for L in range(16, 1177, 8):
         for B in (1, 7, 9, 512, 16384):
-            e = cm._pow_elems(L, B, H100_SMS)
+            e, rows = cm._pow_elems(L, B, H100_SMS)
             assert e in cm.POW_ELEMS and cm._pow_smem(L, e) <= cm.MAX_SMEM
+            assert 1 <= rows <= e
+            if rows < e:
+                # Spread: the fewest rows a block whose blocks take one
+                # wave and stream no more than POW_STREAM a product.
+                fits = lambda r: (-(-B // r) <= H100_SMS and
+                                  -(-B // r) * 12 * L * L <= cm.POW_STREAM)
+                assert fits(rows) and (rows == 1 or not fits(rows - 1))
     # The paths' shapes, as csrc/mont_pow.cu's note gives them.
     assert cm._pow_smem(296, 32) == 232448 == cm.MAX_SMEM
     assert cm._pow_smem(1176, 8) == 227072
     assert cm._pow_smem(1176, 32) > cm.MAX_SMEM
     assert cm._pow_smem(304, 32) > cm.MAX_SMEM
-    assert cm._pow_elems(296, 16384, H100_SMS) == 32
-    assert cm._pow_elems(296, 1, H100_SMS) == 8
-    assert cm._pow_elems(1176, 512, H100_SMS) == 8
-    assert cm._pow_elems(1176, 16, H100_SMS) == 8
+    assert cm._pow_elems(296, 16384, H100_SMS) == (32, 32)
+    assert cm._pow_elems(296, 1, H100_SMS) == (8, 1)
+    assert cm._pow_elems(1176, 512, H100_SMS) == (8, 8)  # the stream
+    assert cm._pow_elems(296, 512, H100_SMS) == (8, 4)
+    assert cm._pow_elems(1176, 16, H100_SMS) == (8, 1)
+    assert cm._pow_elems(592, 64, H100_SMS) == (8, 1)
     for sms in (H100_SMS, 114):
         assert [cm._pow_elems(40, B, sms)
-                for B in (1, (sms - 1) * 32, (sms - 1) * 32 + 1)] == [8, 8, 32]
-    for B in (1, 8, 9, 4225):
-        e = cm._pow_elems(296, B, H100_SMS)
-        tab = cm._pow_table(B, e, 4, 296, "meta")
-        assert tab.shape[0] % e == 0 and B <= tab.shape[0] < B + e
+                for B in (1, 2 * sms + 1, (sms - 1) * 8 + 1, (sms - 1) * 32,
+                          (sms - 1) * 32 + 1)] == [
+            (8, 1), (8, 3), (8, 8), (8, 8), (32, 32)]
+    for B in (1, 8, 9, 265, 4225):
+        e, rows = cm._pow_elems(296, B, H100_SMS)
+        tab = cm._pow_table(B, rows, 4, 296, "meta")
+        assert tab.shape[0] % rows == 0 and B <= tab.shape[0] < B + rows
         assert tuple(tab.shape[1:]) == (16, 296)
