@@ -7,15 +7,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. Build every CUDA kernel from the checkout's sources (one nvcc per
    source, started together); print the build seconds, the compiler's
    per-kernel register and spill report, and the card's name and power
-   limit. Read the SASS (cuobjdump) of the ladder and the limb-engine
-   modexp: every instantiation of each runs its digit products (the
-   ladder's base extensions, the modexp's two REDC products) on the int8
-   tensor cores (IMMA) and none on __dp4a (IDP4A).
+   limit. Read the SASS (cuobjdump) of the ladder, the limb-engine modexp
+   and the Montgomery product: every instantiation of each runs its digit
+   products (the ladder's base extensions, the two REDC products of the
+   modexp and the product) on the int8 tensor cores (IMMA) and none on
+   __dp4a (IDP4A).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: 16,384 rows at the fixed 2048-bit key. The
-   Montgomery product runs at L = 296 (n^2), 152 (p^2) and 80 (p) and is
-   checked value mod M against the plain version and Python ints, with the
-   limb and value bounds. The RNS ladder runs at k = 304 (exponent n, exit
+   Montgomery product runs at L = 296 (n^2), 152 (p^2) and 80 (p), and at
+   L = 440 (the 3072-bit key's n^2), and is checked value mod M against
+   the plain version and Python ints, with the limb and value bounds; each
+   check prints E and the rows a block held and fails a time under its
+   bound. The RNS ladder runs at k = 304 (exponent n, exit
    R) and k = 152 (exponent p-1, exit R^(1-p)); its first 128 rows are
    checked bit-equal against the plain version, which is too slow for the
    whole batch, and four rows against Python pow; and at k = 624 (the
@@ -42,10 +45,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. The main path at 16,384 ciphertexts: EncryptedBatch.encrypt of seeded
    uniform floats in +-1e6, then decrypt, with every kernel's launch count
    read around it; a pinned-r batch against the host's raw_encrypt; one
-   secure export round trip; encrypt and decrypt ops/s.
+   secure export round trip; encrypt and decrypt ops/s. Then the same
+   round trip and pinned-r check at the 3072-bit default key size
+   (default_key_path: n^2 on the ladder at k = 456, the products at
+   L = 440, both in blocks of E = 8), its key constants and REDC matrices
+   timed apart.
 4. The arithmetic path, each step with the counts zeroed just before it
    and read just after, checked exactly against the host and timed on the
-   host clock: add at equal exponents over 524,288 rows and aligned over
+   host clock: add at equal exponents over 524,288 rows (and once more
+   under profiling.trace) and aligned over
    65,536, add_scalars aligned, mul_scalars with mixed-sign floats over
    65,536 rows, sum and dot at mixed exponents, encrypted
    logistic-regression scoring of 1,024 examples x 21 weights, federated
@@ -69,8 +77,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    profiling.trace, and its modexp kernel timed at the encrypt's own
    launch (r^n over 512 rows at L = 1,176) and on 2 rows.
 
-The second-to-last lines are the kernels' JSON record and the card's
-name and power limit; the last line is the device record. Kernel times are
+The second-to-last lines are the kernels' JSON record, the seconds the
+whole run took, and the card's name and power limit; the last line is
+the device record. Kernel times are
 CUDA-event times; bounds use NVIDIA's published H100 SXM peaks, and for
 the issue-rate chain the instructions its SASS issues (CHAIN_ISSUE).
 """
@@ -128,6 +137,25 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def redc_seconds(contexts):
+    """Seconds to build and pack the REDC matrices of a key's Montgomery
+    contexts (n^2, p^2, q^2, p, q), which both limb kernels read: what the
+    key's first product launches would pay for them otherwise."""
+    from phe_tpu_torch.ops import cuda_modexp
+
+    sync()
+    t0 = time.perf_counter()
+    for ctx in contexts:
+        cuda_modexp._pow_columns(ctx)
+    sync()
+    return time.perf_counter() - t0
+
+
+def key_contexts(dc, pdc):
+    c = pdc.consts
+    return (dc.ctx, c.ctx_p, c.ctx_q, c.ctx_hp, c.ctx_hq)
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -525,6 +553,62 @@ def check_ragged_pows(pub, dev, rng):
                   map(str, Bs))) for (E, r), Bs in sizes.items()), plain_s))
 
 
+def default_key_path(dev, card, totals):
+    """Phase 3, the default key size (keys.DEFAULT_KEYSIZE: the fixed
+    3072-bit key, benchmarks.fixed_key(3072)): key constants, then the
+    REDC matrices of its five Montgomery contexts, each timed; a warm-up
+    round trip of 8 rows; BATCH seeded values encrypted and decrypted,
+    each with its launches; a pinned-r batch against raw_encrypt. Returns
+    {"encrypt": ops/s, "decrypt": ops/s}."""
+    import phe_tpu_torch as pt
+    from phe_tpu_torch import benchmarks
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.keys import DEFAULT_KEYSIZE
+
+    pub, priv = benchmarks.fixed_key(DEFAULT_KEYSIZE)
+    t0 = time.perf_counter()
+    dc, pdc = pub.device_context(dev), priv.device_context(dev)
+    k = dc.rns_state().rsys.k
+    pdc.rns_state()
+    t_keys = time.perf_counter() - t0
+    t_redc = redc_seconds(key_contexts(dc, pdc))
+    values = [float(v) for v in
+              np.random.default_rng(SEED + 3).uniform(-1e6, 1e6, BATCH)]
+    warm = EncryptedBatch.encrypt(pub, values[:8], device=dev)
+    check(warm.decrypt(priv) == values[:8], "%d-bit warm-up round trip "
+          "failed" % DEFAULT_KEYSIZE)
+    batch, t_enc, enc = run_step(
+        lambda: EncryptedBatch.encrypt(pub, values, device=dev), totals)
+    expect_launches("%d-bit encrypt" % DEFAULT_KEYSIZE, enc,
+                    {"mont_mul": 1, "mont_mul_const": 1, "rns_ladder": 1})
+    decrypted, t_dec, dec = run_step(lambda: batch.decrypt(priv), totals)
+    expect_launches("%d-bit decrypt" % DEFAULT_KEYSIZE, dec,
+                    {"mont_mul": 3, "mont_mul_const": 6, "rns_ladder": 2})
+    check(decrypted == values, "%d-bit decrypt(encrypt(x)) != x for %d of "
+          "%d rows" % (DEFAULT_KEYSIZE, sum(a != b for a, b in
+                                             zip(decrypted, values)), BATCH))
+    few = values[:8]
+    rng = random.Random(SEED + 3)
+    rs = [rng.randrange(1, pub.n) for _ in few]
+    pinned = EncryptedBatch.encrypt(pub, few, r_values=rs, device=dev)
+    encs = pt.EncodedNumber.encode_many(pub, few)
+    check(pinned.ciphertext_ints(be_secure=False)
+          == [pub.raw_encrypt(e.encoding, r_value=r)
+              for e, r in zip(encs, rs)],
+          "%d-bit pinned-r ciphertexts differ from the host's raw_encrypt"
+          % DEFAULT_KEYSIZE)
+    print("%d-bit key (n^2: k = %d, ladder E = %d; L = %d, mont_mul %s): "
+          "key constants %.3f s, REDC matrices of its five Montgomery "
+          "contexts %.3f s; B=%d: decrypt(encrypt(x)) == x for every row, "
+          "pinned-r batch of %d equals raw_encrypt; encrypt %.1f ops/s "
+          "(%.3f s), decrypt %.1f ops/s (%.3f s); launches %s, %s [%s]"
+          % (DEFAULT_KEYSIZE, k, block_elems(k, BATCH), dc.L,
+             tile_text(dc.L, BATCH), t_keys, t_redc, BATCH, len(few),
+             BATCH / t_enc, t_enc, BATCH / t_dec, t_dec, json.dumps(enc),
+             json.dumps(dec), card))
+    return {"encrypt": BATCH / t_enc, "decrypt": BATCH / t_dec}
+
+
 def arithmetic_path(pub, priv, dev, card, totals):
     """Phase 4: the homomorphic algebra and the two applications through
     their entry points, each step checked exactly against the host.
@@ -573,6 +657,7 @@ def arithmetic_path(pub, priv, dev, card, totals):
     s, sec, n = run_step(lambda: ct + ct2, totals)
     expect_launches("add", n, {"mont_mul": 1})
     report("add, equal exponents", ADD_ROWS, sec, n)
+    profiled("add over %d rows" % ADD_ROWS, lambda: ct + ct2, card)
     check(decrypt_all(s) == [x + x for x in xs], "add: decrypt(x + x) != x + x")
     idx = sorted(random.Random(SEED).sample(range(ADD_ROWS),
                                               min(256, ADD_ROWS)))
@@ -1209,6 +1294,7 @@ def limb_engine_path(pub, priv, dev, card, totals):
 
 
 def main():
+    started = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1240,6 +1326,8 @@ def main():
     sass = tensor_core_sass("rns_ladder", "rns_ladder_kernel", cuda_rns.ELEMS)
     pow_sass = tensor_core_sass("mont_pow", "mont_pow_kernel",
                                 cuda_modexp.POW_ELEMS)
+    mul_sass = tensor_core_sass("mont_mul", "mont_mul_kernel",
+                                cuda_modexp.POW_ELEMS)
 
     pub, priv = benchmarks.fixed_key(2048)
     pub8, priv8 = benchmarks.fixed_key(8192)
@@ -1248,7 +1336,10 @@ def main():
     pdc = priv.device_context(dev)
     st = dc.rns_state()
     halves = pdc.rns_state()
-    print("key constants: %.1f s" % (time.time() - t0))
+    t_keys = time.time() - t0
+    print("key constants: %.1f s; the REDC matrices of the five Montgomery "
+          "contexts (n^2, p^2, q^2, p, q): %.3f s"
+          % (t_keys, redc_seconds(key_contexts(dc, pdc))))
     rng = random.Random(SEED)
 
     # -- 2. kernels against their plain versions, at the main path's shapes --
@@ -1294,11 +1385,13 @@ def main():
         ms = cuda_ms(lambda: fn(a, b, ctx), 10)
         plain_ms = cuda_ms(plain, 1)
         bms, by = mont_mul_bound(rows, L, shared)
-        print("%s L=%d rows=%d: value-equal, bounds hold; kernel %.4f ms, "
-              "plain %.4f ms, bound %.4f ms (%s)"
-              % (name, L, rows, ms, plain_ms, bms, by))
-        return dict(L=L, rows=rows, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
+        print("%s L=%d rows=%d (%s): value-equal, bounds hold; kernel "
+              "%.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+              % (name, L, rows, tile_text(L, rows), ms, plain_ms, bms, by))
+        check(ms >= bms, "%s L=%d ran under its bound: mont_mul_bound's "
+              "count no longer matches the kernel" % (name, L))
+        return dict(L=L, rows=rows, tile=tile_text(L, rows), max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
                     bound_by=by)
 
     mul_checks = {"mont_mul": [], "mont_mul_const": []}
@@ -1308,9 +1401,13 @@ def main():
         if ctx.num_limbs != 152:  # the two-operand product never runs mod p^2
             mul_checks["mont_mul"].append(check_mont_mul(ctx, M, False))
         mul_checks["mont_mul_const"].append(check_mont_mul(ctx, M, True))
-    # The 8192-bit key's n^2 (L = 1,176: 55 KB of shared memory a block).
+    # The 3072-bit key's n^2 (L = 440) at the encrypt batch, and the
+    # 8192-bit key's n^2 (L = 1,176), both in blocks of E = 8 only.
+    pub3 = benchmarks.fixed_key(3072)[0]
+    ctx3 = mg.build_context(pub3.nsquare, dev)
     dc8 = pub8.device_context(dev)
     for shared, name in ((False, "mont_mul"), (True, "mont_mul_const")):
+        mul_checks[name].append(check_mont_mul(ctx3, pub3.nsquare, shared))
         mul_checks[name].append(
             check_mont_mul(dc8.ctx, pub8.nsquare, shared, rows=WIDE_ROWS))
     chain_checks = check_issue_chain(dev)
@@ -1439,9 +1536,10 @@ def main():
           "secure ciphertexts do not decrypt on the host")
     check(fresh.decrypt(priv) == few, "secure batch does not decrypt")
     print("secure export round trip of %d: ok" % len(few))
+    path_launches = dict(total)
+    default_key_path(dev, card, path_launches)
 
     # -- 4. the arithmetic path --------------------------------------------
-    path_launches = dict(total)
     rates = arithmetic_path(pub, priv, dev, card, path_launches)
     print(json.dumps({"arithmetic_rows_per_s": rates, "card": card}))
 
@@ -1472,6 +1570,7 @@ def main():
     ladder_checks[2]["one_product_split"] = split_624
     ladder_checks[0]["sass_imma_idp4a"] = sass
     vec_checks["mont_pow"]["sass_imma_idp4a"] = pow_sass
+    mul_checks["mont_mul"][0]["sass_imma_idp4a"] = mul_sass
     checks = {"mont_mul": mul_checks["mont_mul"],
               "mont_mul_const": mul_checks["mont_mul_const"],
               "rns_ladder": ladder_checks}
@@ -1495,6 +1594,8 @@ def main():
             "plain_rows": first["plain_rows"], "checks": checks[name],
         })
     print(json.dumps(record))
+    print("chip_smoke: %.1f s, the kernels' build included" %
+          (time.time() - started))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

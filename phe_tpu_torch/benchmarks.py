@@ -58,6 +58,26 @@ _Q2048 = int(
     "0e2419b414204578cb5ace3da3321acaaab2c8b7c05b719b9432bb5a8114c9",
     16,
 )
+# The 3072-bit key (the default size, keys.DEFAULT_KEYSIZE) that phe_tpu's
+# tests pin (tests/test_keysize_3072.py).
+_P3072 = int(
+    "0xa6171f4f81623fd7edebe03d88ef260b37747eadb6cecc412070e5a2a40f0cd8"
+    "b63504238c7d8c639afc26725946e8967eff131bcf0db2c0102ca7b54ddd9660"
+    "bb6f5e25fcefbf5b38bc4bed335570ca5b94986975ca6203f32edf7fd63ecb19"
+    "807ab12093cf39ea26d68abd32a73567c6e531cf1ac880cfd0e2dfd357e62de2"
+    "ab1561119d576b4dbddf4a606e265132eb571ca5daddf86f11f3db0e0b6716d9"
+    "ce154ede4cc800b0adc68bdaffdb64d3cfee638f0874d5d396e3bee74e2a8441",
+    16,
+)
+_Q3072 = int(
+    "0xfe2ca0e92c536303ebacd2703dc56b367212bdb090142a9405cae071492798b1"
+    "c708fb173640794e992065d41d871218599422ae10d26d68842ea5c5eced4f95"
+    "efad3acb7e01bace8d0ed1d1030830b14b3c6a68d3d18f2e88252356cb68e183"
+    "7ca03fb832166259fa703868b06806d2970b5bdfd1f66728225008ad10ac4275"
+    "a95038c9da92208d650ba13243b18906b06fefd2c9306f77921ba144a750847d"
+    "b5ef044add2b01d351e6c6b851c8877c9a34df83338de589edd7e2b562e9f3bd",
+    16,
+)
 _P8192 = int(
     "0x98015edf2cb4d737f30c34e2a1ff29ea7b6f5589a6f4e8cc22ad0bd9f276e187"
     "bbf967b7bbfc7f1e57f2380d9c647588f3a9a21449e3839ccbb2dffa524f9f10"
@@ -100,10 +120,12 @@ _Q8192 = int(
 
 def fixed_key(bits):
     """(public, private) of the repository's fixed `bits`-bit key: 2048
-    (the benchmark key) or 8192 (the limb-engine key)."""
+    (the benchmark key), 3072 (the default size) or 8192 (the limb-engine
+    key)."""
     from phe_tpu_torch.keys import PaillierPrivateKey, PaillierPublicKey
 
-    primes = {2048: (_P2048, _Q2048), 8192: (_P8192, _Q8192)}
+    primes = {2048: (_P2048, _Q2048), 3072: (_P3072, _Q3072),
+              8192: (_P8192, _Q8192)}
     if bits not in primes:
         raise ValueError("fixed keys exist for %s bits, not %d"
                          % (sorted(primes), bits))

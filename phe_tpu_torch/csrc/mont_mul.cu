@@ -1,81 +1,123 @@
-// Batched Montgomery product a * b * R^-1 mod M over 14-bit redundant limbs.
+// Batched Montgomery product a * b * R^-1 mod M over 14-bit redundant
+// limbs, E rows a block, both constant products of the reduction on the
+// int8 tensor cores.
 //
-// Replaces phe_tpu/ops/pallas_modexp.py: mont_mul_cols (:343-391) and
-// mont_mul_const_cols (:399-447), whose kernel body is _mul_kernel
-// (:324-340) -> _mont_mul_into (:155-196). One kernel serves both: b is
-// either one row per element or one row shared by the whole batch.
+// Replaces phe_tpu/ops/pallas_modexp.py: mont_mul_cols (call :378) and
+// mont_mul_const_cols (call :434), whose kernel body is _mul_kernel
+// (:324-340) -> _mont_mul_into (:155-196). One kernel body serves both: a
+// template flag says whether b is one row per row of a or one row shared
+// by the batch.
 //
-// What it computes, and how: phe::mont_product (mont_core.cuh), the
-// Montgomery product over 14-bit redundant limbs with schoolbook column
-// sums in 64 bits and three parallel carry passes. The output limbs need
-// not equal the Pallas kernel's redundant limbs, only the value mod M.
+// What it computes: for a, b < 2.01 M with limbs in [0, 2^14], a result
+// congruent to a b R^-1 mod M with limbs in [0, 2^14] and value < 1.01 M:
+// value-equal to the plain version (montgomery.mont_mul_plain), not
+// limb-equal.
 //
-// What bounds it on an H100: integer multiply-add issue. A row costs about
-// 2.5 L^2 64-bit multiply-adds (219k at L = 296) and reads and writes only
-// 3 L int64 limbs, far below the memory bound. One block per row keeps
-// every row's work in shared memory (48 L bytes: 14 KB at L = 296, 55 KB
-// at L = 1176, the 8192-bit n^2, above the 48 KB default, so the launch
-// raises the block's dynamic shared-memory limit first) with no traffic to
-// device memory between the steps; 128 threads split the columns. Later
-// work: 32-bit split accumulators and several rows per block to share the
-// loads of M and M'.
+// How: one product of the REDC tile (redc_tile.cuh). A block zeroes its
+// shared memory, loads its `rows` (1 ... E, chosen per launch by the
+// wrapper) rows of a into the accumulator and b into each live row's
+// factor slot at the operand offset (in the shared form every live slot
+// takes the same row), runs one product (a b on the CUDA cores in runs of
+// kRun columns; q = T_lo M' mod R and q M as mma.sync int8 products over
+// the rows against phe_tpu's REDC matrices, packed once per context; two
+// carry passes), and writes the rows out as int64. There is no table.
+//
+// What bounds it on an H100: per row 12 L^2 int8 multiply-adds of the
+// reduction on the tensor cores (1.05 M at L = 296), L^2 int32
+// multiply-adds of a b and the carry passes on the CUDA cores, and the
+// packed matrices (12 L^2 bytes and their padding) from L2 once per block:
+// 33 KB a row at L = 296, E = 32, and 2.1 MB at L = 1,176, E = 8. The
+// operand rows in and out (24 L bytes a row, 16 L with b shared) are far
+// below either. One block an SM (twelve warps, up to 232,448 bytes), so a
+// launch of B rows runs ceil(B / rows) block-products in waves of the
+// card's SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mont_core.cuh"
+#include "redc_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace phe;
 
-__global__ void __launch_bounds__(kThreads)
+// kShared = false: b is [B, L], one row per row of a.
+// kShared = true: b is [L], shared by the batch.
+template <bool kShared, int E>
+__global__ void __launch_bounds__(kThreads, 1)
 mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
-                const int64_t* __restrict__ mod,
-                const int64_t* __restrict__ mprime,
-                int64_t* __restrict__ out, int L, int b_stride) {
+                int64_t* __restrict__ out, const int* __restrict__ wq,
+                const int* __restrict__ wm, const int* __restrict__ cq,
+                const int* __restrict__ cm, int B, int rows, int L) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned long long* t = reinterpret_cast<unsigned long long*>(smem_raw);
-  unsigned long long* w = t + 2 * L;
-  unsigned int* sa = reinterpret_cast<unsigned int*>(w + 2 * L);
-  unsigned int* sb = sa + L;
-  unsigned int* sm = sb + L;
-  unsigned int* sp = sm + L;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t e0 = static_cast<size_t>(blockIdx.x) * rows;
+  RedcTile<E> p;
+  p.init(smem_raw, L,
+         B - static_cast<int>(e0) < rows ? B - static_cast<int>(e0) : rows,
+         wq, wm, cq, cm);
+  const int live = p.live, sa = p.sa, sh = p.sh;
 
-  const size_t row = blockIdx.x;
-  const int64_t* arow = a + row * L;
-  const int64_t* brow = b + row * b_stride;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    sa[i] = static_cast<unsigned int>(arow[i]);
-    sb[i] = static_cast<unsigned int>(brow[i]);
-    sm[i] = static_cast<unsigned int>(mod[i]);
-    sp[i] = static_cast<unsigned int>(mprime[i]);
+  p.zero();
+  for (int idx = tid; idx < live * L; idx += nt) {
+    const int e = idx / L, i = idx - e * L;
+    p.acc[e * sa + kPad + i] =
+        static_cast<unsigned int>(a[(e0 + e) * L + i]);
+    p.H[e * sh + kPad + i] = static_cast<unsigned int>(
+        b[kShared ? static_cast<size_t>(i) : (e0 + e) * L + i]);
   }
   __syncthreads();
-  const unsigned long long* H = phe::mont_product(sa, sb, sm, sp, t, w, L);
 
-  int64_t* orow = out + row * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    orow[i] = static_cast<int64_t>(H[i]);
+  p.template product<false>();
+
+  for (int idx = tid; idx < live * L; idx += nt) {
+    const int e = idx / L, i = idx - e * L;
+    out[(e0 + e) * L + i] = static_cast<int64_t>(p.acc[e * sa + kPad + i]);
   }
+}
+
+template <bool kShared, int E>
+int launch(const int64_t* a, const int64_t* b, int64_t* out, const int* wq,
+           const int* wm, const int* cq, const int* cm, int B, int rows,
+           int L, cudaStream_t stream) {
+  const size_t smem = smem_bytes(L, E);
+  if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < kRun ||
+      rows < 1 || rows > E) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      mont_mul_kernel<kShared, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + rows - 1) / rows;
+  mont_mul_kernel<kShared, E><<<blocks, kThreads, smem, stream>>>(
+      a, b, out, wq, wm, cq, cm, B, rows, L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// a: [B, L] int64; b: [B, L] int64 (b_shared = 0) or [L] (b_shared = 1);
-// mod, mprime: [L] int64; out: [B, L] int64. All on the device, contiguous.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
-extern "C" int phe_mont_mul(const int64_t* a, const int64_t* b,
-                            const int64_t* mod, const int64_t* mprime,
-                            int64_t* out, int B, int L, int b_shared,
-                            cudaStream_t stream) {
-  const size_t smem = 2 * 2 * L * sizeof(unsigned long long) +
-                      4 * L * sizeof(unsigned int);
-  cudaError_t err = cudaFuncSetAttribute(
-      mont_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mont_mul_kernel<<<B, kThreads, smem, stream>>>(a, b, mod, mprime, out, L,
-                                                 b_shared ? 0 : L);
-  return static_cast<int>(cudaGetLastError());
+// phe_mont_mul_<E>: a, b, out: [B, L] int64, `rows` (1 ... E) rows a
+// block; wq, wm: w_mq and w_m in fragment order (cuda_rns.pack_blocks,
+// two row blocks), 16-byte aligned; cq, cm: [2L] and [4L] int32
+// compensation vectors. phe_mont_mul_const_<E> takes b: [L], shared by
+// the batch. All on the device, contiguous. Each launches on `stream`,
+// allocates nothing, and returns cudaGetLastError().
+#define PHE_MONT_MUL_ENTRY(NAME, SHARED, E)                                   \
+  extern "C" int NAME(const int64_t* a, const int64_t* b, int64_t* out,      \
+                      const int* wq, const int* wm, const int* cq,           \
+                      const int* cm, int B, int rows, int L,                 \
+                      cudaStream_t stream) {                                 \
+    return launch<SHARED, E>(a, b, out, wq, wm, cq, cm, B, rows, L, stream); \
+  }
+
+PHE_MONT_MUL_ENTRY(phe_mont_mul_8, false, 8)
+PHE_MONT_MUL_ENTRY(phe_mont_mul_32, false, 32)
+PHE_MONT_MUL_ENTRY(phe_mont_mul_const_8, true, 8)
+PHE_MONT_MUL_ENTRY(phe_mont_mul_const_32, true, 32)
+
+// Shared-memory bytes of one block of `elems` rows at L (the tile's, as
+// the modexp's): the GPU tests hold the wrapper's copy against it.
+extern "C" int phe_mont_mul_smem(int L, int elems) {
+  return static_cast<int>(phe::smem_bytes(L, elems));
 }

@@ -6,16 +6,21 @@ The counterpart of phe_tpu/ops/pallas_modexp.py. ``mont_mul`` and
 kernel of ``csrc/mont_mul.cu``; ``mont_pow_shared`` and ``mont_pow``
 (``mont_pow_shared_cols``, ``mont_pow_cols``: the windowed modexp with an
 exponent shared by the batch or one per row) launch the kernel of
-``csrc/mont_pow.cu``. Each launches its kernel for tensors on the card and
-takes its plain PyTorch version (montgomery.mont_mul_plain,
-mont_pow_shared_plain, mont_pow_plain) for tensors on the CPU; any other
-device raises.
+``csrc/mont_pow.cu``. Both run the REDC tile of ``csrc/redc_tile.cuh``: E
+rows a block (``_pow_elems``), both constant products of each reduction
+on the int8 tensor cores against the context's REDC matrices, packed once
+per context and card (``_pow_columns``). Each launches its kernel for
+tensors on the card and takes its plain PyTorch version
+(montgomery.mont_mul_plain, mont_pow_shared_plain, mont_pow_plain) for
+tensors on the CPU; any other device raises.
 
 The contract (phe_tpu's tests state it for its kernels): for inputs below
 2.01 M with limbs in [0, 2^14], the output is congruent to a*b*R^-1 mod M
 (x^e R mod M for the modexps, with x in Montgomery form), has limbs in
 [0, 2^14] and value < 1.01 M. Kernel and plain version agree in value mod
-M, not necessarily limb for limb.
+M, not necessarily limb for limb. The products take L from 8 to
+MAX_MUL_LIMBS (1,200: the widest whose E = 8 block fits), the modexps
+from 16.
 
 ``launches`` counts the kernel launches of each form; nothing else changes
 it.
@@ -30,9 +35,11 @@ from phe_tpu_torch.ops import _build
 from phe_tpu_torch.ops import cuda_rns
 from phe_tpu_torch.ops import montgomery as mg
 
-# The dynamic shared memory a block can have on Hopper (227 KB). mont_mul
-# takes 48 L bytes (L <= 4842), mont_pow _pow_smem(L, E).
+# The dynamic shared memory a block can have on Hopper (227 KB); a block
+# of either kernel takes _pow_smem(L, E).
 MAX_SMEM = 232448
+# The widest L (a multiple of 8) whose block of E = 8 rows fits MAX_SMEM.
+MAX_MUL_LIMBS = 1200
 launches = {"mont_mul": 0, "mont_mul_const": 0, "mont_pow_shared": 0,
             "mont_pow": 0}
 # Rows a modexp block holds: the kernel's instantiations, widest first.
@@ -43,22 +50,29 @@ POW_ELEMS = (32, 8)
 # spread over 128, while 64 blocks at L = 592 (0.27 GB) ran faster than
 # 8 (PERF.md, section 6).
 POW_STREAM = 1 << 29
-# Per context (keyed by its m tensor): the kernel's packed REDC operands
-# on its card, built at the context's first launch.
+# Per context (keyed by its m tensor): the kernels' packed REDC operands
+# on its card, built at the context's first launch of either kernel.
 _pow_packed = WeakIdKeyDictionary()
 
 mont_mul_plain = mg.mont_mul_plain
 
 
-def _lib():
+def _lib(shared, elems):
+    """The Montgomery-product kernel's C entry point for one form and one
+    E."""
     lib = _build.load("mont_mul")
-    fn = lib.phe_mont_mul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.phe_mont_mul_smem.argtypes is None:
+        for e in POW_ELEMS:
+            for form in ("phe_mont_mul_%d", "phe_mont_mul_const_%d"):
+                fn = getattr(lib, form % e)
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+                    ctypes.c_void_p
+                ]
+                fn.restype = ctypes.c_int
+        lib.phe_mont_mul_smem.argtypes = [ctypes.c_int] * 2
+        lib.phe_mont_mul_smem.restype = ctypes.c_int
+    return getattr(lib, ("phe_mont_mul_const_%d" if shared
+                         else "phe_mont_mul_%d") % elems)
 
 
 def _pow_lib(vec, elems):
@@ -78,14 +92,14 @@ def _pow_lib(vec, elems):
                          else "phe_mont_pow_shared_%d") % elems)
 
 
-# csrc/mont_pow.cu's geometry: kRun columns a job, kPad zero limbs either
-# side of an operand row, and the MMA phases' ring of A fragments (kWarps
-# x kStages slots of 1 KB).
+# csrc/redc_tile.cuh's geometry: kRun columns a job, kPad zero limbs
+# either side of an operand row, and the MMA phases' ring of A fragments
+# (kWarps x kStages slots of 1 KB).
 POW_RUN, POW_PAD, POW_RING = 8, 14, 12 * 4 * 1024
 
 
 def _pow_smem(L, elems):
-    """Shared-memory bytes of one modexp block (csrc/mont_pow.cu's
+    """Shared-memory bytes of one block of either kernel (csrc/redc_tile.cuh's
     smem_bytes): per row the operand row with its pads (L + 2 kPad + 1
     words) and the two carry arrays (2L / kRun words each), a region the
     MMA phases reuse as their ring and never smaller than it; then per row
@@ -99,8 +113,8 @@ def _pow_smem(L, elems):
 
 
 def _pow_elems(L, B, sms):
-    """(E, rows) of a modexp launch of B rows at L on a card of `sms`
-    multiprocessors: the instantiation E and the rows each block holds.
+    """(E, rows) of a product or modexp launch of B rows at L on a card of
+    `sms` multiprocessors: the instantiation E and the rows each block holds.
     E is the widest instantiation whose shared memory fits and whose
     ceil(B / E) blocks still cover the SMs, a block then holding E rows;
     when none does, the narrowest that fits, its blocks holding
@@ -108,7 +122,8 @@ def _pow_elems(L, B, sms):
     the card, but no fewer than keep the blocks' matrix stream within
     POW_STREAM. A fuller block divides the REDC matrices' L2 reads by
     its rows. The window does not enter: the table lives in device
-    memory."""
+    memory. The stream is per product, so a launch of one product and a
+    modexp of many choose alike."""
     fits = [e for e in POW_ELEMS if _pow_smem(L, e) <= MAX_SMEM]
     if not fits:
         raise ValueError("no modexp block fits %d bytes of shared memory at "
@@ -150,25 +165,29 @@ def _check(t, name, shape, device):
 
 
 def _launch(a, b, ctx, shared):
+    """One launch of the product kernel, E and its rows from _pow_elems."""
     if a.dim() != 2:
         raise ValueError("a must be [B, L], got shape %s" % (tuple(a.shape),))
     B, L = a.shape
-    if L != ctx.num_limbs or L % 8 or 48 * L > MAX_SMEM:
+    if L != ctx.num_limbs or L % 8 or not 8 <= L <= MAX_MUL_LIMBS:
         raise ValueError(
-            "limb count %d: need the context's L = %d, a multiple of 8, "
-            "with 48 L <= %d bytes" % (L, ctx.num_limbs, MAX_SMEM)
+            "limb count %d: need the context's L = %d, a multiple of 8 "
+            "from 8 to %d (the widest whose block of 8 rows fits %d bytes "
+            "of shared memory)" % (L, ctx.num_limbs, MAX_MUL_LIMBS, MAX_SMEM)
         )
     dev = a.device
     _check(a, "a", (B, L), dev)
     _check(b, "b", (L,) if shared else (B, L), dev)
     _check(ctx.m, "ctx.m", (L,), dev)
-    _check(ctx.m_prime, "ctx.m_prime", (L,), dev)
     out = torch.empty_like(a)
     if B == 0:
         return out
-    rc = _lib()(
-        a.data_ptr(), b.data_ptr(), ctx.m.data_ptr(), ctx.m_prime.data_ptr(),
-        out.data_ptr(), B, L, int(shared), _build.stream_handle(dev),
+    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev))
+    wq, wm, cq, cm = _pow_columns(ctx)
+    rc = _lib(shared, elems)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), wq.data_ptr(),
+        wm.data_ptr(), cq.data_ptr(), cm.data_ptr(), B, rows, L,
+        _build.stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError("mont_mul kernel launch failed: CUDA error %d" % rc)

@@ -124,3 +124,16 @@ def test_fixed_keys():
     assert pub.n.bit_length() == 8192 and priv.p.bit_length() == 4096
     with pytest.raises(ValueError, match="fixed keys"):
         benchmarks.fixed_key(1024)
+
+
+def test_fixed_3072_bit_key_is_the_one_phe_tpu_pins():
+    """The default key size's fixed key is phe_tpu's pinned 3072-bit pair
+    (tests/test_keysize_3072.py), held by the GPU tests as literals."""
+    import test_keysize_3072 as phe_3072
+    import test_torch_cuda as gpu
+
+    pub, priv = benchmarks.fixed_key(3072)
+    assert pub.n.bit_length() == 3072
+    assert {priv.p, priv.q} == {phe_3072.P3072, phe_3072.Q3072}
+    assert (gpu.P3072, gpu.Q3072) == (phe_3072.P3072, phe_3072.Q3072)
+    assert pub.n == phe_3072.P3072 * phe_3072.Q3072

@@ -9,11 +9,14 @@ PyTorch and the CUDA toolkit (the tests' conftest imports jax, hence
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Montgomery products and the limb-engine modexps are held value-equal mod
-M and inside the kernel contract's bounds, up to the 8192-bit key's n^2
-(L = 1,176 limbs); both ladders and the issue-rate chain are held
-bit-equal. The ladders run every width of block the wrapper picks
-(cuda_rns._elems), reached through the batch size, on ragged batches.
-Tolerance zero throughout: all exact integer arithmetic.
+M and inside the kernel contract's bounds, from L = 8 limbs (p of a
+128-bit key) up to the 8192-bit key's n^2 (L = 1,176 limbs); both ladders
+and the issue-rate chain are held bit-equal. Every kernel runs every
+width of block its wrapper picks (cuda_rns._elems,
+cuda_modexp._pow_elems), reached through the batch size, on ragged
+batches. The 3072-bit default key size runs its round trip, pinned-r
+encryption and an add on the card. Tolerance zero throughout: all exact
+integer arithmetic.
 """
 
 import functools
@@ -32,6 +35,27 @@ from phe_tpu_torch.ops import rns
 from phe_tpu_torch.utils import limbs as hl
 
 pytestmark = pytest.mark.cuda
+
+# The fixed 3072-bit key (phe_tpu's tests/test_keysize_3072.py P3072,
+# Q3072): the default key size, n^2 on the RNS ladder at k = 456.
+P3072 = int(
+    "0xa6171f4f81623fd7edebe03d88ef260b37747eadb6cecc412070e5a2a40f0cd8"
+    "b63504238c7d8c639afc26725946e8967eff131bcf0db2c0102ca7b54ddd9660"
+    "bb6f5e25fcefbf5b38bc4bed335570ca5b94986975ca6203f32edf7fd63ecb19"
+    "807ab12093cf39ea26d68abd32a73567c6e531cf1ac880cfd0e2dfd357e62de2"
+    "ab1561119d576b4dbddf4a606e265132eb571ca5daddf86f11f3db0e0b6716d9"
+    "ce154ede4cc800b0adc68bdaffdb64d3cfee638f0874d5d396e3bee74e2a8441",
+    16,
+)
+Q3072 = int(
+    "0xfe2ca0e92c536303ebacd2703dc56b367212bdb090142a9405cae071492798b1"
+    "c708fb173640794e992065d41d871218599422ae10d26d68842ea5c5eced4f95"
+    "efad3acb7e01bace8d0ed1d1030830b14b3c6a68d3d18f2e88252356cb68e183"
+    "7ca03fb832166259fa703868b06806d2970b5bdfd1f66728225008ad10ac4275"
+    "a95038c9da92208d650ba13243b18906b06fefd2c9306f77921ba144a750847d"
+    "b5ef044add2b01d351e6c6b851c8877c9a34df83338de589edd7e2b562e9f3bd",
+    16,
+)
 
 
 @pytest.fixture
@@ -87,6 +111,120 @@ def test_mont_mul_wrapper_checks(dev):
     with pytest.raises(ValueError, match="is on"):
         cuda_modexp.mont_mul(a, a.cpu(), ctx)
     assert cuda_modexp.mont_mul(a[:0], a[:0], ctx).shape == (0, L)
+
+
+@functools.lru_cache(maxsize=None)
+def _mul_modulus(which):
+    """An odd modulus at each width the products run: p of a 128-bit key
+    (L = 8), n^2 of a 256-bit key (40), and the fixed keys' n^2 at 2048
+    (296), 3072 (440) and 8192 bits (1,176)."""
+    if which == "p128":
+        return random.Random(128).getrandbits(64) | 1 << 63 | 1
+    if which == "256":
+        return _key(256)[0].nsquare
+    if which == "3072":
+        return (P3072 * Q3072) ** 2
+    return benchmarks.fixed_key(int(which))[0].nsquare
+
+
+@pytest.mark.parametrize("which", ["p128", "256", "2048", "3072", "8192"])
+@pytest.mark.parametrize("shared", [False, True], ids=["two", "shared"])
+def test_mont_mul_every_width_and_ragged_batch_value_equal(dev, which,
+                                                           shared):
+    """Both product forms at every (E, rows a block) the wrapper picks at
+    L = 8, 40, 296, 440 and 1,176, reached through the batch size (one row
+    a block of E = 8 on 1, 7, 8 and 9 rows; three a block where the
+    matrix stream allows; full blocks of E = 8 and, where 32 rows fit, of
+    E = 32, their last block holding 1 row and all but one): every row
+    value-equal to Python ints, the first rows and the last two blocks to
+    the plain version, limbs in [0, 2^14], values < 1.01 M."""
+    rng = random.Random(len(which) + shared)
+    M = _mul_modulus(which)
+    ctx = mg.build_context(M, dev)
+    L = ctx.num_limbs
+    assert L == {"p128": 8, "256": 40, "2048": 296, "3072": 440,
+                 "8192": 1176}[which]
+    widths = _pow_widths(dev, L)
+    rows = max(B for B, _ in widths)
+    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
+    a, b = _limbs(xs, L, dev), _limbs(ys, L, dev)
+    R_inv = pow(1 << (14 * L), -1, M)
+    name = "mont_mul_const" if shared else "mont_mul"
+    fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
+    for B, (E, per) in widths:
+        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per)
+        bb = b[0] if shared else b[:B].contiguous()
+        before = cuda_modexp.launches[name]
+        got = fn(a[:B].contiguous(), bb, ctx)
+        assert cuda_modexp.launches[name] == before + 1
+        idx = sorted(set(range(min(B, 4)))
+                     | set(range(max(0, B - 2 * per), B)))
+        ref = cuda_modexp.mont_mul_plain(a[idx], bb if shared else bb[idx],
+                                         ctx)
+        torch.cuda.synchronize()
+        g = hl.limbs_to_ints(got.cpu().numpy())
+        want = [x * (ys[0] if shared else y) * R_inv % M
+                for x, y in zip(xs[:B], ys * B if shared else ys[:B])]
+        assert [v % M for v in g] == want, (B, E, per)
+        assert [v % M for v in hl.limbs_to_ints(ref.cpu().numpy())] == [
+            want[i] for i in idx]
+        assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+        assert all(100 * v < 101 * M for v in g)
+
+
+def test_mont_mul_smem_formula_matches_the_kernel(dev):
+    cuda_modexp._lib(False, 8)
+    lib = cuda_modexp._build.load("mont_mul")
+    for L in (8, 16, 24, 40, 80, 152, 296, 440, 592, 1176,
+              cuda_modexp.MAX_MUL_LIMBS):
+        for E in cuda_modexp.POW_ELEMS:
+            assert lib.phe_mont_mul_smem(L, E) == cuda_modexp._pow_smem(L, E)
+
+
+def test_3072_bit_default_key_on_the_card(dev):
+    """The default key size (keys.DEFAULT_KEYSIZE): a round trip through
+    the kernels, pinned-r ciphertexts equal to the host's raw_encrypt,
+    and one add. n^2 runs on the ladder at k = 456 and the products at
+    L = 440, both only in blocks of E = 8."""
+    from phe_tpu_torch.keys import DEFAULT_KEYSIZE
+
+    pub = pt.PaillierPublicKey(P3072 * Q3072)
+    priv = pt.PaillierPrivateKey(pub, P3072, Q3072)
+    assert pub.n.bit_length() == DEFAULT_KEYSIZE == 3072
+    dc = pub.device_context(dev)
+    assert dc.L == 440 and dc.rns_state().rsys.k == 456
+    sms = cuda_rns._sms(dev)
+    assert cuda_rns._elems(456, 16384, sms) == 8
+    assert cuda_modexp._pow_elems(440, 16384, sms) == (8, 8)
+    values = [0, 1, -1, 3.5, -2.5e-3, 1 << 60, -(1 << 100), 1e6, 17, -0.125]
+    for counts in (cuda_modexp.launches, cuda_rns.launches):
+        for key in counts:
+            counts[key] = 0
+    batch = pt.EncryptedBatch.encrypt(pub, values, device=dev)
+    assert batch.mont.is_cuda
+    assert batch.decrypt(priv) == values
+    assert cuda_rns.launches["rns_ladder"] == 3
+    assert cuda_modexp.launches["mont_mul"] == 4
+    assert cuda_modexp.launches["mont_mul_const"] == 7
+    rng = random.Random(3072)
+    rs = [rng.randrange(1, pub.n) for _ in values]
+    pinned = pt.EncryptedBatch.encrypt(pub, values, r_values=rs, device=dev)
+    encs = pt.EncodedNumber.encode_many(pub, values)
+    assert pinned.ciphertext_ints(be_secure=False) == [
+        pub.raw_encrypt(e.encoding, r_value=r) for e, r in zip(encs, rs)]
+    vals = [1.5, -2.0, 300.0, 0.0625, 1e6]
+    other = [2.5e-3, 7.0, -1.0, 4.0, 17]
+    a = pt.EncryptedBatch.encrypt(pub, vals, device=dev)
+    b = pt.EncryptedBatch.encrypt(pub, other, device=dev)
+    for counts in (cuda_modexp.launches, cuda_rns.launches):
+        for key in counts:
+            counts[key] = 0
+    total = a + b
+    assert {k: v for c in (cuda_modexp.launches, cuda_rns.launches)
+            for k, v in c.items() if v} == {"rns_ladder_vec": 2,
+                                             "mont_mul": 1}
+    assert total.decrypt(priv) == [x + y for x, y in zip(vals, other)]
 
 
 @pytest.mark.parametrize("window", [4, 5])

@@ -169,24 +169,29 @@ def test_8192_bit_key_runs_n_squared_on_the_limb_engine():
 
 def test_mont_mul_wrapper_takes_the_8192_bit_geometry(monkeypatch):
     """The Montgomery product's wrapper admits L = 1,176 (n^2 of an
-    8192-bit key: 56,448 bytes of shared memory a block, above the 48 KB
-    default, which the launch raises) and refuses a context whose 48 L
-    bytes pass the 227 KB a Hopper block can have."""
-    from phe_tpu_torch.ops import _build, cuda_modexp
+    8192-bit key: 227,072 bytes of shared memory a block of 8 rows, above
+    the 48 KB default, which the launch raises) and refuses a context
+    whose block of 8 rows passes the 227 KB a Hopper block can have."""
+    from phe_tpu_torch.ops import _build, cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
 
     calls = []
-    monkeypatch.setattr(cuda_modexp, "_lib",
-                        lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(cuda_modexp, "_lib", lambda shared, elems: (
+        lambda *args: calls.append((shared, elems) + args) or 0))
     monkeypatch.setattr(_build, "stream_handle", lambda device: None)
+    monkeypatch.setattr(cuda_rns, "_sms", lambda device: 132)
     monkeypatch.setitem(cuda_modexp.launches, "mont_mul", 0)
     ctx = mg.build_context((1 << 16383) + 1, "cpu")
     a = torch.zeros((3, 1176), dtype=torch.int64)
     assert cuda_modexp._launch(a, a, ctx, shared=False).shape == (3, 1176)
-    assert len(calls) == 1 and calls[0][5:7] == (3, 1176)
+    # E = 8 (the only block that fits), one row a block over 3 blocks.
+    assert len(calls) == 1 and calls[0][:2] == (False, 8)
+    assert calls[0][9:12] == (3, 1, 1176)
     assert cuda_modexp.launches["mont_mul"] == 1
-    wide = mg.build_context((1 << 68000) + 1, "cpu")
-    assert 48 * wide.num_limbs > cuda_modexp.MAX_SMEM
+    assert cuda_modexp._pow_smem(1176, 8) == 227072
+    wide = mg.build_context((1 << 16800) + 1, "cpu")
+    assert wide.num_limbs == 1208 > cuda_modexp.MAX_MUL_LIMBS
+    assert cuda_modexp._pow_smem(wide.num_limbs, 8) > cuda_modexp.MAX_SMEM
     b = torch.zeros((1, wide.num_limbs), dtype=torch.int64)
-    with pytest.raises(ValueError, match="48 L <= 232448"):
+    with pytest.raises(ValueError, match="from 8 to 1200"):
         cuda_modexp._launch(b, b, wide, shared=False)

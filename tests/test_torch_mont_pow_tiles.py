@@ -1,19 +1,23 @@
-"""The host side of the limb-engine modexp kernel's design, on the CPU.
+"""The host side of the REDC tile's design, on the CPU.
 
-csrc/mont_pow.cu runs E rows a block: a * b on the CUDA cores in runs of
-adjacent columns held in registers, both constant products of each
-Montgomery reduction as mma.sync m16n8k32 int8 products over the rows
-(phe_tpu's REDC matrices, packed by cuda_rns.pack_blocks), and two-pass
-run carries. The kernel cannot run here, so these tests hold what
-surrounds it: the port's REDC matrices are array-equal to phe_tpu's
-_build_redc_matrices (and, past phe_tpu's L = 507 ceiling, exact against
-Python ints); the packed matrices unpack to them; a numpy walk of one
-product as the kernel runs it (its run jobs, carry passes, digit rows, MMA
-fragments read lane by lane as the PTX ISA lays them out, and 64-bit
-epilogues) equals the plain Montgomery product in value mod M and keeps
-its bounds, on rows with limbs of exactly 2^14; and the rows a block
-holds fit the card's shared memory. Tolerance zero: exact integer
-arithmetic.
+csrc/redc_tile.cuh runs Montgomery products for E row slots a block, for
+the limb-engine modexp (csrc/mont_pow.cu) and the Montgomery product
+(csrc/mont_mul.cu): a * b on the CUDA cores in runs of adjacent columns
+held in registers, both constant products of each reduction as mma.sync
+m16n8k32 int8 products over the row slots (phe_tpu's REDC matrices,
+packed by cuda_rns.pack_blocks), and two-pass run carries. The kernels
+cannot run here, so these tests hold what surrounds them: the port's REDC
+matrices are array-equal to phe_tpu's _build_redc_matrices (and, past
+phe_tpu's L = 507 ceiling, exact against Python ints); the packed matrices
+unpack to them; a numpy walk of one product as the tile runs it (its run
+jobs, carry passes, digit rows, MMA fragments read lane by lane as the PTX
+ISA lays them out, and 64-bit epilogues) equals the plain Montgomery
+product in value mod M and keeps its bounds, on rows with limbs of
+exactly 2^14; the same walk over the product kernel's blocks (live rows
+of E slots, a ragged last block, b broadcast in the shared form, L = 8)
+equals phe_tpu's mont_mul and mont_mul_const kernels in interpret mode;
+and the rows a block holds fit the card's shared memory. Tolerance zero:
+exact integer arithmetic.
 """
 
 import functools
@@ -22,8 +26,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import phe_tpu
 from phe_tpu.ops import montgomery as jmg
+from phe_tpu.ops import pallas_modexp as jpmx
 
 from phe_tpu_torch import benchmarks
 from phe_tpu_torch import interop
@@ -40,10 +47,14 @@ MASK = (1 << 14) - 1
 @functools.lru_cache(maxsize=None)
 def _modulus(which):
     """n^2 of a 256-bit test key, of the fixed 2048-bit key (L = 296), or
-    of the fixed 8192-bit key (L = 1,176)."""
+    of the fixed 8192-bit key (L = 1,176); or p of a 128-bit key ("p128",
+    L = 8: the half-width contexts of the smallest keys)."""
     if which == "256":
         pub, _ = phe_tpu.generate_paillier_keypair(n_length=256)
         return pub.nsquare
+    if which == "p128":
+        _, priv = phe_tpu.generate_paillier_keypair(n_length=128)
+        return priv.p
     return benchmarks.fixed_key(int(which))[0].nsquare
 
 
@@ -65,7 +76,7 @@ def _operands(rng, M, L, rows):
     return out
 
 
-@pytest.mark.parametrize("which", ["256", "2048"])
+@pytest.mark.parametrize("which", ["p128", "256", "2048"])
 def test_redc_matrices_array_equal_to_phe_tpu(which):
     M = _modulus(which)
     jctx = jmg.build_context(M)
@@ -88,8 +99,7 @@ def test_redc_matrices_array_equal_to_phe_tpu(which):
     assert mg.redc_matrices(carried) is mats
     for f in mg.RedcMatrices._fields:
         assert torch.equal(getattr(mats, f).long(), getattr(got, f).long()), f
-    if which == "2048":
-        assert ctx.num_limbs == 296
+    assert ctx.num_limbs == {"p128": 8, "256": 40, "2048": 296}[which]
 
 
 def test_redc_matrices_past_phe_tpus_ceiling_against_python_ints():
@@ -124,11 +134,14 @@ def test_redc_matrices_past_phe_tpus_ceiling_against_python_ints():
 
 
 def _walk_mma(packed, dig):
-    """[nb, Rp, E] block sums as the kernel's warps compute them: each
-    lane's A registers (rows g, g + 8 at columns 4t .. 4t + 3, then 16 + 4t
-    ..) placed from the packed words, times the digit rows read as B
-    fragments (element g of an n-tile, digits 4t .. and 16 + 4t .. of the
-    K-step); C register i is row g + 8 (i / 2), element 2t + i % 2."""
+    """[nb, Rp, N] block sums as the kernel's warps compute them over N
+    row slots (N a multiple of 8): each lane's A registers (rows g, g + 8
+    at columns 4t .. 4t + 3, then 16 + 4t ..) placed from the packed
+    words; each n-tile n's B fragment read from the digit rows as the
+    kernel reads it (lane (g, t) holds digits 32 ks + 4t .. 4t + 3 and
+    32 ks + 16 + 4t .. of slot 8n + g, at dig + (8n + g) ds + 32 ks + 4t
+    and 16 bytes on); C register i = 2h + x of lane (g, t) is row
+    g + 8h of the slab, slot 8n + 2t + x, as the epilogues store it."""
     S, KS, nb = packed.shape[:3]
     words = packed.numpy().view(np.int8).reshape(S, KS, nb, 32, 4, 4)
     s = np.arange(S)[:, None, None, None, None, None]
@@ -140,8 +153,28 @@ def _walk_mma(packed, dig):
     g, t = lane >> 2, lane & 3
     A = np.zeros((nb, 16 * S, 32 * KS), np.int64)
     A[b, 16 * s + g + 8 * (j % 2), 32 * ks + 4 * t + 16 * (j // 2) + q] = words
-    C = A @ dig[:, : 32 * KS].T.astype(np.int64)
+    N = len(dig)
+    assert N % 8 == 0
+    # B: lane (gb, tb), register r // 4, byte r % 4 of every K-step.
+    kb = np.arange(KS)[:, None, None]
+    lb = np.arange(32)[None, :, None]
+    r = np.arange(8)[None, None, :]
+    gb, tb = lb >> 2, lb & 3
+    k = 32 * kb + 4 * tb + 16 * (r // 4) + r % 4
+    # C: lane (gc, tc), register i = 2h + x.
+    lc = np.arange(32)[:, None]
+    h, x = np.arange(4)[None, :] // 2, np.arange(4)[None, :] % 2
+    gc, tc = lc >> 2, lc & 3
+    C = np.zeros((nb, 16 * S, N), np.int64)
+    for n in range(N // 8):
+        Bt = np.zeros((32 * KS, 8), np.int64)
+        Bt[k, gb] = dig[8 * n + gb, k]
+        D = A @ Bt  # [nb, 16 S, 8]: the n-tile's MMA sums, slab by slab
+        for sl in range(S):
+            C[:, 16 * sl + gc + 8 * h, 8 * n + 2 * tc + x] = D[
+                :, 16 * sl + gc + 8 * h, 2 * tc + x]
     assert np.abs(C).max() < 1 << 31  # the MMA's int32 accumulators
+    np.testing.assert_array_equal(C, A @ dig[:, : 32 * KS].T.astype(np.int64))
     return C
 
 
@@ -182,17 +215,22 @@ def _split(lo, hi, c1, runs):
         c1[:, k] = carry
 
 
-def _digits(x, L, ds):
-    dig = np.zeros((len(x), ds), np.int64)
-    dig[:, :L] = x & 0x7F
-    dig[:, L: 2 * L] = (x >> 7) - 64
+def _digits(x, L, ds, slots):
+    """The digit rows of `slots` row slots: x's rows first, the rest zero
+    (the block is zeroed and only live rows' digits are written)."""
+    dig = np.zeros((slots, ds), np.int64)
+    dig[: len(x), :L] = x & 0x7F
+    dig[: len(x), L: 2 * L] = (x >> 7) - 64
     assert x.max() <= 1 << 14 and x.min() >= 0
     return dig
 
 
-def _emulate_product(a, b, L, cols, square):
-    """One Montgomery product of E rows as csrc/mont_pow.cu runs it."""
+def _emulate_product(a, b, L, cols, square, slots=None):
+    """One Montgomery product of the tile's live rows a (and b) as
+    csrc/redc_tile.cuh runs it, the MMAs over `slots` row slots (default:
+    one a live row)."""
     E = len(a)
+    slots = slots or E
     r, P = cm.POW_RUN, cm.POW_PAD
     wq, wm = cols[0], cols[1]
     cq, cmv = (c.numpy().astype(np.int64) for c in cols[2:])
@@ -243,7 +281,7 @@ def _emulate_product(a, b, L, cols, square):
         c1[:, k] = carry
     _ripple(T, c1, c2, nr)
     T = np.stack([_limb(T, c2, c) for c in range(2 * L)], axis=1)
-    C = _walk_mma(wq, _digits(T[:, :L], L, ds))
+    C = _walk_mma(wq, _digits(T[:, :L], L, ds, slots))[:, :, :E]
     slot = (C[0, :L].T + cq[None, :L]) + ((C[1, :L].T + cq[None, L:]) << 7)
     H = np.zeros((E, 2 * L), np.int64)
     H[:, :L], H[:, L:] = slot & MASK, slot >> 14
@@ -251,7 +289,7 @@ def _emulate_product(a, b, L, cols, square):
     _split(qlo, H[:, L:], c1, L // r)
     _ripple(qlo, c1, c2, L // r)
     q = np.stack([_limb(qlo, c2, c) for c in range(L)], axis=1)
-    C = _walk_mma(wm, _digits(q, L, ds))
+    C = _walk_mma(wm, _digits(q, L, ds, slots))[:, :, :E]
     u = T + (C[0].T + cmv[None, : 2 * L]) + ((C[1].T + cmv[None, 2 * L:]) << 7)
     T, H = u & MASK, u >> 14
     _split(T, H, c1, nr)
@@ -288,6 +326,78 @@ def test_kernel_product_walk_equals_plain_redc(which):
         assert all(100 * v < 101 * M for v in vals)
         if not square:
             assert [v % M for v in hl.limbs_to_ints(plain.numpy())] == want
+
+
+def _emulate_mont_mul(a, b, L, cols, E, rows, shared):
+    """csrc/mont_mul.cu over a batch: block i holds rows i rows ... of a in
+    its first live = min(rows, B - i rows) of E row slots, b's matching
+    rows (or, shared, b itself in every live slot) as the factor, and runs
+    one product."""
+    B = len(a)
+    out = np.zeros_like(a)
+    for e0 in range(0, B, rows):
+        live = min(rows, B - e0)
+        factor = np.broadcast_to(b, (live, L)) if shared else b[e0: e0 + live]
+        out[e0: e0 + live] = _emulate_product(a[e0: e0 + live], factor, L,
+                                              cols, False, slots=E)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _phe_tpu_products(which, shared, rows):
+    """(M, a, b, phe_tpu's mont_mul or mont_mul_const on them, interpret
+    mode): [rows, L] operands below 2.01 M with limbs of exactly 2^14."""
+    M = _modulus(which)
+    jctx = jmg.build_context(M)
+    L = jctx.num_limbs
+    rng = np.random.default_rng(L + shared)
+    a = _operands(rng, M, L, rows)
+    b = _operands(rng, M, L, rows)[::-1].copy()
+    if shared:
+        b = b[1]  # limbs of exactly 2^14 below M's top limb
+        got = jpmx.mont_mul_const(jnp.asarray(a.astype(np.uint32)),
+                                  jnp.asarray(b.astype(np.uint32)), jctx, tb=8)
+    else:
+        got = jpmx.mont_mul(jnp.asarray(a.astype(np.uint32)),
+                            jnp.asarray(b.astype(np.uint32)), jctx, tb=8)
+    return M, a, b, np.asarray(got).astype(np.int64)
+
+
+# (E, rows a block, B): one and three live rows of E = 8 with a ragged
+# last block of 1, full E = 8 blocks and a last block of 1, five live
+# rows of E = 32 with a last block of 1, a full E = 32 block and one
+# more row; and L = 8 (p of a 128-bit key) at E = 8.
+_MUL_BLOCKS = [("256", 8, 1, 3), ("256", 8, 3, 7), ("256", 8, 8, 9),
+               ("256", 32, 5, 11), ("256", 32, 32, 33), ("p128", 8, 3, 7),
+               ("p128", 32, 32, 33)]
+
+
+@pytest.mark.parametrize("which,E,rows,B", _MUL_BLOCKS)
+@pytest.mark.parametrize("shared", [False, True], ids=["two", "shared"])
+def test_mont_mul_block_walk_equals_phe_tpu(which, E, rows, B, shared):
+    """The product kernel's blocks, walked in numpy, against phe_tpu's
+    Pallas mont_mul / mont_mul_const (interpret mode), the plain product
+    and Python ints, in value mod M with the contract's bounds."""
+    M, a, b, want_limbs = _phe_tpu_products(which, shared, 33)
+    a, want_limbs = a[:B], want_limbs[:B]
+    if not shared:
+        b = b[:B]
+    ctx = mg.build_context(M, CPU)
+    L = ctx.num_limbs
+    assert L == {"256": 40, "p128": 8}[which]
+    got = _emulate_mont_mul(a, b, L, cm._pow_columns(ctx), E, rows, shared)
+    Rinv = pow(1 << (14 * L), -1, M)
+    ys = hl.limbs_to_ints(np.broadcast_to(b, a.shape))
+    want = [x * y * Rinv % M for x, y in zip(hl.limbs_to_ints(a), ys)]
+    vals = hl.limbs_to_ints(got)
+    assert [v % M for v in vals] == want
+    assert [v % M for v in hl.limbs_to_ints(want_limbs)] == want
+    plain = (cm.mont_mul_const(torch.as_tensor(a), torch.as_tensor(b), ctx)
+             if shared else
+             cm.mont_mul(torch.as_tensor(a), torch.as_tensor(b), ctx))
+    assert [v % M for v in hl.limbs_to_ints(plain.numpy())] == want
+    assert got.min() >= 0 and got.max() <= 1 << 14
+    assert all(100 * v < 101 * M for v in vals)
 
 
 @pytest.mark.parametrize("which", ["256", "2048"])
@@ -343,3 +453,56 @@ def test_pow_elems_and_smem_fit_the_path_shapes():
         tab = cm._pow_table(B, rows, 4, 296, "meta")
         assert tab.shape[0] % rows == 0 and B <= tab.shape[0] < B + rows
         assert tuple(tab.shape[1:]) == (16, 296)
+
+
+# Every L the port's contexts reach: the half-width contexts of 128-bit
+# keys (8) up to the 8192-bit key's n^2 (1,176), among them the 2048-bit
+# key's p, p^2, n^2 (80, 152, 296), the 3072-bit key's n^2 (440) and the
+# 8192-bit key's p^2 (592).
+_PATH_LIMBS = (8, 16, 24, 40, 80, 152, 296, 440, 592, 1176)
+
+
+@pytest.mark.parametrize("L", _PATH_LIMBS)
+def test_tile_chooser_and_smem_fit_every_path_width(L):
+    for B in (1, 7, 9, 33, 512, 1024, 16384):
+        e, rows = cm._pow_elems(L, B, H100_SMS)
+        assert e in cm.POW_ELEMS and cm._pow_smem(L, e) <= cm.MAX_SMEM
+        assert 1 <= rows <= e
+        # E = 32 wherever it fits and its blocks cover the card.
+        wide = cm._pow_smem(L, 32) <= cm.MAX_SMEM
+        assert (e == 32) == (wide and -(-B // 32) >= H100_SMS)
+    assert L <= cm.MAX_MUL_LIMBS
+    assert cm._pow_elems(L, 16384, H100_SMS) == ((32, 32) if L <= 296
+                                                 else (8, 8))
+
+
+def test_mont_mul_limits_and_launch_tiles(monkeypatch):
+    """MAX_MUL_LIMBS is the widest L whose E = 8 block fits; the wrapper
+    launches the entry point of the chosen E with the chosen rows, counts
+    one launch a call, and refuses a width it cannot hold."""
+    assert cm._pow_smem(cm.MAX_MUL_LIMBS, 8) <= cm.MAX_SMEM
+    assert cm._pow_smem(cm.MAX_MUL_LIMBS + 8, 8) > cm.MAX_SMEM
+    calls = []
+    monkeypatch.setattr(cm, "_lib", lambda shared, elems: (
+        lambda *args: calls.append((shared, elems) + args[7:10]) or 0))
+    monkeypatch.setattr(cm._build, "stream_handle", lambda device: None)
+    monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
+    monkeypatch.setitem(cm.launches, "mont_mul", 0)
+    monkeypatch.setitem(cm.launches, "mont_mul_const", 0)
+    ctx = mg.build_context(_modulus("256"), CPU)
+    for B in (1, 9, 2 * H100_SMS + 1, 32 * H100_SMS + 1):
+        a = torch.zeros((B, 40), dtype=torch.int64)
+        cm._launch(a, a, ctx, shared=False)
+        cm._launch(a, a[0], ctx, shared=True)
+    assert calls == [
+        (False, 8, 1, 1, 40), (True, 8, 1, 1, 40),
+        (False, 8, 9, 1, 40), (True, 8, 9, 1, 40),
+        (False, 8, 2 * H100_SMS + 1, 3, 40), (True, 8, 2 * H100_SMS + 1, 3, 40),
+        (False, 32, 32 * H100_SMS + 1, 32, 40),
+        (True, 32, 32 * H100_SMS + 1, 32, 40)]
+    assert cm.launches["mont_mul"] == cm.launches["mont_mul_const"] == 4
+    a = torch.zeros((2, 40), dtype=torch.int64)
+    with pytest.raises(ValueError, match="limb count"):
+        cm._launch(a[:, :32].contiguous(), a[:, :32].contiguous(), ctx, False)
+    with pytest.raises(ValueError, match="shape"):
+        cm._launch(a, a, ctx, shared=True)
