@@ -1046,8 +1046,8 @@ def benchmark_phase(pub, priv, dev, card, totals):
 
 def profiled(what, fn, card):
     """fn() under profiling.trace: its host-clock time, the card's busy
-    share and the top ten kernels by device time are printed; fn's
-    result is returned."""
+    share, the top ten kernels by device time and every kernel of the
+    port's own are printed; fn's result is returned."""
     from phe_tpu_torch import profiling
 
     with profiling.trace() as prof:
@@ -1073,6 +1073,13 @@ def profiled(what, fn, card):
     for a in rows[:10]:
         print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3, a.count,
                                     a.key[:100]))
+    # The port's own kernels (csrc/, each in an anonymous namespace), in or
+    # past the top ten.
+    print("profiler, the port's kernels (ms, calls, name):")
+    for a in rows:
+        if "(anonymous namespace)::" in a.key:
+            print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3,
+                                        a.count, a.key[:100]))
     return out
 
 
