@@ -558,8 +558,7 @@ def default_key_path(dev, card, totals):
     3072-bit key, benchmarks.fixed_key(3072)): key constants, then the
     REDC matrices of its five Montgomery contexts, each timed; a warm-up
     round trip of 8 rows; BATCH seeded values encrypted and decrypted,
-    each with its launches; a pinned-r batch against raw_encrypt. Returns
-    {"encrypt": ops/s, "decrypt": ops/s}."""
+    each with its launches; a pinned-r batch against raw_encrypt."""
     import phe_tpu_torch as pt
     from phe_tpu_torch import benchmarks
     from phe_tpu_torch.batch import EncryptedBatch
@@ -606,7 +605,6 @@ def default_key_path(dev, card, totals):
              tile_text(dc.L, BATCH), t_keys, t_redc, BATCH, len(few),
              BATCH / t_enc, t_enc, BATCH / t_dec, t_dec, json.dumps(enc),
              json.dumps(dec), card))
-    return {"encrypt": BATCH / t_enc, "decrypt": BATCH / t_dec}
 
 
 def arithmetic_path(pub, priv, dev, card, totals):
