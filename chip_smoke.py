@@ -1071,11 +1071,11 @@ def profiled(what, fn, card):
     for a in rows[:10]:
         print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3, a.count,
                                     a.key[:100]))
-    # The port's own kernels (csrc/, each in an anonymous namespace), in or
-    # past the top ten.
+    # The port's own kernels (csrc/, each a global in an anonymous
+    # namespace; PyTorch's are under at::), in or past the top ten.
     print("profiler, the port's kernels (ms, calls, name):")
     for a in rows:
-        if "(anonymous namespace)::" in a.key:
+        if a.key.startswith("void (anonymous namespace)::"):
             print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3,
                                         a.count, a.key[:100]))
     return out
