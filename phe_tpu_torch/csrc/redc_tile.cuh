@@ -52,7 +52,7 @@
 // with the block and only [0, 2L) is ever written), q's one slab holds L
 // rows and 8 zero rows of padding, and the operand pads (kPad = 14 > L)
 // cover every a * b window; the tile walk in
-// tests/test_torch_mont_mul_tiles.py runs that width.
+// tests/test_torch_mont_pow_tiles.py runs that width.
 //
 // Layout: shared memory holds per row slot the accumulator (with its
 // pads) and the two carry arrays, a region the MMA phases borrow as their
