@@ -76,6 +76,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    channel supply (see limb_engine_path), with one of its decrypts under
    profiling.trace, and its modexp kernel timed at the encrypt's own
    launch (r^n over 512 rows at L = 1,176) and on 2 rows.
+8. Wire formats, CLI, CRT powers, mesh (wire_path), at the fixed 2048-bit
+   key over 16,384 rows, each step timed with its launches: encrypt,
+   dump_encrypted_batch (secure), json.dumps, json.loads,
+   load_encrypted_batch onto the card and decrypt, equal to x on every
+   row, and the dump's pin, secure export and decimal strings apart; a
+   pinned-r batch of 8 whose dump equals the host's raw_encrypt, JSON for
+   JSON; pheutil's six vector commands in this process on JWK files of
+   the key (each result the exactly rounded one) and encryptvec /
+   decryptvec in a process of their own; the key constants a command
+   pays; PrivateDeviceContext.crt_powers over 16,384 rows (Python's pow on
+   64 sampled rows), and its mont_pow_shared at L = 152 against its plain
+   version on 64 rows and its bound; the native host engine built
+   (HAVE_NATIVE) and its powmod equal to pow at 2048 bits; a world of one
+   on NCCL whose encrypted_sum_sharded equals batch.sum() and whose FL
+   aggregation with the mesh equals it without.
 
 The second-to-last lines are the kernels' JSON record, the seconds the
 whole run took, and the card's name and power limit; the last line is
@@ -112,6 +127,11 @@ BENCH_RUNS, BENCH_WARMUP = 3, 1  # bench.main's streamed passes (of 5, 2)
 LIMB_ROWS = 512  # the 8192-bit batch (BENCH_8192.json's)
 LIMB_DIRECT_ROWS = 64  # rows through _decrypt_residue_limb
 LIMB_POW_ROWS = 16  # rows of mont_pow against its plain version at L = 1,176
+WIRE_FEW = 8  # the pinned-r batch whose dump is held against raw_encrypt
+CRT_SAMPLE = 64  # crt_powers rows held against Python's pow
+CRT_PLAIN_ROWS = 64  # rows of mont_pow_shared's plain version at L = 152
+CLI_FEW = 4  # values of the CLI run in a process of its own
+CLI_TIMEOUT_S = 300
 
 # NVIDIA H100 SXM published peaks (data sheet; Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
@@ -1298,6 +1318,308 @@ def limb_engine_path(pub, priv, dev, card, totals):
     return rates, wide
 
 
+def wire_path(pub, priv, dev, card, totals):
+    """Phase 8, the wire formats, the CLI, the CRT powers and the mesh at
+    the fixed 2048-bit key over BATCH rows, each step with its launches.
+    Returns (step seconds, the mont_pow_shared check at L = 152)."""
+    import os
+    import socket
+    import subprocess
+    import tempfile
+    from fractions import Fraction
+
+    import torch.distributed as dist
+    from click.testing import CliRunner
+
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch import native, parallel, serial
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.cli import cli
+    from phe_tpu_torch.models import (
+        FederatedClient,
+        aggregate_encrypted_gradients,
+    )
+    from phe_tpu_torch.ops import cuda_modexp
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+    from phe_tpu_torch.utils import ntheory
+
+    g = np.random.default_rng(SEED + 8)
+    rng = random.Random(SEED + 8)
+    xs = [float(v) for v in g.uniform(-1e6, 1e6, BATCH)]
+    seconds, counts = {}, {}
+
+    def step(name, fn, want):
+        out, sec, n = run_step(fn, totals)
+        if want is not None:
+            expect_launches(name, n, want)
+        seconds[name], counts[name] = sec, n
+        print("  %s: %.4f s; launches %s" % (name, sec, json.dumps(n)))
+        return out
+
+    encrypt_n = {"mont_mul": 1, "mont_mul_const": 1, "rns_ladder": 1}
+    secure_n = {"rns_ladder": 1, "mont_mul": 1, "mont_mul_const": 1}
+    decrypt_n = {"mont_mul": 3, "mont_mul_const": 6, "rns_ladder": 2}
+
+    # -- the vector wire format, BATCH rows, each step apart --------------
+    print("wire format, %d rows [%s]:" % (BATCH, card))
+    batch = step("encrypt", lambda: EncryptedBatch.encrypt(pub, xs,
+                                                           device=dev),
+                 encrypt_n)
+    data = step("dump_encrypted_batch, secure", lambda:
+                serial.dump_encrypted_batch(batch),
+                dict(secure_n, rns_ladder_vec=1))
+    text = step("json.dumps", lambda: json.dumps(data), {})
+    parsed = step("json.loads", lambda: json.loads(text), {})
+    back = step("load_encrypted_batch", lambda: serial.load_encrypted_batch(
+        parsed, pub), {"mont_mul_const": 1})
+    check(back.mont.is_cuda, "load_encrypted_batch did not load onto the card")
+    out = step("decrypt", lambda: back.decrypt(priv), decrypt_n)
+    check(out == xs, "wire round trip: decrypt(load(dump(encrypt(x)))) != x "
+          "for %d of %d rows" % (sum(a != b for a, b in zip(out, xs)), BATCH))
+    # The dump's three parts apart, on the same batch.
+    target = [min(int(e), serial.SERIALISED_EXPONENT) for e in batch.exponents]
+    pinned = step("  its pin to -32", lambda: batch.decrease_exponent_to(
+        target), {"rns_ladder_vec": 1})
+    ints = step("  its secure export", lambda: pinned.ciphertext_ints(),
+                secure_n)
+    step("  its decimal strings", lambda: [serial.int_to_decimal(c)
+                                           for c in ints], {})
+    host = ("json.dumps", "json.loads", "  its decimal strings")
+    wire = ("dump_encrypted_batch, secure", "json.dumps", "json.loads",
+            "load_encrypted_batch")
+    print("wire format: %d bytes of JSON for %d ciphertexts; dump %.1f rows/s, "
+          "load %.1f rows/s, dump + json + load %.1f rows/s; decimal and json "
+          "(host only) %.4f of %.4f s [%s]"
+          % (len(text), BATCH, BATCH / seconds[wire[0]],
+             BATCH / seconds[wire[3]],
+             BATCH / sum(seconds[k] for k in wire),
+             sum(seconds[k] for k in host), sum(seconds[k] for k in wire),
+             card))
+    del data, text, parsed, back, pinned, ints
+
+    # Pinned r is not obfuscated: the dump is raw_encrypt's, JSON for JSON.
+    few = xs[:WIRE_FEW]
+    rs = [rng.randrange(1, pub.n) for _ in few]
+    got = serial.dump_encrypted_batch(
+        EncryptedBatch.encrypt(pub, few, r_values=rs, device=dev),
+        be_secure=False)
+    want = []
+    for x, r in zip(few, rs):
+        enc = pub.encrypt(x, r_value=r)
+        if enc.exponent > serial.SERIALISED_EXPONENT:
+            enc = enc.decrease_exponent_to(serial.SERIALISED_EXPONENT)
+        want.append({"v": str(enc.ciphertext(be_secure=False)),
+                     "e": enc.exponent})
+    check(json.dumps(got) == json.dumps({"values": want}),
+          "pinned-r dump differs from the host's raw_encrypt")
+    print("pinned-r batch of %d: its dump equals raw_encrypt's, JSON for JSON"
+          % len(few))
+
+    # -- the CLI in this process, on JWK files of the key ------------------
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ps = [float(v) for v in g.uniform(-1e3, 1e3, BATCH)]
+    inverse_mm, inverse_mc = inverse_launches(BATCH,
+                                              EncryptedBatch._INVERSE_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = lambda name: os.path.join(tmp, name)
+        for name, obj in (
+                ("priv.json", serial.private_key_to_jwk(priv, kid="smoke")),
+                ("pub.json", serial.public_key_to_jwk(pub, kid="smoke")),
+                ("x.json", xs), ("p.json", ps), ("few.json", xs[:CLI_FEW])):
+            with open(f(name), "w") as fh:
+                json.dump(obj, fh)
+        # What each command pays for the key's device constants: it loads
+        # the key from its file, and a new key builds them anew.
+        with open(f("priv.json")) as fh:
+            key = serial.private_key_from_jwk(json.load(fh))
+        t0 = time.perf_counter()
+        kdc, kpdc = key.public_key.device_context(dev), key.device_context(dev)
+        kdc.rns_state()
+        kpdc.rns_state()
+        t_consts = time.perf_counter() - t0
+        t_redc = redc_seconds(key_contexts(kdc, kpdc))
+        print("pheutil: key constants %.3f s, REDC matrices of the five "
+              "contexts %.3f s, paid by every vector command [%s]"
+              % (t_consts, t_redc, card))
+        runner = CliRunner()
+
+        def pheutil(*args, want=None):
+            res = step("pheutil " + args[0], lambda: runner.invoke(
+                cli, [str(a) for a in args]), want)
+            check(res.exit_code == 0, "pheutil %s failed: %r\n%s"
+                  % (args[0], res.exception, res.output[-2000:]))
+            return res.stdout
+
+        def decryptvec(name):
+            out = pheutil("decryptvec", f("priv.json"), f(name),
+                          want={"mont_mul": 3, "mont_mul_const": 7,
+                                "rns_ladder": 2})
+            return json.loads(out.strip().splitlines()[-1])
+
+        print("pheutil in this process, %d values [%s]:" % (BATCH, card))
+        pheutil("encryptvec", "--output", f("e.json"), f("pub.json"),
+                f("x.json"), want={"mont_mul": 2, "mont_mul_const": 2,
+                                   "rns_ladder": 2, "rns_ladder_vec": 1})
+        check(decryptvec("e.json") == xs, "pheutil encryptvec / decryptvec: "
+              "not x")
+        pheutil("addvec", "--output", f("a.json"), f("pub.json"),
+                f("e.json"), f("p.json"),
+                want={"mont_mul": 2, "mont_mul_const": 3, "rns_ladder": 1})
+        check(decryptvec("a.json") == [x + p for x, p in zip(xs, ps)],
+              "pheutil addvec: not the exactly rounded x + p")
+        pheutil("multiplyvec", "--output", f("m.json"), f("pub.json"),
+                f("e.json"), f("p.json"),
+                want={"mont_mul": inverse_mm + 1,
+                      "mont_mul_const": inverse_mc + 2, "rns_ladder": 1,
+                      "rns_ladder_vec": 1})
+        check(decryptvec("m.json") == [x * p for x, p in zip(xs, ps)],
+              "pheutil multiplyvec: not the exactly rounded x p")
+        pheutil("addencvec", "--output", f("d.json"), f("pub.json"),
+                f("a.json"), f("e.json"),
+                want={"mont_mul": 2, "mont_mul_const": 3, "rns_ladder": 1})
+        check(decryptvec("d.json") == [
+            float(2 * Fraction(x) + Fraction(p)) for x, p in zip(xs, ps)],
+            "pheutil addencvec: not the exactly rounded 2x + p")
+        pheutil("sumvec", "--output", f("s.json"), f("pub.json"),
+                f("e.json"), want={"mont_mul": tree_depth(BATCH),
+                                   "mont_mul_const": 2})
+        with open(f("s.json")) as fh:
+            total = priv.decrypt(serial.load_encrypted_number(json.load(fh),
+                                                              pub))
+        check(total == float(sum(map(Fraction, xs))),
+              "pheutil sumvec: not the exactly rounded sum")
+        # A process of its own, as a user runs it.
+        for name, args in (
+                ("encryptvec", ["--output", f("fe.json"), f("pub.json"),
+                                f("few.json")]),
+                ("decryptvec", [f("priv.json"), f("fe.json")])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "phe_tpu_torch.cli", name] + args,
+                capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                cwd=repo)
+            seconds["python -m phe_tpu_torch.cli " + name] = (
+                time.perf_counter() - t0)
+            check(proc.returncode == 0, "python -m phe_tpu_torch.cli %s "
+                  "failed:\n%s" % (name, proc.stderr[-2000:]))
+        check(json.loads(proc.stdout.strip().splitlines()[-1])
+              == xs[:CLI_FEW], "pheutil in its own process: not x")
+        print("python -m phe_tpu_torch.cli encryptvec, decryptvec of %d "
+              "values, each a process of its own: %.2f s, %.2f s [%s]"
+              % (CLI_FEW, seconds["python -m phe_tpu_torch.cli encryptvec"],
+                 seconds["python -m phe_tpu_torch.cli decryptvec"], card))
+
+    # -- the CRT powers: mont_pow_shared at L = 152 over BATCH rows --------
+    pdc = priv.device_context(dev)
+    c = pdc.consts
+    (xp, xq), sec, n = run_step(lambda: pdc.crt_powers(batch.mont), totals)
+    expect_launches("crt_powers", n, {"mont_mul_const": 5,
+                                      "mont_pow_shared": 2})
+    seconds["crt_powers"] = sec
+    cts = batch.ciphertext_ints(be_secure=False)
+    idx = sorted(rng.sample(range(BATCH), CRT_SAMPLE))
+    for got, d in ((xp, priv.p), (xq, priv.q)):
+        vals = hl.limbs_to_ints(got[idx].cpu().numpy())
+        check(vals == [pow(cts[i], d - 1, d * d) for i in idx],
+              "crt_powers differs from Python's pow")
+    ctx2, digits = c.ctx_p, c.dp_digits
+    L2 = ctx2.num_limbs
+    xm = tbatch._mont_entry(mg.mod_reduce(
+        mg.from_mont(batch.mont, pub.device_context(dev).ctx), ctx2,
+        c.red_p), ctx2)
+    run = lambda b: cuda_modexp.mont_pow_shared(b, digits, ctx2,
+                                                window=tbatch.DECRYPT_WINDOW)
+    got = run(xm)
+    head = xm[:CRT_PLAIN_ROWS].contiguous()
+    sync()
+    t0 = time.perf_counter()
+    ref = mg.mont_pow_shared_plain(head, digits, ctx2,
+                                   window=tbatch.DECRYPT_WINDOW)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = int((mg.export_canonical(got[:CRT_PLAIN_ROWS], ctx2)
+               - mg.export_canonical(ref, ctx2)).abs().max())
+    check(err == 0, "mont_pow_shared L=%d: kernel value mod M differs from "
+          "the plain version" % L2)
+    ms = cuda_ms(lambda: run(xm), 3)
+    windows = len(digits)
+    bms, by = mont_pow_bound(BATCH, L2, tbatch.DECRYPT_WINDOW, windows,
+                             8 * windows)
+    check(ms >= bms, "mont_pow_shared L=%d ran under its bound" % L2)
+    print("crt_powers: %d rows in %.4f s, %.1f rows/s, Python pow on %d "
+          "sampled rows of both halves; launches %s; mont_pow_shared L=%d "
+          "windows=%d (%s): kernel %.3f ms, value-equal to its plain version "
+          "on %d rows (%.3f ms), bound %.3f ms (%s) [%s]"
+          % (BATCH, sec, BATCH / sec, CRT_SAMPLE, json.dumps(n), L2, windows,
+             tile_text(L2, BATCH), ms, CRT_PLAIN_ROWS, plain_ms, bms, by,
+             card))
+    crt_check = dict(L=L2, rows=BATCH, tile=tile_text(L2, BATCH),
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     plain_rows=CRT_PLAIN_ROWS, bound_ms=bms, bound_by=by,
+                     products=sum(pow_products(tbatch.DECRYPT_WINDOW,
+                                               windows)))
+    del xp, xq, xm, got, ref, head
+
+    # -- the native host engine --------------------------------------------
+    check(native.HAVE_NATIVE and ntheory.HAVE_NATIVE,
+          "the native host engine did not build: HAVE_NATIVE is False")
+    a, b = rng.randrange(pub.n), rng.getrandbits(2048)
+    t0 = time.perf_counter()
+    got = native.powmod(a, b, pub.n)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = pow(a, b, pub.n)
+    t_pow = time.perf_counter() - t0
+    check(got == want and ntheory.powmod(a, b, pub.n) == want,
+          "native powmod differs from Python's pow at 2048 bits")
+    print("native host engine: built (HAVE_NATIVE), powmod at 2048 bits "
+          "equals pow: %.6f s against pow's %.6f s" % (t_native, t_pow))
+
+    # -- the mesh: a world of one on NCCL ---------------------------------
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    parallel.initialize_distributed("tcp://localhost:%d" % port, 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", "the process group is not NCCL")
+        mesh = parallel.batch_mesh()
+        print("mesh: a world of one on NCCL (dp = %d, mp = %d) [%s]:"
+              % (mesh.dp, mesh.mp, card))
+        sum_n = {"rns_ladder_vec": 1, "mont_mul": tree_depth(BATCH)}
+        total = step("encrypted_sum_sharded", lambda:
+                     parallel.encrypted_sum_sharded(batch, mesh), sum_n)
+        ref = step("batch.sum", lambda: batch.sum(), sum_n)
+        check(total.ciphertext_ints(False) == ref.ciphertext_ints(False)
+              and list(total.exponents) == list(ref.exponents),
+              "encrypted_sum_sharded differs from batch.sum()")
+        clients = [FederatedClient("client%d" % i, g.normal(size=(4, BATCH)),
+                                   g.normal(size=4) * 10.0 ** (3 * i - 6),
+                                   pub, device=dev)
+                   for i in range(FL_CLIENTS)]
+        encrypted = [cl.encrypted_gradient() for cl in clients]
+        meshed = step("FL aggregation over the mesh", lambda:
+                      aggregate_encrypted_gradients(encrypted, mesh=mesh),
+                      None)
+        plain_fl = step("FL aggregation", lambda:
+                        aggregate_encrypted_gradients(encrypted), None)
+        for name in ("FL aggregation over the mesh", "FL aggregation"):
+            n = counts[name]
+            check(n.get("mont_mul") == tree_depth(FL_CLIENTS)
+                  and 1 <= n.get("rns_ladder_vec", 0) <= FL_CLIENTS
+                  and set(n) == {"mont_mul", "rns_ladder_vec"},
+                  "%s launched %s" % (name, json.dumps(n)))
+        check(meshed.ciphertext_ints(False) == plain_fl.ciphertext_ints(False)
+              and list(meshed.exponents) == list(plain_fl.exponents),
+              "FL aggregation with the mesh differs from it without")
+    finally:
+        dist.destroy_process_group()
+    print("mesh: encrypted_sum_sharded equals batch.sum() and the FL "
+          "aggregation with the mesh equals it without, ciphertext for "
+          "ciphertext")
+    return seconds, crt_check
+
+
 def main():
     started = time.time()
     if not torch.cuda.is_available():
@@ -1557,6 +1879,11 @@ def main():
     # -- 7. the limb engine at 8192 bits -----------------------------------
     _, wide_checks = limb_engine_path(pub8, priv8, dev, card, path_launches)
 
+    # -- 8. wire formats, CLI, CRT powers, mesh ----------------------------
+    wire_seconds, crt_check = wire_path(pub, priv, dev, card, path_launches)
+    print(json.dumps({"wire_cli_crt_mesh_seconds": wire_seconds,
+                      "card": card}))
+
     src = {"mont_mul": "phe_tpu_torch/csrc/mont_mul.cu",
            "mont_mul_const": "phe_tpu_torch/csrc/mont_mul.cu",
            "rns_ladder": "phe_tpu_torch/csrc/rns_ladder.cu",
@@ -1583,6 +1910,7 @@ def main():
     checks["vpu_microbench"] = chain_checks
     for name, c in wide_checks.items():
         checks[name].append(c)
+    checks["mont_pow_shared"].append(crt_check)
     for name in src:
         check(path_launches.get(name, 0) > 0,
               "%s was not launched on the main path" % name)

@@ -9,7 +9,11 @@ hand-written CUDA kernels (phe_tpu_torch/csrc). The port covers encryption
 (exact, short or no obfuscation), secure export, decryption, and the
 homomorphic algebra (add, subtract, scalar multiply, exponent alignment,
 sum, dot, matvec), with the two applications of
-:mod:`phe_tpu_torch.models` on top.
+:mod:`phe_tpu_torch.models` on top; the JWK and ciphertext wire formats
+(:mod:`~phe_tpu_torch.serial`, :mod:`~phe_tpu_torch.util`) and the
+pheutil CLI (``python -m phe_tpu_torch.cli``); the aggregation reduce
+over ranks on torch.distributed (:mod:`~phe_tpu_torch.parallel`); and the
+native C++ host engine behind ``utils.ntheory`` (``HAVE_NATIVE``).
 
 Two modexp engines serve every key size, chosen per modulus as phe_tpu
 chooses them on its chip, with no knob: the RNS ladder where the

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from phe_tpu_torch import config
 from phe_tpu_torch.encoding import EncodedNumber
 from phe_tpu_torch.ops import limb_math as lm
 from phe_tpu_torch.ops import montgomery as mg
@@ -520,26 +521,35 @@ def _mont_entry(x, ctx2):
                   x[..., L2:] * ctx2.r2)
 
 
+def _crt_powers_limb(ct_mont, pub_ctx, pk):
+    """(c^(p-1) mod p^2, c^(q-1) mod q^2) as canonical limbs [Bp, L2], on
+    the limb engine (phe_tpu's _crt_powers_dev): the ciphertext out of the
+    Montgomery domain mod n^2, folded into each prime square (mod_reduce),
+    into its Montgomery domain (_mont_entry), the shared-exponent modexp at
+    DECRYPT_WINDOW, and out again to canonical limbs.
+    """
+    plain = mg.from_mont(ct_mont, pub_ctx)
+    outs = []
+    for ctx2, red, ddig in ((pk.ctx_p, pk.red_p, pk.dp_digits),
+                            (pk.ctx_q, pk.red_q, pk.dq_digits)):
+        xm = _mont_entry(mg.mod_reduce(plain, ctx2, red), ctx2)
+        powed = mg.mont_pow_shared(xm, ddig, ctx2, window=DECRYPT_WINDOW)
+        outs.append(mg.export_canonical(mg.from_mont(powed, ctx2), ctx2))
+    return tuple(outs)
+
+
 def _decrypt_residue_limb(ct_mont, pub_ctx, pk):
     """_decrypt_residue_rns on the limb engine, for prime squares past the
     RNS channel supply (keys above ~8,760 bits; phe_tpu's
-    _decrypt_residue_limb): per half, c^(p-1) mod p^2 by the
-    shared-exponent limb modexp, out of the Montgomery domain to canonical
-    limbs, then the same L-function and CRT recombination.
+    _decrypt_residue_limb): the two CRT powers of _crt_powers_limb, then
+    the same L-function and CRT recombination.
     """
-    plain = mg.from_mont(ct_mont, pub_ctx)
-    halves = []
-    for ctx2, red, ddig, ctxh, cm_pinv, h_limbs in (
-        (pk.ctx_p, pk.red_p, pk.dp_digits, pk.ctx_hp, pk.cm_pinv_p,
-         pk.hp_limbs),
-        (pk.ctx_q, pk.red_q, pk.dq_digits, pk.ctx_hq, pk.cm_pinv_q,
-         pk.hq_limbs),
-    ):
-        xm = _mont_entry(mg.mod_reduce(plain, ctx2, red), ctx2)
-        powed = mg.mont_pow_shared(xm, ddig, ctx2, window=DECRYPT_WINDOW)
-        xc = mg.export_canonical(mg.from_mont(powed, ctx2), ctx2)
-        halves.append(_lfunction_half(xc, ctxh, cm_pinv, h_limbs))
-    return _crt_recombine(halves[0], halves[1], pk)
+    xp, xq = _crt_powers_limb(ct_mont, pub_ctx, pk)
+    return _crt_recombine(
+        _lfunction_half(xp, pk.ctx_hp, pk.cm_pinv_p, pk.hp_limbs),
+        _lfunction_half(xq, pk.ctx_hq, pk.cm_pinv_q, pk.hq_limbs),
+        pk,
+    )
 
 
 def _decrypt_residue_rns(ct_mont, pub_ctx, pk, half_p, half_q):
@@ -629,6 +639,12 @@ class PublicDeviceContext:
         """The engine handle of the per-element programs (_pow_elems):
         the RnsPubState, or None for the limb engine."""
         return self.rns_state()
+
+    @classmethod
+    def build(cls, public_key, device=None):
+        """The context of public_key on ``device`` (None: the card), as
+        the keys construct it (phe_tpu's PublicDeviceContext.build)."""
+        return cls(public_key, config.resolve_device(device))
 
     # -- packing ---------------------------------------------------------
 
@@ -830,6 +846,22 @@ class PrivateDeviceContext:
                 self._rns = tuple(self._build_half(pp, nsq, ctx2)
                                   for pp, nsq, ctx2 in squares)
         return self._rns
+
+    @classmethod
+    def build(cls, private_key, device=None):
+        """The context of private_key on ``device`` (None: the card), as
+        the keys construct it (phe_tpu's PrivateDeviceContext.build)."""
+        return cls(private_key, config.resolve_device(device))
+
+    def crt_powers(self, ct_mont):
+        """Device half of raw_decrypt: (c^(p-1) mod p^2, c^(q-1) mod q^2).
+
+        Canonical limb tensors [Bp, L2] from a Montgomery ciphertext batch,
+        on the limb engine's shared-exponent modexp whatever the key size
+        (phe_tpu's two-phase fallback; the default decrypt runs wholly on
+        the card through raw_decrypt_batch).
+        """
+        return _crt_powers_limb(ct_mont, self.pub_ctx.ctx, self.consts)
 
     def _build_half(self, pp, nsq, ctx2):
         rsys = rns.build_rns(nsq, self.device)

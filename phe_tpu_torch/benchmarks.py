@@ -261,13 +261,71 @@ def bench_key_size(keysize, batch, runs=3, emit=print, streams=1,
     return results
 
 
-def bench_scaling(keysize=1024, batch=2048, runs=3, emit=print):
-    """Mesh-scaling efficiency of the encrypted aggregation reduce: needs
-    the port of phe_tpu/parallel/ (the device mesh), which is not done."""
-    raise NotImplementedError(
-        "bench_scaling shards the batch over a device mesh: it waits for "
-        "the port of phe_tpu/parallel/ (ROADMAP Queue 1)"
-    )
+def bench_scaling(keysize=1024, batch=2048, runs=3, emit=print,
+                  device=None):
+    """Scaling of the encrypted aggregation reduce over the ranks there are.
+
+    Sums one batch over meshes of the first 1, 2, 4, ... ranks of the
+    world (phe_tpu.parallel.encrypted_sum_sharded's port) and reports
+    elements/s and efficiency against linear scaling from one rank: the
+    BASELINE.json north-star metric. Every rank of the world calls this
+    (each mesh's groups are made by all of them); ranks outside a mesh
+    wait at a barrier. Without a process group the world is this one
+    process on ``device``, and only d = 1 runs. Rank 0 draws the key and
+    broadcasts it; the values and their pinned r come from seeds, so every
+    rank holds the same ciphertexts. Rank 0 emits the rows, which name the
+    device, the world and the backend.
+    """
+    import random
+
+    import torch.distributed as dist
+
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.keys import PaillierPublicKey, generate_paillier_keypair
+    from phe_tpu_torch.parallel import batch_mesh, encrypted_sum_sharded
+
+    dev = config.resolve_device(device)
+    initialized = dist.is_initialized()
+    world = dist.get_world_size() if initialized else 1
+    rank = dist.get_rank() if initialized else 0
+    # One key for the whole world: rank 0 draws it.
+    n = [generate_paillier_keypair(n_length=keysize)[0].n if rank == 0
+         else None]
+    if initialized:
+        dist.broadcast_object_list(n, src=0)
+    pub = PaillierPublicKey(n[0])
+    rng = np.random.default_rng(7)
+    vals = [float(v) for v in rng.uniform(-1e3, 1e3, batch)]
+    r_rng = random.Random(7)
+    rs = [r_rng.randrange(1, pub.n) for _ in vals]
+    enc = EncryptedBatch.encrypt(pub, vals, r_values=rs, device=dev)
+
+    platform = {"device": device_name(dev), "world": world,
+                "backend": dist.get_backend() if initialized else None}
+    sizes = [d for d in (1, 2, 4, 8, 16, 32) if d <= world]
+    base_rate = None
+    out = {}
+    for d in sizes:
+        mesh = batch_mesh(n_devices=d)
+        if mesh.member:
+            def fn():
+                total = encrypted_sum_sharded(enc, mesh)
+                _sync(total)
+            fn()  # warm-up
+            dt = _time_op(fn, runs)
+        if initialized:
+            dist.barrier()
+        if rank != 0:
+            continue
+        rate = batch / dt
+        if base_rate is None:
+            base_rate = rate
+        out[d] = {"elements_per_s": round(rate, 1),
+                  "scaling_efficiency": round(rate / (base_rate * d), 3)}
+        emit(json.dumps({"metric": "encrypted_sum_scaling", "devices": d,
+                         "keysize": keysize, "batch": batch, **out[d],
+                         **platform}))
+    return out
 
 
 def _rss_kb():
@@ -339,19 +397,20 @@ def main(argv=None):
                          "single-dispatch latency methodology; bench.py "
                          "uses 4 for steady-state throughput)")
     ap.add_argument("--scaling", action="store_true",
-                    help="also run the mesh-scaling efficiency sweep (needs "
-                         "the parallel/ port: raises NotImplementedError)")
+                    help="also run the scaling sweep of the encrypted sum "
+                         "over the ranks of the process group (one rank "
+                         "without one)")
     ap.add_argument("--mem", action="store_true",
                     help="also run the memory-per-ciphertext benchmark")
     args = ap.parse_args(argv)
 
     key_sizes = [int(s) for s in args.key_sizes.split(",")]
-    if args.scaling:
-        bench_scaling(keysize=key_sizes[0], batch=args.batch, runs=args.runs)
     all_results = {}
     for ks in key_sizes:
         all_results[ks] = bench_key_size(ks, args.batch, args.runs,
                                          streams=args.stream)
+    if args.scaling:
+        bench_scaling(keysize=key_sizes[0], batch=args.batch, runs=args.runs)
     if args.mem:
         bench_mem(keysize=key_sizes[-1])
 

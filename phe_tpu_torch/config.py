@@ -14,6 +14,8 @@ tensors live and where the hand-written kernels are compiled to:
                 plain PyTorch version.
   build_dir()   ``build/kernels`` in the checkout that holds the package,
                 which ``.gitignore`` lists: the compiled kernel libraries.
+  native_dir()  ``build/native`` beside it: the native host engine's
+                library (phe_tpu_torch.native).
 """
 
 import os
@@ -46,3 +48,8 @@ def resolve_device(device=None):
 def build_dir():
     """Directory the CUDA kernel libraries are compiled into."""
     return os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+
+def native_dir():
+    """Directory the native host engine's library is compiled into."""
+    return os.path.join(os.path.dirname(_PKG_DIR), "build", "native")

@@ -101,7 +101,7 @@ class PaillierPublicKey(object):
         if dev not in self._device_contexts:
             from phe_tpu_torch.batch import PublicDeviceContext
 
-            self._device_contexts[dev] = PublicDeviceContext(self, dev)
+            self._device_contexts[dev] = PublicDeviceContext.build(self, dev)
         return self._device_contexts[dev]
 
     def get_random_lt_n(self):
@@ -221,7 +221,8 @@ class PaillierPrivateKey(object):
         if dev not in self._device_contexts:
             from phe_tpu_torch.batch import PrivateDeviceContext
 
-            self._device_contexts[dev] = PrivateDeviceContext(self, dev)
+            self._device_contexts[dev] = PrivateDeviceContext.build(
+                self, dev)
         return self._device_contexts[dev]
 
     def _half_decrypt(self, ciphertext, d, dsquare, h):

@@ -8,8 +8,8 @@ server-issued public key, the encrypted gradients are summed (ciphertext
 products), and only the sum is decrypted by the server (privacy model at
 :24-60 of the reference example). The C encrypted gradient vectors live as
 a [C, D, L] limb tensor and reduce over the client axis in one log-depth
-tree of Montgomery products on one device. phe_tpu can also reduce across
-a device mesh; that waits for the port of its parallel layer.
+tree of Montgomery products on one device, or over the ranks of a
+phe_tpu_torch.parallel mesh when one is given.
 """
 
 import numpy as np
@@ -74,20 +74,22 @@ def aggregate_encrypted_gradients(batches, mesh=None):
     Exponents align per dimension to the cross-client minimum (the
     reference's alignment rule, phe/paillier.py:664-669); the C-way
     product then runs as one tree of Montgomery products over the client
-    axis. mesh: phe_tpu's device-mesh reduction, not ported yet.
+    axis, or, with a mesh (phe_tpu_torch.parallel.batch_mesh), sharded
+    over its ranks, every rank passing the same batches.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "aggregation over a device mesh waits for the port of "
-            "phe_tpu.parallel"
-        )
     exp_grid = np.stack([b.exponents for b in batches])  # [C, D]
     target = exp_grid.min(axis=0)
     aligned = [b.decrease_exponent_to(target) for b in batches]
     pub = batches[0].public_key
     dc = batches[0]._dc
-    mont = _tree_fold(torch.stack([b.mont for b in aligned]), dc.ctx)[0]
-    return EncryptedBatch(pub, mont, target, False)
+    mont = torch.stack([b.mont for b in aligned])  # [C, Dp, L]
+    if mesh is not None:
+        from phe_tpu_torch.parallel.aggregate import allreduce_mul_mont
+
+        out = allreduce_mul_mont(mont, dc.ctx, mesh, vector_axes=1)
+    else:
+        out = _tree_fold(mont, dc.ctx)[0]
+    return EncryptedBatch(pub, out, target, False)
 
 
 def load_diabetes_split(n_clients, seed=42):
@@ -118,7 +120,7 @@ def run_federated_learning(n_clients=5, n_iter=20, eta=1.5, key_length=1024,
 
     Mirrors the reference's main loop (its federated_learning settings at
     :254-260: 1024-bit key, 5 clients) with the ring replaced by the
-    batched aggregation on ``device``.
+    batched aggregation on ``device``, sharded over ``mesh`` when given.
     """
     if data is None:
         data = load_diabetes_split(n_clients)

@@ -8,15 +8,28 @@ called per ciphertext element in the batch API.
 Semantics parity: mirrors the reference backend dispatch surface of
 ``phe/util.py`` (powmod :38-50, mulmod :53-64, invert :85-103,
 getprimeover :106-124, isqrt :127-132, miller_rabin :381-418, is_prime
-:421-443) with identical exception types and probabilistic guarantees, on
-CPython ints only (the reference's own fallback backend).
+:421-443) with identical exception types and probabilistic guarantees.
+powmod and Miller-Rabin go to the native C++ engine
+(phe_tpu_torch.native) for odd moduli from 512 bits, where it built, as
+the reference sends them to gmpy2; everything else runs on CPython ints
+(the reference's own fallback backend).
 """
 
 import math
 import random
 import secrets
 
+from phe_tpu_torch import native as _native
+
+# Import-time backend detection, as the reference does for gmpy2.
+HAVE_NATIVE = _native.HAVE_NATIVE
+
+# Below this modulus size CPython's pow wins (call overhead dominates);
+# mirrors the reference's _USE_MOD_FROM_GMP_SIZE threshold (phe/util.py:33).
+_USE_NATIVE_FROM_BITS = 512
+
 __all__ = [
+    "HAVE_NATIVE",
     "powmod",
     "mulmod",
     "invert",
@@ -49,9 +62,20 @@ _first_primes_set = frozenset(first_primes)
 
 
 def powmod(a, b, c):
-    """a**b mod c on host ints (reference: phe/util.py:38-50)."""
+    """a**b mod c on host ints (reference: phe/util.py:38-50).
+
+    Dispatches to the C++ Montgomery engine for large odd moduli, the role
+    gmpy2.powmod plays for the reference, and to CPython's pow otherwise.
+    """
     if a == 1:
         return 1
+    if (
+        HAVE_NATIVE
+        and b >= 0
+        and (c & 1)
+        and _USE_NATIVE_FROM_BITS <= c.bit_length() <= _native.MAX_MODULUS_BITS
+    ):
+        return _native.powmod(a, b, c)
     return pow(a, b, c)
 
 
@@ -102,6 +126,12 @@ def miller_rabin(n, k):
     if n <= 3:
         raise ValueError("miller_rabin needs n > 3")
     witnesses = [random.randint(2, n - 2) for _ in range(k)]
+    if (
+        HAVE_NATIVE
+        and _USE_NATIVE_FROM_BITS <= n.bit_length() <= _native.MAX_MODULUS_BITS
+    ):
+        return _native.miller_rabin_native(n, witnesses)
+
     d = n - 1
     r = 0
     while d & 1 == 0:

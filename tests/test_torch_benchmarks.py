@@ -6,8 +6,8 @@ number), and its speed_of_light comes from the cost model of the engine
 that ran: the RNS models by default, the limb-engine models with
 rns_state patched to None (the package has no knob). bench_mem reports
 the bytes the port holds per ciphertext, int64 limbs: 8 L. bench_scaling
-waits for the parallel/ port and says so. The fixed keys are the
-repository's.
+runs over the world there is (one process here; worlds of 2 and 4 in
+tests/test_torch_parallel.py). The fixed keys are the repository's.
 """
 
 import json
@@ -106,11 +106,20 @@ def test_bench_mem_reports_int64_limbs():
 
 
 def test_scaling_and_card_entry_points_refuse(monkeypatch):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        benchmarks.bench_scaling()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        benchmarks.main(["--key-sizes", "256", "--scaling"])
+    # Without a process group the scaling sweep is one rank, on the device
+    # asked for.
+    rows = []
+    out = benchmarks.bench_scaling(keysize=128, batch=8, runs=1,
+                                   emit=rows.append, device="cpu")
+    assert list(out) == [1] and out[1]["scaling_efficiency"] == 1.0
+    row = json.loads(rows[0])
+    assert (row["devices"], row["world"], row["backend"], row["device"]) == (
+        1, 1, None, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmarks.bench_scaling()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmarks.main(["--key-sizes", "256", "--scaling"])
     with pytest.raises(RuntimeError, match="CUDA"):
         benchmarks.main(["--key-sizes", "256"])
     with pytest.raises(RuntimeError, match="is_available"):

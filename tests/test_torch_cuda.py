@@ -15,8 +15,12 @@ and the issue-rate chain are held bit-equal. Every kernel runs every
 width of block its wrapper picks (cuda_rns._elems,
 cuda_modexp._pow_elems), reached through the batch size, on ragged
 batches. The 3072-bit default key size runs its round trip, pinned-r
-encryption and an add on the card. Tolerance zero throughout: all exact
-integer arithmetic.
+encryption and an add on the card. The wire format round-trips a batch on
+the card (pinned: raw_encrypt's JSON; secure: re-obfuscated on the card),
+crt_powers equals Python's pow at 2048 bits through mont_pow_shared, the
+CLI's vector commands run on the card through click's CliRunner, and a
+world of one on NCCL sums as batch.sum() does. Tolerance zero throughout:
+all exact integer arithmetic.
 """
 
 import functools
@@ -660,3 +664,137 @@ def test_key_constants_built_once_per_card(dev):
     assert priv.device_context() is priv.device_context(batch.mont.device)
     assert len(pub._device_contexts) == 1
     assert len(priv._device_contexts) == 1
+
+
+def _zero_counts():
+    for c in (cuda_modexp.launches, cuda_rns.launches):
+        for key in c:
+            c[key] = 0
+
+
+def _counts():
+    return {k: v for c in (cuda_modexp.launches, cuda_rns.launches)
+            for k, v in c.items() if v}
+
+
+def test_serialised_round_trip_of_a_card_batch(dev):
+    """dump_encrypted_batch of a batch on the card, pinned (the host's
+    raw_encrypt after decrease_exponent_to, JSON for JSON) and secure (re-
+    obfuscated on the card), json round trip, load onto the card."""
+    import json
+
+    from phe_tpu_torch import serial
+
+    pub, priv = pt.generate_paillier_keypair(n_length=256)
+    values = [1.5, -2.0, 300.0, 0.0625, 7, -1e-3, 12345.678, 1e-40]
+    rng = random.Random(11)
+    rs = [rng.randrange(1, pub.n) for _ in values]
+    pinned = pt.EncryptedBatch.encrypt(pub, values, r_values=rs, device=dev)
+    _zero_counts()
+    dumped = serial.dump_encrypted_batch(pinned, be_secure=False)
+    assert _counts().get("rns_ladder_vec") == 1  # the pin to -32
+    host = []
+    for value, r in zip(values, rs):
+        enc = pub.encrypt(value, r_value=r)
+        if enc.exponent > -32:
+            enc = enc.decrease_exponent_to(-32)
+        host.append({"v": str(enc.ciphertext(be_secure=False)),
+                     "e": enc.exponent})
+    assert json.dumps(dumped) == json.dumps({"values": host})
+    secure = serial.dump_encrypted_batch(
+        pt.EncryptedBatch.encrypt(pub, values, r_values=rs, device=dev))
+    assert all(a["v"] != b["v"] for a, b in zip(secure["values"], host))
+    for data in (dumped, secure):
+        back = serial.load_encrypted_batch(json.loads(json.dumps(data)), pub)
+        assert back.mont.is_cuda
+        assert back.decrypt(priv) == values
+
+
+def test_crt_powers_on_the_card_equal_python_pow(dev):
+    """The fixed 2048-bit key: mont_pow_shared at L = 152, one launch a
+    prime square, canonical limbs equal to Python's pow."""
+    pub, priv = benchmarks.fixed_key(2048)
+    rng = random.Random(12)
+    cts = [rng.randrange(1, pub.nsquare) for _ in range(37)]
+    pdc = priv.device_context(dev)
+    mont = pdc.pub_ctx.pack_mod_nsquare(cts)
+    _zero_counts()
+    xp, xq = pdc.crt_powers(mont)
+    torch.cuda.synchronize()
+    assert _counts().get("mont_pow_shared") == 2
+    assert xp.is_cuda and xp.shape == (mont.shape[0], 152)
+    for got, d in ((xp, priv.p), (xq, priv.q)):
+        ints = hl.limbs_to_ints(got.cpu().numpy())
+        assert ints[: len(cts)] == [pow(c, d - 1, d * d) for c in cts]
+
+
+def test_cli_vector_pipeline_on_the_card(dev, tmp_path):
+    """The six vector commands with the default --device (the card),
+    through click's CliRunner, each result the exactly rounded one."""
+    import json
+    from fractions import Fraction
+
+    from click.testing import CliRunner
+
+    from phe_tpu_torch.cli import cli
+
+    runner = CliRunner()
+
+    def run(*args):
+        result = runner.invoke(cli, [str(a) for a in args])
+        assert result.exit_code == 0, result.output
+        return result.stdout.strip().splitlines()[-1]
+
+    priv, pub = tmp_path / "priv.json", tmp_path / "pub.json"
+    run("genpkey", "--keysize", "256", priv)
+    run("extract", priv, pub)
+    vals = [1.5, -2.0, 300.0, 0.0625, -1e-3]
+    plain = [10.0, 0.5, -1.0, 3.0, 1e6]
+    (tmp_path / "v.json").write_text(json.dumps(vals))
+    (tmp_path / "p.json").write_text(json.dumps(plain))
+    _zero_counts()
+    run("encryptvec", "--output", tmp_path / "e.json", pub, tmp_path / "v.json")
+    assert _counts().get("rns_ladder", 0) >= 1
+    assert json.loads(run("decryptvec", priv, tmp_path / "e.json")) == vals
+    run("addvec", "--output", tmp_path / "a.json", pub, tmp_path / "e.json",
+        tmp_path / "p.json")
+    run("addencvec", "--output", tmp_path / "d.json", pub,
+        tmp_path / "a.json", tmp_path / "e.json")
+    run("multiplyvec", "--output", tmp_path / "m.json", pub,
+        tmp_path / "d.json", tmp_path / "p.json")
+    want = [float((2 * Fraction(v) + Fraction(p)) * Fraction(p))
+            for v, p in zip(vals, plain)]
+    assert json.loads(run("decryptvec", priv, tmp_path / "m.json")) == want
+    run("sumvec", "--output", tmp_path / "s.json", pub, tmp_path / "e.json")
+    assert float(run("decrypt", priv, tmp_path / "s.json")) == float(
+        sum(map(Fraction, vals)))
+
+
+def test_world_of_one_on_nccl(dev):
+    """One process, one card, NCCL: encrypted_sum_sharded equals
+    batch.sum() ciphertext for ciphertext."""
+    import socket
+
+    import torch.distributed as dist
+
+    from phe_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert parallel.initialize_distributed(
+        "tcp://localhost:%d" % port, 1, 0).type == "cuda"
+    try:
+        assert dist.get_backend() == "nccl"
+        pub, priv = pt.generate_paillier_keypair(n_length=256)
+        values = [1, 2.5, -0.125, 300, 4.75, -7, 1e-3]
+        batch = pt.EncryptedBatch.encrypt(pub, values, device=dev)
+        mesh = parallel.batch_mesh()
+        assert (mesh.dp, mesh.mp) == (1, 1) and mesh.dp_group is not None
+        total = parallel.encrypted_sum_sharded(batch, mesh)
+        assert total.mont.is_cuda
+        assert total.ciphertext_ints(False) == batch.sum().ciphertext_ints(
+            False)
+        assert total.decrypt(priv) == batch.sum().decrypt(priv)
+    finally:
+        dist.destroy_process_group()

@@ -195,3 +195,93 @@ def test_mont_mul_wrapper_takes_the_8192_bit_geometry(monkeypatch):
     b = torch.zeros((1, wide.num_limbs), dtype=torch.int64)
     with pytest.raises(ValueError, match="from 8 to 1200"):
         cuda_modexp._launch(b, b, wide, shared=False)
+
+
+def _tensors_equal(a, b):
+    """Field-by-field equality of two NamedTuples of tensors (nested)."""
+    assert type(a) is type(b)
+    for x, y in zip(a, b):
+        if torch.is_tensor(x):
+            assert torch.equal(x, y)
+        elif isinstance(x, tuple):
+            _tensors_equal(x, y)
+        else:
+            assert x == y
+
+
+def test_device_contexts_build_equals_the_constructor(keys, monkeypatch):
+    _, _, pub, priv = keys
+    cpu = torch.device("cpu")
+    dc = tbatch.PublicDeviceContext.build(pub, "cpu")
+    ref = tbatch.PublicDeviceContext(pub, cpu)
+    assert dc.device == cpu and (dc.L, dc.Ln) == (ref.L, ref.Ln)
+    _tensors_equal(dc.ctx, ref.ctx)
+    assert torch.equal(dc.n_digits, ref.n_digits)
+    assert torch.equal(dc.nr2_limbs, ref.nr2_limbs)
+    pdc = tbatch.PrivateDeviceContext.build(priv, "cpu")
+    _tensors_equal(pdc.consts, tbatch.PrivateDeviceContext(priv, cpu).consts)
+    # The keys construct through build, once per device.
+    fresh = pt.PaillierPrivateKey(pt.PaillierPublicKey(pub.n), priv.p,
+                                  priv.q)
+    calls = []
+    real = tbatch.PrivateDeviceContext.build.__func__
+    monkeypatch.setattr(tbatch.PrivateDeviceContext, "build", classmethod(
+        lambda cls, key, device=None: calls.append(device)
+        or real(cls, key, device)))
+    assert fresh.device_context("cpu") is fresh.device_context("cpu")
+    assert calls == [cpu]
+    # No device named: the card, which is not here.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        tbatch.PublicDeviceContext.build(pub)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        tbatch.PrivateDeviceContext.build(priv)
+
+
+def _crt_powers_pair(jpriv, priv, cts):
+    """(port's crt_powers, phe_tpu's) of the same ciphertext ints."""
+    pdc = priv.device_context("cpu")
+    mine = pdc.crt_powers(pdc.pub_ctx.pack_mod_nsquare(cts))
+    jpdc = jbatch.PrivateDeviceContext.build(jpriv)
+    theirs = jpdc.crt_powers(jpdc.pub_ctx.pack_mod_nsquare(cts))
+    return mine, theirs
+
+
+def _check_crt_powers(mine, theirs, priv, cts):
+    for got, want, d in zip(mine, theirs, (priv.p, priv.q)):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+        ints = tbatch.hl.limbs_to_ints(got.numpy())
+        assert ints[: len(cts)] == [pow(c, d - 1, d * d) for c in cts]
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_crt_powers_array_equal_to_phe_tpu(keys, monkeypatch, backend):
+    """phe_tpu's limb route with its XLA modexp and its Pallas kernel in
+    interpret mode; canonical limbs equal, and equal to Python's pow."""
+    monkeypatch.setenv("PHE_TPU_BACKEND", backend)
+    # The backend is read while tracing: drop the other backend's traces.
+    jbatch._crt_powers_dev.clear_cache()
+    jpub, jpriv, pub, priv = keys
+    cts = [pub.raw_encrypt(m, r_value=r) for m, r in
+           zip(range(3, 10), _pinned(pub, 7, 71))]
+    mine, theirs = _crt_powers_pair(jpriv, priv, cts)
+    _check_crt_powers(mine, theirs, priv, cts)
+
+
+def test_crt_powers_array_equal_to_phe_tpu_at_2048_bits():
+    """The fixed 2048-bit key on a few rows: mont_pow_shared at L = 152."""
+    pub, priv = benchmarks.fixed_key(2048)
+    jpub = phe_tpu.PaillierPublicKey(pub.n)
+    jpriv = phe_tpu.PaillierPrivateKey(jpub, priv.p, priv.q)
+    cts = [pub.raw_encrypt(m, r_value=r) for m, r in
+           zip((0, 1, 12345, pub.n - 1), _pinned(pub, 4, 72))]
+    # 1,260 products of 4 rows each: small ops, which more threads slow.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        mine, theirs = _crt_powers_pair(jpriv, priv, cts)
+    finally:
+        torch.set_num_threads(threads)
+    assert mine[0].shape == (4, 152)
+    _check_crt_powers(mine, theirs, priv, cts)

@@ -190,6 +190,13 @@ def test_port_imports_neither_jax_nor_phe_tpu():
         "phe_tpu_torch.models.federated, phe_tpu_torch.microbench, "
         "phe_tpu_torch.profiling, phe_tpu_torch.benchmarks, "
         "phe_tpu_torch.bench, phe_tpu_torch.ops.cuda_microbench, "
+        "phe_tpu_torch.serial, phe_tpu_torch.cli, phe_tpu_torch.util, "
+        "phe_tpu_torch.native, phe_tpu_torch.parallel, "
+        "phe_tpu_torch.parallel.mesh, phe_tpu_torch.parallel.aggregate, "
+        "phe_tpu_torch.utils.b64, phe_tpu_torch.__about__, "
+        "phe_tpu_torch.examples.alternative_base, "
+        "phe_tpu_torch.examples.federated_learning, "
+        "phe_tpu_torch.examples.logistic_regression, "
         "chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'phe_tpu' "

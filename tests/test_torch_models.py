@@ -20,10 +20,11 @@ import phe_tpu
 from phe_tpu import batch as jbatch
 from phe_tpu.models import federated as jfed
 from phe_tpu.models import logreg as jlog
+from phe_tpu.parallel import batch_mesh as j_batch_mesh
 
 import phe_tpu_torch as pt
 from phe_tpu_torch import batch as tbatch
-from phe_tpu_torch import interop
+from phe_tpu_torch import interop, parallel
 from phe_tpu_torch.models import federated as tfed
 from phe_tpu_torch.models import logreg as tlog
 from phe_tpu_torch.ops import montgomery as mg
@@ -203,8 +204,15 @@ def test_aggregate_equals_phe_tpu(keys):
         be_secure=False)
     assert got.decrypt(priv) == ref.decrypt(jpriv) == [
         float(sum(Fraction(v) for v in col)) for col in grads.T.tolist()]
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tfed.aggregate_encrypted_gradients(mine, mesh=object())
+    # Over a mesh (a world of one here; phe_tpu's over its 8 CPU devices)
+    # the sum is the same, ciphertext for ciphertext.
+    meshed = tfed.aggregate_encrypted_gradients(mine,
+                                                mesh=parallel.batch_mesh())
+    jmeshed = jfed.aggregate_encrypted_gradients(theirs,
+                                                 mesh=j_batch_mesh())
+    assert meshed.ciphertext_ints(False) == got.ciphertext_ints(False) \
+        == jmeshed.ciphertext_ints(False)
+    assert list(meshed.exponents) == list(jmeshed.exponents)
 
 
 def test_federated_run_matches_phe_tpu():
@@ -221,3 +229,24 @@ def test_federated_run_matches_phe_tpu():
     assert got["mse"] == ref["mse"]
     np.testing.assert_array_equal(got["weights"], ref["weights"])
     assert got["mse"][-1] < got["mse"][0]
+
+
+def test_examples_run_on_the_cpu(capsys):
+    """The port's three examples (python -m phe_tpu_torch.examples.<name>)
+    at small sizes, with --device cpu."""
+    from phe_tpu_torch.examples import (
+        alternative_base,
+        federated_learning,
+        logistic_regression,
+    )
+
+    alternative_base.main(["--device", "cpu"])
+    result = federated_learning.main(
+        ["--clients", "2", "--iters", "2", "--key-length", "256", "--mesh",
+         "--device", "cpu"])
+    assert len(result["mse"]) == 2 and result["mse"][-1] < result["mse"][0]
+    acc, agrees = logistic_regression.main(
+        ["--key-length", "256", "--examples", "8", "--device", "cpu"])
+    assert agrees and 0.0 <= acc <= 1.0
+    out = capsys.readouterr().out
+    assert "batch roundtrip OK" in out and "MSE trajectory" in out
