@@ -91,6 +91,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (HAVE_NATIVE) and its powmod equal to pow at 2048 bits; a world of one
    on NCCL whose encrypted_sum_sharded equals batch.sum() and whose FL
    aggregation with the mesh equals it without.
+9. The batch programs (phe_tpu_torch.programs: each captured once per
+   shape and key as a CUDA graph, replayed in one call; phases 3-8 run
+   through them): every program those phases reach, bit-equal to its
+   eager body at the 2048-bit key over 16,384 rows (the add's product
+   over 524,288), the 3072-bit key over 16,384 and the 8192-bit key over
+   512, with its eager, first-call and replay times on the host clock,
+   its launches a call (equal to the body's) and its graphs; a 2048-bit
+   round trip from the upload to decrypt's device half under
+   torch.cuda.set_sync_debug_mode("error"); a second encrypt leaving the
+   first batch's limbs unchanged; the 2048-bit round trip and the
+   8192-bit decrypt under profiling.trace, eagerly (the bodies) and
+   through the programs in turns, each with its CUDA runtime calls; the
+   memory the card holds after it.
 
 The second-to-last lines are the kernels' JSON record, the seconds the
 whole run took, and the card's name and power limit; the last line is
@@ -578,7 +591,8 @@ def default_key_path(dev, card, totals):
     3072-bit key, benchmarks.fixed_key(3072)): key constants, then the
     REDC matrices of its five Montgomery contexts, each timed; a warm-up
     round trip of 8 rows; BATCH seeded values encrypted and decrypted,
-    each with its launches; a pinned-r batch against raw_encrypt."""
+    each with its launches; a pinned-r batch against raw_encrypt. Returns
+    the key."""
     import phe_tpu_torch as pt
     from phe_tpu_torch import benchmarks
     from phe_tpu_torch.batch import EncryptedBatch
@@ -625,6 +639,7 @@ def default_key_path(dev, card, totals):
              tile_text(dc.L, BATCH), t_keys, t_redc, BATCH, len(few),
              BATCH / t_enc, t_enc, BATCH / t_dec, t_dec, json.dumps(enc),
              json.dumps(dec), card))
+    return pub, priv
 
 
 def arithmetic_path(pub, priv, dev, card, totals):
@@ -1062,10 +1077,16 @@ def benchmark_phase(pub, priv, dev, card, totals):
     check(out == values, "profiled round trip: decrypt(encrypt(x)) != x")
 
 
+# Each profiled() window's numbers, by its label.
+PROFILES = {}
+
+
 def profiled(what, fn, card):
     """fn() under profiling.trace: its host-clock time, the card's busy
-    share, the top ten kernels by device time and every kernel of the
-    port's own are printed; fn's result is returned."""
+    share, the CUDA runtime calls that launch work or wait (kernel and
+    graph launches, copies, synchronisations) with their counts, the top
+    ten kernels by device time and every kernel of the port's own are
+    printed and kept in PROFILES; fn's result is returned."""
     from phe_tpu_torch import profiling
 
     with profiling.trace() as prof:
@@ -1075,11 +1096,20 @@ def profiled(what, fn, card):
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    api = {a.key: a.count for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CPU
+           and re.match(r"cu(da)?(Launch|GraphLaunch|Memcpy|Stream"
+                        r"Synchronize|DeviceSynchronize|EventSynchronize)",
+                        a.key)}
+    record = PROFILES[what] = {"host_ms": wall_us / 1e3, "api": api,
+                               "kernel_events": len(kernels)}
+    print("profiler: %s, CUDA runtime calls %s" % (what, json.dumps(api)))
     if not kernels:
         print("profiler: no device time over the %s (%.1f ms on the host "
               "clock) [%s]" % (what, wall_us / 1e3, card))
         return out
     busy = _busy_us(kernels)
+    record.update(busy_ms=busy / 1e3, busy_share=busy / wall_us)
     print("profiler: %s, %.1f ms on the host clock, device busy %.1f ms "
           "(%.1f %%), %d kernel launches [%s]"
           % (what, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
@@ -1094,10 +1124,12 @@ def profiled(what, fn, card):
     # The port's own kernels (csrc/, each a global in an anonymous
     # namespace; PyTorch's are under at::), in or past the top ten.
     print("profiler, the port's kernels (ms, calls, name):")
+    record["port_kernels"] = {}
     for a in rows:
         if a.key.startswith("void (anonymous namespace)::"):
             print("  %10.3f %6d  %s" % (a.self_device_time_total / 1e3,
                                         a.count, a.key[:100]))
+            record["port_kernels"][a.key[:80]] = a.count
     return out
 
 
@@ -1224,7 +1256,8 @@ def limb_engine_path(pub, priv, dev, card, totals):
     want = [e.encoding for e in pt.EncodedNumber.encode_many(
         pub, xs[:LIMB_DIRECT_ROWS])]
     check(hl.limbs_to_ints(got.cpu().numpy()) == want
-          and hl.limbs_to_ints(pdc._residue(head).cpu().numpy()) == want,
+          and hl.limbs_to_ints(tbatch._decrypt_residue_rns(
+              head, dc.ctx, pdc.consts, *halves).cpu().numpy()) == want,
           "_decrypt_residue_limb differs from the RNS decrypt")
     # Its two mont_pow_shared launches alone, on their own inputs, warm.
     plain = mg.from_mont(head, dc.ctx)
@@ -1620,6 +1653,253 @@ def wire_path(pub, priv, dev, card, totals):
     return seconds, crt_check
 
 
+def program_cases(pub, priv, dev, rows, names):
+    """{name: (program, arguments)} for the batch programs `names` at this
+    key over `rows` rows, from seeded values encrypted through the entry
+    points; _mul_mont_dev at 32 x rows (bench.py's add batch at 16,384)."""
+    import phe_tpu_torch as pt
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch import config
+    from phe_tpu_torch.batch import EncryptedBatch
+
+    dc, pdc = pub.device_context(dev), priv.device_context(dev)
+    ctx, st, halves = dc.ctx, dc.rns_state(), tuple(pdc.rns_state())
+    g = np.random.default_rng(SEED + 9)
+    xs = [float(v) for v in g.uniform(-1e6, 1e6, rows)]
+    ys = [float(v) for v in g.uniform(-1e-3, 1e-3, rows)]
+    a = EncryptedBatch.encrypt(pub, xs, device=dev)
+    b = EncryptedBatch.encrypt(pub, ys, device=dev)
+    m = dc.pack_messages([e.encoding for e in
+                          pt.EncodedNumber.encode_many(pub, ys)])
+    r = dc.random_r_bytes(rows)
+
+    def digits(bits, count=rows):
+        es = [int.from_bytes(g.bytes(-(-bits // 8)), "little")
+              % (1 << bits) for _ in range(count)]
+        return tbatch._digits_on(tbatch._digits_rows(es, bits), dev)
+
+    short, align = digits(SHORT_BITS), digits(13)
+    neg = config.to_device(g.integers(0, 2, rows) != 0, dev)
+    inv = a.inverse_mont()
+    D = LR_FEATURES + 1
+    grid = digits(64, LR_EXAMPLES * D).reshape(LR_EXAMPLES, D, -1)
+    neg_grid = config.to_device(g.integers(0, 2, (LR_EXAMPLES, D)) != 0, dev)
+    chunk = a.mont[: EncryptedBatch._INVERSE_CHUNK]
+    dec = (a.mont, ctx, pdc.consts) + halves
+    nr2, nd, Ln = dc.nr2_limbs, dc.n_digits, dc.Ln
+    builders = {
+        "_encrypt_rns_dev": lambda: (m, r, nr2, nd, ctx, st, Ln),
+        "_encrypt_dev": lambda: (m, r, nr2, nd, ctx, Ln),
+        "_obfuscate_rns_dev": lambda: (a.mont, r, nd, ctx, st),
+        "_decrypt_rns_dev": lambda: dec,
+        "_decrypt_compact_rns_dev": lambda: dec,
+        "_decrypt_compact_dev": lambda: (a.mont[:LIMB_DIRECT_ROWS], ctx,
+                                         pdc.consts),
+        "_export_dev": lambda: (a.mont, ctx),
+        "_pack_mont_dev": lambda: (b.mont, ctx),
+        "_nude_encrypt_dev": lambda: (m, nr2, ctx, Ln),
+        "_add_encoded_dev": lambda: (a.mont, m, nr2, ctx, Ln),
+        "_mul_mont_dev": lambda: (a.mont.repeat(32, 1), b.mont.repeat(32, 1),
+                                  ctx),
+        "_add_encrypted_aligned_dev": lambda: (a.mont, align, b.mont, align,
+                                               ctx, st),
+        "_add_scalars_aligned_dev": lambda: (a.mont, align, m, nr2, ctx, st,
+                                             Ln),
+        "_pow_elems_dev": lambda: (a.mont, short, ctx, st),
+        "_pow_select_dev": lambda: (a.mont, inv, neg, short, ctx, st),
+        "_sum_aligned_dev": lambda: (a.mont, align, ctx, st),
+        "_tree_reduce_dev": lambda: (a.mont, ctx),
+        "_tree_reduce_masked_dev": lambda: (a.mont, neg, ctx),
+        "_inverse_scan_dev": lambda: (chunk, ctx),
+        "_finish_inverse_dev": lambda: (
+            tbatch._inverse_scan(chunk, ctx)[0], a.mont[1], ctx),
+        "_matvec_dev": lambda: (a.mont[:D], inv[:D], neg_grid, grid, ctx,
+                                st),
+        "_crt_powers_dev": lambda: (a.mont, ctx, pdc.consts),
+        "_short_base_dev": lambda: (a.mont[:1], nd, ctx),
+        "_obfuscate_short_dev": lambda: (a.mont, a.mont[0], short, ctx),
+    }
+    return {name: (getattr(tbatch, name), builders[name]()) for name in names}
+
+
+def check_program(label, prog, args, card):
+    """The program bit-equal to its eager body on the card: the body once,
+    then the program three times (at a key new here: its warm-up, its
+    capture and replay, a replay), each on the host clock; returns its
+    record."""
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    reset_launches()
+    eager, eager_ms = timed(lambda: outs(prog.fn(*args)))
+    eager_n = read_launches()
+    calls = []
+    for _ in range(3):
+        reset_launches()
+        calls.append(timed(lambda: outs(prog(*args))) + (read_launches(),))
+    (got, first_ms, _), (second, second_ms, _), (again, replay_ms,
+                                                 replay_n) = calls
+    check(len(got) == len(second) == len(again) == len(eager)
+          and all(torch.equal(x, y) and torch.equal(z, y)
+                  and torch.equal(w, y)
+                  for x, w, z, y in zip(got, second, again, eager)),
+          "%s: the program differs from its eager body" % label)
+    check(all(n == eager_n for _, _, n in calls),
+          "%s: a call counted %s, the body %s"
+          % (label, json.dumps([n for _, _, n in calls]),
+             json.dumps(eager_n)))
+    print("  %s: bit-equal; eager %.3f ms, the program's calls %.3f, %.3f, "
+          "%.3f ms; launches a call %s; graphs captured %d [%s]"
+          % (label, eager_ms, first_ms, second_ms, replay_ms,
+             json.dumps(replay_n), prog.captured, card))
+    return dict(eager_ms=eager_ms, first_ms=first_ms, second_ms=second_ms,
+                replay_ms=replay_ms, launches=replay_n,
+                graphs=prog.captured)
+
+
+def programs_phase(keys, dev, card):
+    """Phase 9: the batch programs (phe_tpu_torch.programs) against their
+    eager bodies at the 2048-, 3072- and 8192-bit keys; the 2048-bit round
+    trip under set_sync_debug_mode("error"); a second encrypt leaving the
+    first batch's limbs as they were; the 2048-bit round trip and the
+    8192-bit decrypt profiled eagerly and through the programs, in turns
+    (eager, programs, programs, eager); the memory the card holds and the
+    evictions. Returns the phase's record."""
+    import phe_tpu_torch as pt
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch import programs
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.programs import DeviceProgram
+
+    (pub, priv), (pub3, priv3), (pub8, priv8) = keys
+    record = {"programs": {}}
+    rns_names = ["_encrypt_rns_dev", "_obfuscate_rns_dev", "_decrypt_rns_dev",
+                 "_decrypt_compact_rns_dev", "_export_dev", "_pack_mont_dev",
+                 "_nude_encrypt_dev", "_add_encoded_dev", "_mul_mont_dev",
+                 "_add_encrypted_aligned_dev", "_add_scalars_aligned_dev",
+                 "_pow_elems_dev", "_pow_select_dev", "_sum_aligned_dev",
+                 "_tree_reduce_dev", "_tree_reduce_masked_dev",
+                 "_inverse_scan_dev", "_finish_inverse_dev", "_matvec_dev",
+                 "_crt_powers_dev", "_short_base_dev", "_obfuscate_short_dev"]
+    plans = [
+        (pub, priv, BATCH, rns_names),
+        (pub3, priv3, BATCH,
+         ["_encrypt_rns_dev", "_decrypt_compact_rns_dev", "_export_dev",
+          "_mul_mont_dev"]),
+        (pub8, priv8, LIMB_ROWS,
+         ["_encrypt_dev", "_decrypt_compact_rns_dev", "_decrypt_compact_dev",
+          "_export_dev", "_pack_mont_dev", "_nude_encrypt_dev",
+          "_mul_mont_dev", "_pow_elems_dev", "_pow_select_dev",
+          "_inverse_scan_dev", "_finish_inverse_dev", "_short_base_dev",
+          "_obfuscate_short_dev"]),
+    ]
+    for pk, sk, rows, names in plans:
+        bits = pk.n.bit_length()
+        print("programs at the %d-bit key, %d rows [%s]:" % (bits, rows,
+                                                             card))
+        for name, (prog, args) in program_cases(pk, sk, dev, rows,
+                                                names).items():
+            label = "%d-bit %s" % (bits, name)
+            record["programs"][label] = check_program(label, prog, args,
+                                                      card)
+        del prog, args
+
+    # No host wait from the upload to the last program of a round trip.
+    g = np.random.default_rng(SEED + 10)
+    xs = [float(v) for v in g.uniform(-1e6, 1e6, BATCH)]
+    for _ in range(2):  # the keys' warm-ups and captures
+        check(EncryptedBatch.encrypt(pub, xs, device=dev).decrypt(priv)
+              == xs, "round trip before the sync check: decrypt(encrypt(x)) "
+              "!= x")
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = EncryptedBatch.encrypt(pub, xs, device=dev).decrypt_async(
+            priv)
+    except RuntimeError as e:
+        fail("the 2048-bit round trip waited on the host: %s" % e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(finish() == xs, "round trip under the sync check: "
+          "decrypt(encrypt(x)) != x")
+    print("2048-bit %d-row round trip, upload to decrypt's device half, "
+          "under set_sync_debug_mode(\"error\"): no host wait" % BATCH)
+
+    # No replay overwrites a batch that is still held.
+    ys = [-v for v in xs]
+    first = EncryptedBatch.encrypt(pub, xs, device=dev)
+    snap = first.mont.clone()
+    second = EncryptedBatch.encrypt(pub, ys, device=dev)
+    sync()
+    check(torch.equal(first.mont, snap)
+          and first.mont.data_ptr() != second.mont.data_ptr(),
+          "a second encrypt overwrote the first batch's limbs")
+    check(first.decrypt(priv) == xs and second.decrypt(priv) == ys,
+          "two encrypts through one graph: decrypt != x")
+    print("a second %d-row encrypt leaves the first batch's limbs as they "
+          "were" % BATCH)
+    del first, second, snap
+
+    # Profiles, eagerly (the bodies) and through the programs, in turns.
+    dc, pdc = pub.device_context(dev), priv.device_context(dev)
+
+    def eager_round_trip():
+        encs = pt.EncodedNumber.encode_many(pub, xs)
+        mont = tbatch._encrypt_rns(
+            dc.pack_messages([e.encoding for e in encs]),
+            dc.random_r_bytes(len(xs)), dc.nr2_limbs, dc.n_digits, dc.ctx,
+            dc.rns_state(), dc.Ln)
+        batch = EncryptedBatch(pub, mont, [e.exponent for e in encs], True)
+        compact, full = tbatch._decrypt_compact_rns(
+            mont, dc.ctx, pdc.consts, *pdc.rns_state())
+        return batch._finish_decrypt_fast(compact, full, pt.EncodedNumber)
+
+    x8 = [float(v) for v in g.uniform(-1e6, 1e6, LIMB_ROWS)]
+    enc8 = EncryptedBatch.encrypt(pub8, x8, device=dev)
+    dc8, pdc8 = pub8.device_context(dev), priv8.device_context(dev)
+
+    def eager_decrypt8():
+        compact, full = tbatch._decrypt_compact_rns(
+            enc8.mont, dc8.ctx, pdc8.consts, *pdc8.rns_state())
+        return enc8._finish_decrypt_fast(compact, full, pt.EncodedNumber)
+
+    turns = [
+        ("2048-bit %d-row round trip" % BATCH, xs, eager_round_trip,
+         lambda: EncryptedBatch.encrypt(pub, xs, device=dev).decrypt(priv)),
+        ("8192-bit %d-row decrypt" % LIMB_ROWS, x8, eager_decrypt8,
+         lambda: enc8.decrypt(priv8)),
+    ]
+    for what, want, eager, program in turns:
+        for i, (how, fn) in enumerate((("eager", eager),
+                                       ("programs", program),
+                                       ("programs", program),
+                                       ("eager", eager))):
+            label = "%s, %s (turn %d)" % (what, how, i + 1)
+            check(profiled(label, fn, card) == want,
+                  "%s: decrypt != x" % label)
+            record.setdefault("profiles", {})[label] = PROFILES[label]
+
+    graphs = {name: p.captured for name, p in vars(tbatch).items()
+              if isinstance(p, DeviceProgram) and p.captured}
+    record["graphs"] = graphs
+    record["evictions"] = programs.evictions
+    record["memory_reserved"] = torch.cuda.memory_reserved(dev)
+    record["memory_allocated"] = torch.cuda.memory_allocated(dev)
+    print("programs: %d graphs captured over %d programs, %d evictions "
+          "since the start; memory reserved %.2f GiB, allocated %.2f GiB "
+          "[%s]" % (sum(graphs.values()), len(graphs), programs.evictions,
+                    record["memory_reserved"] / 2**30,
+                    record["memory_allocated"] / 2**30, card))
+    return record
+
+
 def main():
     started = time.time()
     if not torch.cuda.is_available():
@@ -1811,8 +2091,9 @@ def main():
     # -- 3. the main path --------------------------------------------------
     vals_rng = np.random.default_rng(SEED)
     values = [float(v) for v in vals_rng.uniform(-1e6, 1e6, BATCH)]
-    warm = EncryptedBatch.encrypt(pub, values, device=dev)
-    check(warm.decrypt(priv) == values, "warm-up round trip failed")
+    for _ in range(2):  # the programs' warm-ups, then their captures
+        warm = EncryptedBatch.encrypt(pub, values, device=dev)
+        check(warm.decrypt(priv) == values, "warm-up round trip failed")
 
     reset_launches()
     torch.cuda.synchronize()
@@ -1864,7 +2145,7 @@ def main():
     check(fresh.decrypt(priv) == few, "secure batch does not decrypt")
     print("secure export round trip of %d: ok" % len(few))
     path_launches = dict(total)
-    default_key_path(dev, card, path_launches)
+    key3 = default_key_path(dev, card, path_launches)
 
     # -- 4. the arithmetic path --------------------------------------------
     rates = arithmetic_path(pub, priv, dev, card, path_launches)
@@ -1883,6 +2164,12 @@ def main():
     wire_seconds, crt_check = wire_path(pub, priv, dev, card, path_launches)
     print(json.dumps({"wire_cli_crt_mesh_seconds": wire_seconds,
                       "card": card}))
+
+    # -- 9. the batch programs as captured graphs --------------------------
+    t0 = time.time()
+    programs = programs_phase([(pub, priv), key3, (pub8, priv8)], dev, card)
+    print("programs phase: %.1f s" % (time.time() - t0))
+    print(json.dumps({"programs_phase": programs, "card": card}))
 
     src = {"mont_mul": "phe_tpu_torch/csrc/mont_mul.cu",
            "mont_mul_const": "phe_tpu_torch/csrc/mont_mul.cu",

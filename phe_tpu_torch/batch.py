@@ -44,9 +44,11 @@ import torch.nn.functional as F
 
 from phe_tpu_torch import config
 from phe_tpu_torch.encoding import EncodedNumber
+from phe_tpu_torch.ops import cuda_rns
 from phe_tpu_torch.ops import limb_math as lm
 from phe_tpu_torch.ops import montgomery as mg
 from phe_tpu_torch.ops import rns
+from phe_tpu_torch.programs import device_program
 from phe_tpu_torch.utils import limbs as hl
 from phe_tpu_torch.utils.ntheory import invert
 
@@ -242,21 +244,21 @@ def _pow_elems(mont, digits, ctx, rstate):
     The dispatch point of every data-dependent exponent (scalar multiply,
     exponent alignment, matvec grids: the reference's _raw_mul and
     decrease_exponent_to, phe/paillier.py:721-751, :570-601). mont:
-    [..., L]; digits: [..., n_windows] schedules at DEFAULT_WINDOW (host
-    int8 arrays, as _digits_rows makes them). rstate None (a modulus past
+    [..., L]; digits: [..., n_windows] schedules at DEFAULT_WINDOW (int8
+    on mont's device, as _digits_on uploads _digits_rows's; any integer
+    type on the CPU). rstate None (a modulus past
     the RNS channel supply) runs the limb engine's per-row modexp
     (mg.mont_pow), output < 1.01 M. An RnsPubState runs the RNS ladder,
     entering through M_A^2 R^-1, which strips the operand's R
     ((c R) R^-1 = c), and exiting through R, which puts it back: no limb
     REDC on the path. reduce_excess absorbs the ladder's +jN offset, so
-    its outputs are canonical < N. (phe_tpu's _pow_elems_dev is its jit
-    wrapper.)
+    its outputs are canonical < N. (_pow_elems_dev is its program.)
     """
     if rstate is None:
         return mg.mont_pow(mont, digits, ctx)
     lead = mont.shape[:-1]
     L = ctx.num_limbs
-    digits = np.asarray(digits)
+    digits = torch.as_tensor(digits)
     wide = rns.pow_vec(mont.reshape(-1, L),
                        digits.reshape(-1, digits.shape[-1]),
                        rstate.conv, rstate.rsys,
@@ -302,31 +304,31 @@ def _limb_obfuscator(r_bytes, n_digits, ctx):
 
 def _encrypt_limb(m_bytes, r_bytes, nr2, n_digits, ctx, ln):
     """_encrypt_rns on the limb engine, for n^2 past the RNS channel
-    supply (phe_tpu's _encrypt_dev)."""
+    supply (_encrypt_dev is its program)."""
     nude = _nude_raw(lm.unpack_bytes(m_bytes, ln), nr2, ctx)
     return mg.mont_mul(nude, _limb_obfuscator(r_bytes, n_digits, ctx), ctx)
 
 
 def _obfuscate_limb(mont, r_bytes, n_digits, ctx):
-    """_obfuscate_rns on the limb engine (phe_tpu's _obfuscate_dev)."""
+    """_obfuscate_rns on the limb engine (_obfuscate_dev is its program)."""
     return mg.mont_mul(mont, _limb_obfuscator(r_bytes, n_digits, ctx), ctx)
 
 
-def _nude_encrypt_dev(m_bytes, nr2, ctx, ln):
+def _nude_encrypt(m_bytes, nr2, ctx, ln):
     """(n*m + 1) in Montgomery form from packed message bytes."""
     return _nude_raw(lm.unpack_bytes(m_bytes, ln), nr2, ctx)
 
 
-def _add_encoded_dev(mont, m_bytes, nr2, ctx, ln):
+def _add_encoded(mont, m_bytes, nr2, ctx, ln):
     """Scalar add: ct * (n*m + 1) mod n^2 (phe/paillier.py:673-675)."""
-    return mg.mont_mul(mont, _nude_encrypt_dev(m_bytes, nr2, ctx, ln), ctx)
+    return mg.mont_mul(mont, _nude_encrypt(m_bytes, nr2, ctx, ln), ctx)
 
 
 def _tree_fold(mont, ctx):
     """Montgomery-product tree over the leading axis, one launch per level.
 
     mont: [C, ..., L]; returns [1, ..., L]. An odd row carries to the next
-    level. (phe_tpu's _tree_reduce_dev is its jit wrapper.)
+    level. (_tree_reduce_dev is its program.)
     """
     L = ctx.num_limbs
     while mont.shape[0] > 1:
@@ -341,25 +343,33 @@ def _tree_fold(mont, ctx):
     return mont
 
 
-def _matvec_dev(mont, inv_mont, neg_mask, digits, ctx, rstate):
+def _tree_reduce_masked(mont, valid, ctx):
+    """Masked homomorphic sum: rows with valid False count as the
+    identity (R mod n^2), so one program serves every logical length that
+    shares a bucketed shape. valid: bool [C] on mont's device."""
+    one = ctx.one.expand(mont.shape)
+    return _tree_fold(torch.where(valid[:, None], mont, one), ctx)
+
+
+def _matvec(mont, inv_mont, neg_mask, digits, ctx, rstate):
     """Encrypted matvec: base select, one grid pow, tree over D.
 
     mont / inv_mont: [D, L] encrypted weights and their inverses
-    (Montgomery domain); neg_mask: [B, D] selecting the inverse base (the
-    reference's inverse trick, phe/paillier.py:745-749, over the whole
-    grid); digits: [B, D, W] schedules of |mantissa| * BASE**align_diff —
-    the alignment is fused into the exponent, (c^x)^(BASE^d) = c^(x BASE^d).
+    (Montgomery domain); neg_mask: bool [B, D] on their device, selecting
+    the inverse base (the reference's inverse trick, phe/paillier.py:
+    745-749, over the whole grid); digits: [B, D, W] schedules of
+    |mantissa| * BASE**align_diff — the alignment is fused into the
+    exponent, (c^x)^(BASE^d) = c^(x BASE^d).
     """
     B = digits.shape[0]
-    mask = torch.as_tensor(np.asarray(neg_mask) != 0, device=mont.device)
     grid = (B,) + tuple(mont.shape)
-    base = torch.where(mask[..., None], inv_mont.expand(grid),
+    base = torch.where(neg_mask[..., None], inv_mont.expand(grid),
                        mont.expand(grid))
     powed = _pow_elems(base, digits, ctx, rstate)  # [B, D, L]
     return _tree_fold(powed.transpose(0, 1), ctx)[0]
 
 
-def _add_encrypted_aligned_dev(a_mont, da, b_mont, db, ctx, rstate):
+def _add_encrypted_aligned(a_mont, da, b_mont, db, ctx, rstate):
     """E(a)+E(b) with per-element exponent alignment on both sides
     (phe/paillier.py:664-669's decrease_exponent_to), then the product."""
     a2 = _pow_elems(a_mont, da, ctx, rstate)
@@ -367,23 +377,23 @@ def _add_encrypted_aligned_dev(a_mont, da, b_mont, db, ctx, rstate):
     return mg.mont_mul(a2, b2, ctx)
 
 
-def _add_scalars_aligned_dev(a_mont, da, m_bytes, nr2, ctx, rstate, ln):
+def _add_scalars_aligned(a_mont, da, m_bytes, nr2, ctx, rstate, ln):
     """E(a)+b: the alignment pow, then the product with the nude (r = 1)."""
     a2 = _pow_elems(a_mont, da, ctx, rstate)
-    return mg.mont_mul(a2, _nude_encrypt_dev(m_bytes, nr2, ctx, ln), ctx)
+    return mg.mont_mul(a2, _nude_encrypt(m_bytes, nr2, ctx, ln), ctx)
 
 
-def _sum_aligned_dev(mont, digits, ctx, rstate):
+def _sum_aligned(mont, digits, ctx, rstate):
     """Homomorphic sum at mixed exponents: alignment pow, then the tree."""
     return _tree_fold(_pow_elems(mont, digits, ctx, rstate), ctx)
 
 
-def _inverse_scan_dev(mont, ctx):
+def _inverse_scan(mont, ctx):
     """Batch-inversion prefix products over a ciphertext batch.
 
     Returns (excl, total): excl[i] = prod_{j != i} c_j and total =
     prod_j c_j (Montgomery domain), so that one host inversion of total
-    gives every c_i^-1 = excl[i] total^-1 (_finish_inverse_dev):
+    gives every c_i^-1 = excl[i] total^-1 (_finish_inverse):
     Montgomery's batch-inversion identity. The forward and the reversed
     inclusive scans run together as a log-depth (Hillis-Steele) scan, one
     Montgomery-product launch per level: at level d, x[i] *= x[i - d].
@@ -403,30 +413,29 @@ def _inverse_scan_dev(mont, ctx):
     return mg.mont_mul(fwd_excl, rev_excl, ctx), incl[-1]
 
 
-def _finish_inverse_dev(excl, tinv_mont, ctx):
+def _finish_inverse(excl, tinv_mont, ctx):
     """excl[i] * total^-1 = c_i^-1, Montgomery domain."""
     return mg.mont_mul_const(excl, tinv_mont, ctx)
 
 
-def _pow_select_dev(mont, inv_mont, neg_mask, digits, ctx, rstate):
+def _pow_select(mont, inv_mont, neg_mask, digits, ctx, rstate):
     """Select the base c or c^-1 per element, then one per-element modexp.
 
     The batched negative-scalar branch of the inverse trick
     (phe/paillier.py:745-749): (c^-1)^|k| = (c^|k|)^-1, with the base
     selected before the pow, so a negative costs one short modexp like
-    every other element.
+    every other element. neg_mask: bool [B] on mont's device.
     """
-    mask = torch.as_tensor(np.asarray(neg_mask) != 0, device=mont.device)
-    base = torch.where(mask[:, None], inv_mont, mont)
+    base = torch.where(neg_mask[:, None], inv_mont, mont)
     return _pow_elems(base, digits, ctx, rstate)
 
 
-def _short_base_dev(x_mont, n_digits, ctx):
+def _short_base(x_mont, n_digits, ctx):
     """h = x^n (Montgomery form) for short obfuscation: [1, L] in and out."""
     return mg.mont_pow_shared(x_mont, n_digits, ctx, window=ENCRYPT_WINDOW)
 
 
-def _obfuscate_short_dev(mont, h_mont, digits, ctx):
+def _obfuscate_short(mont, h_mont, digits, ctx):
     """ct * h^a_i mod n^2: one per-element modexp of the shared base h
     (digits [Bp, n_windows], the schedules of the a_i), then the product."""
     base = h_mont.expand(mont.shape).contiguous()
@@ -523,7 +532,7 @@ def _mont_entry(x, ctx2):
 
 def _crt_powers_limb(ct_mont, pub_ctx, pk):
     """(c^(p-1) mod p^2, c^(q-1) mod q^2) as canonical limbs [Bp, L2], on
-    the limb engine (phe_tpu's _crt_powers_dev): the ciphertext out of the
+    the limb engine (_crt_powers_dev is its program): the ciphertext out of the
     Montgomery domain mod n^2, folded into each prime square (mod_reduce),
     into its Montgomery domain (_mont_entry), the shared-exponent modexp at
     DECRYPT_WINDOW, and out again to canonical limbs.
@@ -580,6 +589,75 @@ def _decrypt_residue_rns(ct_mont, pub_ctx, pk, half_p, half_q):
         xc = _fit_limbs(mg.reduce_excess(wide, red2), L2)
         halves.append(_lfunction_half(xc, ctxh, cm_pinv, h_limbs))
     return _crt_recombine(halves[0], halves[1], pk)
+
+
+def _decrypt_limb(ct_mont, pub_ctx, pk):
+    """Limb-engine decrypt -> packed plaintext bytes (the exact path)."""
+    return lm.pack_bytes(_decrypt_residue_limb(ct_mont, pub_ctx, pk))
+
+
+def _decrypt_compact_limb(ct_mont, pub_ctx, pk):
+    """Limb-engine decrypt -> (compact decode rows, full packed bytes)."""
+    m = _decrypt_residue_limb(ct_mont, pub_ctx, pk)
+    return _decode_compact(m, pk), lm.pack_bytes(m)
+
+
+def _decrypt_rns(ct_mont, pub_ctx, pk, half_p, half_q):
+    """RNS-engine decrypt -> packed plaintext bytes (the exact path)."""
+    return lm.pack_bytes(_decrypt_residue_rns(ct_mont, pub_ctx, pk, half_p,
+                                              half_q))
+
+
+def _decrypt_compact_rns(ct_mont, pub_ctx, pk, half_p, half_q):
+    """RNS-engine decrypt -> (compact decode rows, full packed bytes)."""
+    m = _decrypt_residue_rns(ct_mont, pub_ctx, pk, half_p, half_q)
+    return _decode_compact(m, pk), lm.pack_bytes(m)
+
+
+# -- the batch programs: phe_tpu's jitted _dev names ---------------------
+#
+# Each is its eager body as a device program (phe_tpu_torch.programs): on
+# the card, captured once per shape and context as a CUDA graph and
+# replayed in one call; on the CPU, the body itself. Bodies call bodies,
+# never programs. Every per-call input is a tensor on the device, uploaded
+# before the call (config.to_device, _digits_on).
+
+_mul_mont_dev = device_program(mg.mont_mul)
+_pack_mont_dev = device_program(mg.to_mont)
+_export_dev = device_program(_export)
+_encrypt_dev = device_program(_encrypt_limb, static_argnames=("ln",))
+_obfuscate_dev = device_program(_obfuscate_limb)
+_encrypt_rns_dev = device_program(_encrypt_rns, static_argnames=("ln",))
+_obfuscate_rns_dev = device_program(_obfuscate_rns)
+_add_encoded_dev = device_program(_add_encoded, static_argnames=("ln",))
+_tree_reduce_dev = device_program(_tree_fold)
+_tree_reduce_masked_dev = device_program(_tree_reduce_masked)
+_matvec_dev = device_program(_matvec)
+_crt_powers_dev = device_program(_crt_powers_limb)
+_add_encrypted_aligned_dev = device_program(_add_encrypted_aligned)
+_add_scalars_aligned_dev = device_program(_add_scalars_aligned,
+                                          static_argnames=("ln",))
+_sum_aligned_dev = device_program(_sum_aligned)
+_inverse_scan_dev = device_program(_inverse_scan)
+_finish_inverse_dev = device_program(_finish_inverse)
+_pow_select_dev = device_program(_pow_select)
+_decrypt_dev = device_program(_decrypt_limb)
+_decrypt_compact_dev = device_program(_decrypt_compact_limb)
+_decrypt_rns_dev = device_program(_decrypt_rns)
+_decrypt_compact_rns_dev = device_program(_decrypt_compact_rns)
+_nude_encrypt_dev = device_program(_nude_encrypt, static_argnames=("ln",))
+_pow_elems_dev = device_program(_pow_elems)
+# The port's short obfuscation, whose steps phe_tpu dispatches one by one.
+_short_base_dev = device_program(_short_base)
+_obfuscate_short_dev = device_program(_obfuscate_short)
+
+
+def _digits_on(digits, device):
+    """[..., n_windows] host schedules at DEFAULT_WINDOW (_digits_rows's)
+    as int8 on device, range-checked before the upload."""
+    flat = digits.reshape(-1, digits.shape[-1])
+    return cuda_rns._digit_rows_on(flat, DEFAULT_WINDOW, flat.shape[0],
+                                   device).reshape(digits.shape)
 
 
 class PublicDeviceContext:
@@ -651,12 +729,14 @@ class PublicDeviceContext:
     def pack_mod_nsquare(self, values):
         """Canonical residues mod n^2 -> Montgomery-domain [Bp, L]."""
         values = _pad_list(values, bucket_rows(len(values)), 1)
-        x = mg._tensor(hl.ints_to_limbs(values, self.L), self.device)
-        return mg.to_mont(x, self.ctx)
+        x = config.to_device(
+            np.asarray(hl.ints_to_limbs(values, self.L), dtype=np.int64),
+            self.device)
+        return _pack_mont_dev(x, self.ctx)
 
     def export_ints(self, mont):
         """Montgomery-domain [B, L] -> canonical Python ints in [0, n^2)."""
-        return _bytes_to_ints(_export(mont, self.ctx))
+        return _bytes_to_ints(_export_dev(mont, self.ctx))
 
     def pack_messages(self, encodings, pad_rows=None):
         """Encoded residues m < n -> [Bp, nb] uint8 rows on the device.
@@ -668,7 +748,7 @@ class PublicDeviceContext:
             pad_rows = bucket_rows(len(encodings))
         encodings = _pad_list(encodings, pad_rows, 0)
         buf = hl.ints_to_bytes(encodings, (self.n_bits + 7) // 8)
-        return torch.as_tensor(buf, device=self.device)
+        return config.to_device(buf, self.device)
 
     def nude_encrypt(self, encodings):
         """(n*m + 1) mod n^2 in Montgomery form, for residues m < n.
@@ -701,7 +781,7 @@ class PublicDeviceContext:
             buf = np.frombuffer(
                 bytearray(secrets.token_bytes(bucket * nbytes)), dtype=np.uint8
             ).reshape(bucket, nbytes)
-        return torch.as_tensor(buf, device=self.device)
+        return config.to_device(buf, self.device)
 
     def encrypt_mont(self, encodings, r_values=None):
         """Fresh encryption (n*m+1)*r^n for encoded residues -> [Bp, L]."""
@@ -709,18 +789,18 @@ class PublicDeviceContext:
         r = self.random_r_bytes(len(encodings), r_values)
         st = self.rns_state()
         if st is None:
-            return _encrypt_limb(m, r, self.nr2_limbs, self.n_digits,
-                                 self.ctx, self.Ln)
-        return _encrypt_rns(m, r, self.nr2_limbs, self.n_digits, self.ctx,
-                            st, self.Ln)
+            return _encrypt_dev(m, r, self.nr2_limbs, self.n_digits,
+                                self.ctx, self.Ln)
+        return _encrypt_rns_dev(m, r, self.nr2_limbs, self.n_digits,
+                                self.ctx, st, self.Ln)
 
     def obfuscate_mont(self, mont):
         """Fresh uniform re-obfuscation of a Montgomery ciphertext batch."""
         r = self.random_r_bytes(mont.shape[0])
         st = self.rns_state()
         if st is None:
-            return _obfuscate_limb(mont, r, self.n_digits, self.ctx)
-        return _obfuscate_rns(mont, r, self.n_digits, self.ctx, st)
+            return _obfuscate_dev(mont, r, self.n_digits, self.ctx)
+        return _obfuscate_rns_dev(mont, r, self.n_digits, self.ctx, st)
 
     def obfuscate_mont_short(self, mont, exponent_bits=SHORT_EXPONENT_BITS):
         """Re-obfuscation by h^a, with h = x^n fixed per key and device and
@@ -736,15 +816,16 @@ class PublicDeviceContext:
         """
         if self._h_mont is None:
             x = 1 + secrets.randbelow(self.n - 1)
-            xm = mg.to_mont(mg._tensor(hl.ints_to_limbs([x], self.L),
-                                       self.device), self.ctx)
+            xm = _pack_mont_dev(config.to_device(
+                np.asarray(hl.ints_to_limbs([x], self.L), dtype=np.int64),
+                self.device), self.ctx)
             self._h_mont = _short_base_dev(xm, self.n_digits, self.ctx)
         a = [secrets.randbits(exponent_bits) for _ in range(mont.shape[0])]
-        return _obfuscate_short_dev(mont, self._h_mont,
-                                    _digits_rows(a, exponent_bits), self.ctx)
+        digits = _digits_on(_digits_rows(a, exponent_bits), self.device)
+        return _obfuscate_short_dev(mont, self._h_mont, digits, self.ctx)
 
     def mul_mont(self, a, b):
-        return mg.mont_mul(a, b, self.ctx)
+        return _mul_mont_dev(a, b, self.ctx)
 
     def pow_scalars(self, ct_mont, exponents, exponent_bits):
         """ct^e_i with per-element exponents (scalar multiply).
@@ -754,7 +835,8 @@ class PublicDeviceContext:
         """
         digits = _digits_rows(exponents, exponent_bits,
                               pad_rows=ct_mont.shape[0])
-        return _pow_elems(ct_mont, digits, self.ctx, self.rstate())
+        return _pow_elems_dev(ct_mont, _digits_on(digits, self.device),
+                              self.ctx, self.rstate())
 
 
 class PrivateDeviceConstants(NamedTuple):
@@ -861,7 +943,7 @@ class PrivateDeviceContext:
         (phe_tpu's two-phase fallback; the default decrypt runs wholly on
         the card through raw_decrypt_batch).
         """
-        return _crt_powers_limb(ct_mont, self.pub_ctx.ctx, self.consts)
+        return _crt_powers_dev(ct_mont, self.pub_ctx.ctx, self.consts)
 
     def _build_half(self, pp, nsq, ctx2):
         rsys = rns.build_rns(nsq, self.device)
@@ -871,17 +953,13 @@ class PrivateDeviceContext:
                 rns.residues(E, rsys),
                 mg.build_excess_reducer(nsq, rsys.out_limbs, self.device))
 
-    def _residue(self, ct_mont):
-        halves = self.rns_state()
-        if halves is None:
-            return _decrypt_residue_limb(ct_mont, self.pub_ctx.ctx,
-                                         self.consts)
-        return _decrypt_residue_rns(ct_mont, self.pub_ctx.ctx, self.consts,
-                                    *halves)
-
     def raw_decrypt_launch(self, ct_mont):
         """Run the decrypt program: [Bp, nbytes] packed plaintext bytes."""
-        return lm.pack_bytes(self._residue(ct_mont))
+        halves = self.rns_state()
+        if halves is None:
+            return _decrypt_dev(ct_mont, self.pub_ctx.ctx, self.consts)
+        return _decrypt_rns_dev(ct_mont, self.pub_ctx.ctx, self.consts,
+                                *halves)
 
     def raw_decrypt_batch(self, ct_mont):
         """Exact plaintext residues mod n for a Montgomery ciphertext batch."""
@@ -889,8 +967,12 @@ class PrivateDeviceContext:
 
     def raw_decrypt_compact(self, ct_mont):
         """(compact decode rows [Bp, 3], full packed bytes) — _decode_compact."""
-        m = self._residue(ct_mont)
-        return _decode_compact(m, self.consts), lm.pack_bytes(m)
+        halves = self.rns_state()
+        if halves is None:
+            return _decrypt_compact_dev(ct_mont, self.pub_ctx.ctx,
+                                        self.consts)
+        return _decrypt_compact_rns_dev(ct_mont, self.pub_ctx.ctx,
+                                        self.consts, *halves)
 
 
 class EncryptedBatch:
@@ -1130,11 +1212,14 @@ class EncryptedBatch:
         return self.decrease_exponent_to(target), target
 
     def _align_digits(self, target):
-        """[Bp, W] BASE**diff digit schedules aligning self to target."""
+        """[Bp, W] BASE**diff digit schedules aligning self to target, on
+        the batch's device."""
         diffs = self.exponents - np.asarray(target, dtype=np.int64)
         factors = [EncodedNumber.BASE ** int(d) for d in diffs]
         bits = max(f.bit_length() for f in factors)
-        return _digits_rows(factors, bits, pad_rows=self.mont.shape[0])
+        return _digits_on(_digits_rows(factors, bits,
+                                       pad_rows=self.mont.shape[0]),
+                          self.mont.device)
 
     def __add__(self, other):
         if isinstance(other, EncryptedBatch):
@@ -1280,14 +1365,16 @@ class EncryptedBatch:
             any_neg = any(neg)
             bits = max(max(k.bit_length() for k in ks), 1)
         dc = self._dc
-        digits = _digits_rows(ks, bits, pad_rows=self.mont.shape[0])
+        digits = _digits_on(
+            _digits_rows(ks, bits, pad_rows=self.mont.shape[0]), dc.device)
         if any_neg:
-            mask = np.pad(np.asarray(neg, dtype=np.uint8),
+            mask = np.pad(np.asarray(neg, dtype=bool),
                           (0, self.mont.shape[0] - len(neg)))
-            mont = _pow_select_dev(self.mont, self.inverse_mont(), mask,
+            mont = _pow_select_dev(self.mont, self.inverse_mont(),
+                                   config.to_device(mask, dc.device),
                                    digits, dc.ctx, dc.rstate())
         else:
-            mont = _pow_elems(self.mont, digits, dc.ctx, dc.rstate())
+            mont = _pow_elems_dev(self.mont, digits, dc.ctx, dc.rstate())
         return EncryptedBatch(self.public_key, mont,
                               self.exponents + sc_exps, False)
 
@@ -1298,7 +1385,7 @@ class EncryptedBatch:
         target = int(self.exponents.min())
         dc = self._dc
         if (self.exponents == target).all():
-            mont = _tree_fold(self.mont, dc.ctx)
+            mont = _tree_reduce_dev(self.mont, dc.ctx)
         else:
             mont = _sum_aligned_dev(
                 self.mont,
@@ -1346,9 +1433,11 @@ class EncryptedBatch:
         diffs = (exp_grid - row_min[:, None]).reshape(-1)
         exps = [k * EncodedNumber.BASE ** int(d) for k, d in zip(ks, diffs)]
         bits = max(max(e.bit_length() for e in exps), 1)
-        digits = _digits_rows(exps, bits).reshape(B, D, -1)
+        digits = _digits_on(_digits_rows(exps, bits).reshape(B, D, -1),
+                            dc.device)
         inv_mont = self.inverse_mont()[:D] if any(neg) else w_mont
-        mask = np.array(neg, dtype=np.uint8).reshape(B, D)
+        mask = config.to_device(np.array(neg, dtype=bool).reshape(B, D),
+                                dc.device)
         mont = _matvec_dev(w_mont, inv_mont, mask, digits, dc.ctx,
                            dc.rstate())
         return EncryptedBatch(self.public_key, mont, row_min, False)

@@ -16,10 +16,14 @@ tensors live and where the hand-written kernels are compiled to:
                 which ``.gitignore`` lists: the compiled kernel libraries.
   native_dir()  ``build/native`` beside it: the native host engine's
                 library (phe_tpu_torch.native).
+
+``to_device`` moves a host array onto the device, as every batch
+program's per-call data arrives there.
 """
 
 import os
 
+import numpy as np
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -43,6 +47,21 @@ def resolve_device(device=None):
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(array, device):
+    """A host array as a tensor on ``device``.
+
+    To the card through pinned memory, without waiting for the copy: the
+    staging buffer stays pinned until the copy has run, and the host goes
+    on to the next launch (nothing here reads back, so a batch program's
+    inputs arrive without a host wait).
+    """
+    device = torch.device(device)
+    t = torch.as_tensor(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def build_dir():

@@ -15,7 +15,7 @@ phe_tpu_torch.parallel mesh when one is given.
 import numpy as np
 import torch
 
-from phe_tpu_torch.batch import EncryptedBatch, _tree_fold
+from phe_tpu_torch.batch import EncryptedBatch, _tree_reduce_dev
 from phe_tpu_torch.keys import generate_paillier_keypair
 
 
@@ -88,7 +88,7 @@ def aggregate_encrypted_gradients(batches, mesh=None):
 
         out = allreduce_mul_mont(mont, dc.ctx, mesh, vector_axes=1)
     else:
-        out = _tree_fold(mont, dc.ctx)[0]
+        out = _tree_reduce_dev(mont, dc.ctx)[0]
     return EncryptedBatch(pub, out, target, False)
 
 

@@ -25,6 +25,7 @@ import ctypes
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from phe_tpu_torch import config
 from phe_tpu_torch.ops import _build
 from phe_tpu_torch.ops import rns
 
@@ -156,7 +157,7 @@ def _digits_on(digits, window, dev):
         host = torch.as_tensor(digits, dtype=torch.int64, device="cpu")
         if not bool(((host >= 0) & (host < (1 << window))).all()):
             raise ValueError("digits must lie in [0, 2^window)")
-        digits = host.to(dev)
+        digits = config.to_device(host, dev)
     if digits.dtype != torch.int64 or digits.dim() != 1:
         raise ValueError("digits must be 1-D int64, got %s %s"
                          % (digits.dtype, tuple(digits.shape)))
@@ -166,15 +167,18 @@ def _digits_on(digits, window, dev):
 def _digit_rows_on(digits, window, rows, dev):
     """Per-element schedules as contiguous int8 [rows, n_windows] on dev.
 
-    Schedules from the host are range-checked before their upload; one
-    already on the card (the wire form of batch._digits_rows) is taken as
-    it is, and the kernel masks each digit to the window.
+    Schedules from the host are range-checked before their upload, which
+    does not wait for the copy; one already on dev (the wire form of
+    batch._digits_rows, uploaded before a batch program) is taken as it
+    is, and the kernel masks each digit to the window. The batch programs
+    take their schedules through here before the call, so that nothing
+    inside them copies from the host.
     """
     if not (isinstance(digits, torch.Tensor) and digits.device == dev):
         host = torch.as_tensor(digits, device="cpu")
         if not bool(((host >= 0) & (host < (1 << window))).all()):
             raise ValueError("digits must lie in [0, 2^window)")
-        digits = host.to(torch.int8).to(dev)
+        digits = config.to_device(host.to(torch.int8), dev)
     if digits.dtype != torch.int8 or digits.dim() != 2 or (
             digits.shape[0] != rows):
         raise ValueError("digits must be int8 [%d, n_windows], got %s %s"

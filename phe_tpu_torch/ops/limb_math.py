@@ -27,6 +27,8 @@ represented value below the array's capacity, and with non-negative limbs
 that forces the dropped carry to be zero.
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -122,13 +124,49 @@ def shift_right_limbs_exact(x, nlimbs):
 def normalize(x):
     """Fully propagate carries to canonical limbs (<= 2**14 - 1).
 
-    Boundary-only helper (export, compare, decode windows). The loop runs
-    until stable — expected 2-3 trips; on a GPU each trip's any() waits for
-    the device.
+    For limbs in [0, 2**31), the bound every caller keeps: carry_fix
+    brings them to <= 2**14, and one carry-lookahead finishes. With
+    g_i = (x_i == 2**14) and p_i = (x_i == 2**14 - 1), the carry into
+    limb i + 1 is g_j for the last j <= i with not p_j (none: no carry),
+    found by a running maximum over the indices. The carry out of the top
+    limb is dropped, as carry_pass drops it: the result is the canonical
+    form of value mod 2**(14 L), the fixed point phe_tpu's while_loop
+    reaches. A fixed count of tensor ops for any input, and no read on
+    the host: a +1 rippling through a run of 2**14 - 1 limbs costs the
+    same as any other input.
     """
-    while bool((x > LIMB_MASK).any()):
-        x = carry_pass(x)
-    return x
+    x = carry_fix(x)
+    idx = _positions(x.shape[-1], x.device)
+    last, _ = torch.cummax(torch.where(x != LIMB_MASK, idx, -1), dim=-1)
+    carry = torch.gather(x >> LIMB_BITS, -1, last.clamp(min=0)) * (last >= 0)
+    return (x + _shift_up(carry)) & LIMB_MASK
+
+
+@functools.lru_cache(maxsize=None)
+def _positions(L, device):
+    """int64 [L] limb indices on device, made once per (L, device)."""
+    return torch.arange(L, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(L, device):
+    """pack_bytes's gathers for L limbs on device: (lo limb, hi limb,
+    shift, hi present), made once per (L, device) so that no call copies
+    from the host."""
+    nbytes = (LIMB_BITS * L + 7) // 8
+    j = np.arange(nbytes)
+    a = (8 * j) // LIMB_BITS
+    return tuple(torch.as_tensor(v.astype(np.int64), device=device) for v in (
+        a, np.minimum(a + 1, L - 1), (8 * j) % LIMB_BITS, a + 1 < L))
+
+
+@functools.lru_cache(maxsize=None)
+def _unpack_index(num_limbs, device):
+    """unpack_bytes's (first byte, shift) of each limb on device, made
+    once per (num_limbs, device)."""
+    j = np.arange(num_limbs)
+    return (torch.as_tensor((LIMB_BITS * j) // 8, device=device),
+            torch.as_tensor((LIMB_BITS * j) % 8, device=device))
 
 
 def pack_bytes(x):
@@ -137,15 +175,9 @@ def pack_bytes(x):
     Byte j covers bits [8j, 8j+8), spanning at most two 14-bit limbs: two
     index gathers and a shift-or. Input must be canonical.
     """
-    L = x.shape[-1]
-    nbytes = (LIMB_BITS * L + 7) // 8
-    j = np.arange(nbytes)
-    a = (8 * j) // LIMB_BITS
-    dev = x.device
-    s = torch.as_tensor((8 * j) % LIMB_BITS, dtype=torch.int64, device=dev)
-    hi_ok = torch.as_tensor((a + 1 < L).astype(np.int64), device=dev)
-    lo = x[..., torch.as_tensor(a, device=dev)] >> s
-    hi = x[..., torch.as_tensor(np.minimum(a + 1, L - 1), device=dev)] * hi_ok
+    a, a1, s, hi_ok = _pack_index(x.shape[-1], x.device)
+    lo = x[..., a] >> s
+    hi = x[..., a1] * hi_ok
     return ((lo | (hi << (LIMB_BITS - s))) & 0xFF).to(torch.uint8)
 
 
@@ -159,10 +191,7 @@ def unpack_bytes(buf, num_limbs):
     b = buf.to(torch.int64)
     if b.shape[-1] < need:
         b = F.pad(b, (0, need - b.shape[-1]))
-    j = np.arange(num_limbs)
-    dev = b.device
-    o = torch.as_tensor((LIMB_BITS * j) // 8, device=dev)
-    s = torch.as_tensor((LIMB_BITS * j) % 8, dtype=torch.int64, device=dev)
+    o, s = _unpack_index(num_limbs, b.device)
     word = b[..., o] | (b[..., o + 1] << 8) | (b[..., o + 2] << 16)
     return (word >> s) & LIMB_MASK
 

@@ -291,8 +291,7 @@ def from_mont(x, ctx):
 
     The kernel-branch formulation: a shared-operand product by the integer 1.
     """
-    one_int = torch.zeros_like(ctx.m)
-    one_int[0] = 1
+    one_int = F.pad(torch.ones_like(ctx.m[:1]), (0, ctx.num_limbs - 1))
     return mont_mul_const(x, one_int, ctx)
 
 

@@ -798,3 +798,98 @@ def test_world_of_one_on_nccl(dev):
         assert total.decrypt(priv) == batch.sum().decrypt(priv)
     finally:
         dist.destroy_process_group()
+
+
+# -- the batch programs: captured graphs against their eager bodies ------
+
+PROGRAM_ROWS = 64
+
+
+def _program_inputs(dev):
+    """(pub, priv, {step: (program, arguments)}) at the fixed 2048-bit
+    key over PROGRAM_ROWS rows: the programs of encrypt, decrypt, add and
+    mul_scalars (mixed signs: the inverse-selecting pow)."""
+    pub, priv = benchmarks.fixed_key(2048)
+    dc, pdc = pub.device_context(dev), priv.device_context(dev)
+    g = np.random.default_rng(9)
+    values = [float(v) for v in g.uniform(-1e6, 1e6, PROGRAM_ROWS)]
+    encs = pt.EncodedNumber.encode_many(pub, values)
+    m = dc.pack_messages([e.encoding for e in encs])
+    r = dc.random_r_bytes(PROGRAM_ROWS)
+    st = dc.rns_state()
+    a = tbatch.EncryptedBatch.encrypt(pub, values, device=dev)
+    b = tbatch.EncryptedBatch.encrypt(pub, values[::-1], device=dev)
+    ks = [int(v) for v in g.integers(1, 1 << 50, PROGRAM_ROWS)]
+    digits = tbatch._digits_on(tbatch._digits_rows(ks, 50), dev)
+    neg = torch.as_tensor(g.integers(0, 2, PROGRAM_ROWS) != 0, device=dev)
+    return pub, priv, {
+        "encrypt": (tbatch._encrypt_rns_dev,
+                    (m, r, dc.nr2_limbs, dc.n_digits, dc.ctx, st, dc.Ln)),
+        "decrypt": (tbatch._decrypt_compact_rns_dev,
+                    (a.mont, dc.ctx, pdc.consts) + tuple(pdc.rns_state())),
+        "add": (tbatch._mul_mont_dev, (a.mont, b.mont, dc.ctx)),
+        "mul_scalars": (tbatch._pow_select_dev,
+                        (a.mont, a.inverse_mont(), neg, digits, dc.ctx, st)),
+    }
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("step", ["encrypt", "decrypt", "add",
+                                  "mul_scalars"])
+def test_program_replay_equals_eager_and_counts_alike(dev, step):
+    """Bit-equal to the eager body at every call (the first warms up, the
+    second captures, each after it replays), each call counting the eager
+    launches."""
+    _, _, cases = _program_inputs(dev)
+    prog, args = cases[step]
+    _zero_counts()
+    eager = _outs(prog.fn(*args))
+    torch.cuda.synchronize()
+    want_counts = _counts()
+    assert want_counts
+    for _ in range(3):
+        _zero_counts()
+        got = _outs(prog(*args))
+        torch.cuda.synchronize()
+        assert _counts() == want_counts
+        assert len(got) == len(eager)
+        assert all(torch.equal(x, y) for x, y in zip(got, eager))
+    assert prog.captured >= 1
+
+
+def test_program_outputs_are_not_overwritten(dev):
+    """A second encrypt through the same graph leaves the first batch's
+    limbs as they were."""
+    pub, priv = benchmarks.fixed_key(2048)
+    xs = [float(v) for v in range(PROGRAM_ROWS)]
+    ys = [-2.5 * v for v in xs]
+    for _ in range(2):  # the second round runs on replays only
+        first = tbatch.EncryptedBatch.encrypt(pub, xs, device=dev)
+        snap = first.mont.clone()
+        second = tbatch.EncryptedBatch.encrypt(pub, ys, device=dev)
+        torch.cuda.synchronize()
+        assert torch.equal(first.mont, snap)
+        assert first.mont.data_ptr() != second.mont.data_ptr()
+        assert first.decrypt(priv) == xs and second.decrypt(priv) == ys
+
+
+def test_round_trip_programs_wait_on_nothing(dev):
+    """Upload, encrypt and decrypt's device half under
+    set_sync_debug_mode("error"): no host wait (two round trips at this
+    shape warm up and capture the graphs)."""
+    pub, priv = benchmarks.fixed_key(2048)
+    xs = [1.5 * v for v in range(PROGRAM_ROWS)]
+    for _ in range(2):
+        assert tbatch.EncryptedBatch.encrypt(pub, xs, device=dev).decrypt(
+            priv) == xs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = tbatch.EncryptedBatch.encrypt(
+            pub, xs, device=dev).decrypt_async(priv)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert finish() == xs

@@ -58,6 +58,60 @@ def test_carry_functions(name):
     np.testing.assert_array_equal(got, want)
 
 
+# normalize's stated bound: limbs in [0, 2**31).
+NORMALIZE_TOP = (1 << 31) - 1
+
+
+@pytest.mark.parametrize("shape", [(9, 24), (2, 3, 17)], ids=["BL", "nested"])
+def test_normalize_at_its_bound(shape):
+    rng = _rng(11)
+    a = _limbs(rng, shape, NORMALIZE_TOP + 1)
+    a.reshape(-1, shape[-1])[0] = NORMALIZE_TOP  # every limb at the bound
+    a.reshape(-1, shape[-1])[1] = 0
+    ja, ta = _both(a)
+    np.testing.assert_array_equal(lm.normalize(ta).numpy(),
+                                  _np(jlm.normalize(ja)))
+
+
+def test_normalize_ripples_through_runs_of_the_mask():
+    # A +1 (a limb of 2**14 after the carry pass) rippling through runs
+    # of 0x3FFF: whole-width runs carry out of the top limb, which is
+    # dropped, as phe_tpu drops it.
+    L, mask = 16, (1 << 14) - 1
+    rows = []
+    for start in range(L):
+        for run in (0, 1, 5, L):
+            r = np.zeros(L, np.int64)
+            r[start] = 1 << 14
+            r[start + 1 : start + 1 + run] = mask
+            rows.append(r)
+    whole = np.full(L, mask, np.int64)
+    for bump in (1, 1 << 14, 3 << 14, NORMALIZE_TOP - mask):
+        r = whole.copy()
+        r[0] += bump
+        rows.append(r)
+    rows.append(whole)
+    a = np.stack(rows)
+    ja, ta = _both(a)
+    got = lm.normalize(ta).numpy()
+    np.testing.assert_array_equal(got, _np(jlm.normalize(ja)))
+    np.testing.assert_array_equal(got[-5], np.zeros(L))  # 2**(14 L): dropped
+
+
+def test_normalize_and_the_packers_read_nothing_on_the_host():
+    # Meta tensors hold no data: any bool() or .item() on them raises, as
+    # a host wait would inside a captured program.
+    meta = torch.empty((4, 19), dtype=torch.int64, device="meta")
+    with pytest.raises(RuntimeError):
+        bool((meta > lm.LIMB_MASK).any())
+    for shape in ((4, 19), (2, 3, 19)):
+        x = torch.empty(shape, dtype=torch.int64, device="meta")
+        assert lm.normalize(x).shape == shape
+        assert lm.pack_bytes(x).shape == shape[:-1] + (34,)
+    buf = torch.empty((4, 40), dtype=torch.uint8, device="meta")
+    assert lm.unpack_bytes(buf, 20).shape == (4, 20)
+
+
 def test_add_mul_full_mul_low_diag_sum():
     rng = _rng(2)
     a, b = _limbs(rng, (5, 16)), _limbs(rng, (5, 16))
