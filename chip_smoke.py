@@ -11,7 +11,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and the Montgomery product: every instantiation of each runs its digit
    products (the ladder's base extensions, the two REDC products of the
    modexp and the product) on the int8 tensor cores (IMMA) and none on
-   __dp4a (IDP4A).
+   __dp4a (IDP4A); the limb kernels' integer-pipe instantiations run
+   neither.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: 16,384 rows at the fixed 2048-bit key. The
    Montgomery product runs at L = 296 (n^2), 152 (p^2) and 80 (p), and at
@@ -104,6 +105,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8192-bit decrypt under profiling.trace, eagerly (the bodies) and
    through the programs in turns, each with its CUDA runtime calls; the
    memory the card holds after it.
+10. The engines (engines_phase), under PHE_TPU_TORCH_ENGINE set and
+   restored by the phase: the fixed 2048- and 3072-bit keys' 16,384-row
+   round trips on the limb engine (no rns_ladder launch) and on the RNS
+   engine, timed in turns (RNS, limb, limb, RNS) after each engine's
+   warm-up and capture, equal to x on every row; a pinned-r batch equal
+   across the engines and to raw_encrypt; mul_scalars over 65,536 rows and
+   an aligned add equal, ciphertext for ciphertext, to the RNS engine's
+   and exact after a limb decrypt; mont_pow_shared at the limb encrypt's
+   launch (L = 296 and 440 over 16,384 rows). Then, under
+   PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object and the 8192-bit n^2,
+   whose contexts have no REDC matrices: each integer-pipe body against
+   its plain version (the product at L = 296 and 80, both forms, with
+   ragged batches; the modexp at L = 296, both forms, with ragged batches,
+   and at L = 1,176 on 16 rows), each no faster than the bound of
+   profiling.mont_mul_cost(L, mxu=False) on the int32 rate; and a
+   16,384-row round trip and mul_scalars on the limb engine with those
+   contexts, exact, launching only the integer-pipe kernels.
 
 The second-to-last lines are the kernels' JSON record, the seconds the
 whole run took, and the card's name and power limit; the last line is
@@ -112,7 +130,9 @@ CUDA-event times; bounds use NVIDIA's published H100 SXM peaks, and for
 the issue-rate chain the instructions its SASS issues (CHAIN_ISSUE).
 """
 
+import contextlib
 import json
+import os
 import random
 import re
 import sys
@@ -145,6 +165,17 @@ CRT_SAMPLE = 64  # crt_powers rows held against Python's pow
 CRT_PLAIN_ROWS = 64  # rows of mont_pow_shared's plain version at L = 152
 CLI_FEW = 4  # values of the CLI run in a process of its own
 CLI_TIMEOUT_S = 300
+ENGINE_PINNED = 16  # the pinned-r batch held across the two engines
+INT_PLAIN_ROWS = 128  # rows of the integer-pipe mont_pow's plain version
+INT_SHARED_PLAIN_ROWS = 4  # and of its mont_pow_shared's, at L = 296
+# Each engine's launches a round trip, at keys whose n^2 the RNS channel
+# supply covers (the 2048- and 3072-bit keys).
+TRIP_LAUNCHES = {
+    "rns": ({"mont_mul": 1, "mont_mul_const": 1, "rns_ladder": 1},
+            {"mont_mul": 3, "mont_mul_const": 6, "rns_ladder": 2}),
+    "limb": ({"mont_pow_shared": 1, "mont_mul_const": 2, "mont_mul": 1},
+             {"mont_pow_shared": 2, "mont_mul_const": 8, "mont_mul": 3}),
+}
 
 # NVIDIA H100 SXM published peaks (data sheet; Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
@@ -278,6 +309,105 @@ def mont_pow_bound(rows, L, window, n_windows, digit_bytes):
                     int32_ops=rows * (sq * L * (L + 1) // 2 + mul * L * L))
 
 
+def limbs_on(values, L, dev):
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    return mg._tensor(hl.ints_to_limbs(values, L), dev)
+
+
+def int_pipe_ops(L, products=1):
+    """The integer-pipe REDC body's int32 multiplies for `products`
+    Montgomery products at L, as profiling.mont_mul_cost(L, mxu=False)
+    counts them (3 L^2 a product: a b, T_lo M' and q M as full
+    schoolbook products, one multiply-add each): the bound the integer
+    bodies are held to."""
+    from phe_tpu_torch import profiling
+
+    return products * profiling.mont_mul_cost(L, mxu=False)["vpu_u32_mul"]
+
+
+def int_pipe_least_ms(L, rows, squarings, products):
+    """The least int32 time of the integer-pipe body's work, counted as the
+    function needs it: a b as L^2 multiply-adds (L (L + 1) / 2 for a
+    squaring), q = T_lo M' mod R as the low half's L (L + 1) / 2, and q M
+    as L^2; below int_pipe_ops' bound, which counts 3 L^2 a product."""
+    half = L * (L + 1) // 2
+    macs = squarings * (2 * half + L * L) + products * (2 * L * L + half)
+    return 1e3 * rows * macs / INT32_OPS_PER_S
+
+
+def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
+    """The Montgomery product's kernel for ctx (its int8 body, or the
+    integer-pipe one for a context without REDC matrices) against its
+    plain version and Python ints over rows at L, value mod M with the
+    contract's bounds, timed beside its bound; its record."""
+    from phe_tpu_torch.ops import cuda_modexp
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    dev = ctx.m.device
+    mxu = mg.has_matrices(ctx)
+    L = ctx.num_limbs
+    R_inv = pow(1 << (14 * L), -1, M)
+    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
+    a = limbs_on(xs, L, dev)
+    b = limbs_on(ys, L, dev)[0] if shared else limbs_on(ys, L, dev)
+    fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
+    chunk = max(1, PLAIN_CHUNK * 296 * 296 // (L * L))
+
+    def plain():
+        return torch.cat([
+            cuda_modexp.mont_mul_plain(
+                a[i : i + chunk], b if shared else b[i : i + chunk], ctx)
+            for i in range(0, rows, chunk)])
+
+    got = fn(a, b, ctx)
+    ref = plain()
+    sync()
+    name = ("mont_mul_const" if shared else "mont_mul") + (
+        "" if mxu else "_int")
+    g = hl.limbs_to_ints(got.cpu().numpy())
+    want = [x * (ys[0] if shared else y) * R_inv % M
+            for x, y in zip(xs, ys * rows if shared else ys)]
+    check([v % M for v in g] == want, "%s L=%d: kernel value mod M "
+          "differs from Python ints" % (name, L))
+    check(int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
+          "%s L=%d: limbs outside [0, 2^14]" % (name, L))
+    check(all(100 * v < 101 * M for v in g),
+          "%s L=%d: value not below 1.01 M" % (name, L))
+    # Both outputs are < 1.01 M: their canonical forms are the values
+    # mod M, compared limb for limb on the card.
+    diff = (mg.export_canonical(got, ctx)
+            - mg.export_canonical(ref, ctx)).abs().max()
+    err = int(diff)
+    check(err == 0, "%s L=%d: kernel value mod M differs from the "
+          "plain version" % (name, L))
+    ms = cuda_ms(lambda: fn(a, b, ctx), 10)
+    plain_ms = cuda_ms(plain, 1)
+    least = ""
+    if mxu:
+        bms, by = mont_mul_bound(rows, L, shared)
+    else:
+        bms, by = bound_ms(8 * L * (rows * (2 if shared else 3) + 2),
+                           int32_ops=int_pipe_ops(L, rows))
+        least_ms = int_pipe_least_ms(L, rows, 0, 1)
+        least = ", least work %.4f ms" % least_ms
+    tile = "E = %d, %d rows a block" % pow_tile(L, rows, mxu)
+    print("%s L=%d rows=%d (%s): value-equal, bounds hold; kernel "
+          "%.4f ms, plain %.4f ms, bound %.4f ms (%s%s)"
+          % (name, L, rows, tile, ms, plain_ms, bms, by, least))
+    check(ms >= bms, "%s L=%d ran under its bound: its count no longer "
+          "matches the kernel" % (name, L))
+    record = dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
+                  bound_by=by)
+    if not mxu:
+        record["least_work_ms"] = least_ms
+    return record
+
+
 def sync():
     torch.cuda.synchronize()
 
@@ -290,12 +420,13 @@ def block_elems(k, rows):
     return cuda_rns._elems(k, rows, cuda_rns._sms(torch.device("cuda")))
 
 
-def pow_tile(L, rows):
+def pow_tile(L, rows, mxu=True):
     """(E, rows a block) of a limb-engine modexp launch of rows at L on
-    this card, as the wrappers choose them."""
+    this card, as the wrappers choose them for the REDC body."""
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
 
-    return cuda_modexp._pow_elems(L, rows, cuda_rns._sms(torch.device("cuda")))
+    return cuda_modexp._pow_elems(L, rows, cuda_rns._sms(torch.device("cuda")),
+                                  mxu)
 
 
 def tile_text(L, rows):
@@ -526,7 +657,8 @@ def check_ragged_pows(pub, dev, rng):
     three rows a block of E = 8, and full blocks of E = 8 and of E = 32,
     each at the smallest and largest batch that takes it (a last block of
     1 row, and of all but one), on their first rows and last two
-    blocks."""
+    blocks. The REDC body is the context's: for a key whose contexts were
+    built without matrices, the integer-pipe body's."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -536,12 +668,14 @@ def check_ragged_pows(pub, dev, rng):
         pub.nsquare
     R = 1 << (14 * L)
     R_inv = pow(R, -1, N)
+    mxu = mg.has_matrices(ctx)
+    body = "" if mxu else " (integer pipe)"
     sms = cuda_rns._sms(dev)
     sizes = {(8, 1): (1, 7, 9), (8, 3): (2 * sms + 1, 3 * sms - 1)}
     for E in (8, 32):
         sizes[E, E] = ((sms - 1) * E + 1, sms * E - 1)
     for tile, Bs in sizes.items():
-        check(all(pow_tile(L, B) == tile for B in Bs),
+        check(all(pow_tile(L, B, mxu) == tile for B in Bs),
               "ragged modexp batches %s do not take %s" % (Bs, tile))
     rows = max(max(Bs) for Bs in sizes.values())
     checked = sorted(set(range(9)).union(*(
@@ -576,12 +710,12 @@ def check_ragged_pows(pub, dev, rng):
               and values(got_vec[rs]) == [want_vec[i] for i in at]
               and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
               and int(got_vec.min()) >= 0 and int(got_vec.max()) <= 1 << 14,
-              "mont_pow L=%d: a ragged batch of %d rows differs from the "
-              "plain version" % (L, B))
-    print("mont_pow_shared, mont_pow L=%d: ragged batches value-equal to the "
-          "plain versions and Python pow on %d checked rows, %d SMs: %s "
+              "mont_pow%s L=%d: a ragged batch of %d rows differs from the "
+              "plain version" % (body, L, B))
+    print("mont_pow_shared, mont_pow%s L=%d: ragged batches value-equal to "
+          "the plain versions and Python pow on %d checked rows, %d SMs: %s "
           "(plain %.1f s)"
-          % (L, len(checked), sms, "; ".join(
+          % (body, L, len(checked), sms, "; ".join(
               "E = %d, %d rows a block: %s rows" % (E, r, ", ".join(
                   map(str, Bs))) for (E, r), Bs in sizes.items()), plain_s))
 
@@ -642,6 +776,19 @@ def default_key_path(dev, card, totals):
     return pub, priv
 
 
+def decrypt_all(batch, priv):
+    """Decrypt in BATCH-row slices (the decrypt ladders' scratch grows with
+    the rows)."""
+    from phe_tpu_torch.batch import EncryptedBatch
+
+    out = []
+    for lo in range(0, len(batch), BATCH):
+        part = EncryptedBatch(batch.public_key, batch.mont[lo : lo + BATCH],
+                              batch.exponents[lo : lo + BATCH])
+        out += part.decrypt(priv)
+    return out
+
+
 def arithmetic_path(pub, priv, dev, card, totals):
     """Phase 4: the homomorphic algebra and the two applications through
     their entry points, each step checked exactly against the host.
@@ -670,16 +817,6 @@ def arithmetic_path(pub, priv, dev, card, totals):
               % (step, rows, seconds, rows / seconds, json.dumps(counts),
                  card))
 
-    def decrypt_all(batch):
-        """Decrypt in BATCH-row slices (the decrypt ladders' scratch grows
-        with the rows)."""
-        out = []
-        for lo in range(0, len(batch), BATCH):
-            part = EncryptedBatch(pub, batch.mont[lo : lo + BATCH],
-                                  batch.exponents[lo : lo + BATCH])
-            out += part.decrypt(priv)
-        return out
-
     def exact_sum(terms):
         return float(sum(terms, Fraction(0)))
 
@@ -691,7 +828,8 @@ def arithmetic_path(pub, priv, dev, card, totals):
     expect_launches("add", n, {"mont_mul": 1})
     report("add, equal exponents", ADD_ROWS, sec, n)
     profiled("add over %d rows" % ADD_ROWS, lambda: ct + ct2, card)
-    check(decrypt_all(s) == [x + x for x in xs], "add: decrypt(x + x) != x + x")
+    check(decrypt_all(s, priv) == [x + x for x in xs],
+          "add: decrypt(x + x) != x + x")
     idx = sorted(random.Random(SEED).sample(range(ADD_ROWS),
                                               min(256, ADD_ROWS)))
     c1, c2 = dc.export_ints(ct.mont[idx]), dc.export_ints(ct2.mont[idx])
@@ -706,14 +844,14 @@ def arithmetic_path(pub, priv, dev, card, totals):
     s, sec, n = run_step(lambda: a + b, totals)
     expect_launches("add aligned", n, {"rns_ladder_vec": 2, "mont_mul": 1})
     report("add, aligned", MUL_ROWS, sec, n)
-    check(decrypt_all(s) == [x + y for x, y in zip(xa, yb)],
+    check(decrypt_all(s, priv) == [x + y for x, y in zip(xa, yb)],
           "aligned add: decrypt(x + y) != x + y")
     sc = floats(-1e-3, 1e-3, MUL_ROWS)
     s, sec, n = run_step(lambda: a + sc, totals)
     expect_launches("add_scalars", n, {"rns_ladder_vec": 1,
                                        "mont_mul_const": 1, "mont_mul": 1})
     report("add_scalars, aligned", MUL_ROWS, sec, n)
-    check(decrypt_all(s) == [x + y for x, y in zip(xa, sc)],
+    check(decrypt_all(s, priv) == [x + y for x, y in zip(xa, sc)],
           "add_scalars: decrypt(x + s) != x + s")
     sc = floats(-100.0, 100.0, MUL_ROWS)
     s, sec, n = run_step(lambda: a * sc, totals)
@@ -721,7 +859,7 @@ def arithmetic_path(pub, priv, dev, card, totals):
     expect_launches("mul_scalars", n, {"rns_ladder_vec": 1, "mont_mul": mm,
                                        "mont_mul_const": mc})
     report("mul_scalars, mixed sign", MUL_ROWS, sec, n)
-    check(decrypt_all(s) == [x * y for x, y in zip(xa, sc)],
+    check(decrypt_all(s, priv) == [x * y for x, y in zip(xa, sc)],
           "mul_scalars: decrypt(x * s) != x * s")
     del a, b, s
 
@@ -784,8 +922,9 @@ def arithmetic_path(pub, priv, dev, card, totals):
           "FL aggregation launched %s" % json.dumps(n))
     report("FL aggregation, %d x %d" % (FL_CLIENTS, BATCH),
            FL_CLIENTS * BATCH, sec, n)
-    check(decrypt_all(s) == [exact_sum(Fraction(float(gr[d])) for gr in grads)
-                             for d in range(BATCH)],
+    check(decrypt_all(s, priv)
+          == [exact_sum(Fraction(float(gr[d])) for gr in grads)
+              for d in range(BATCH)],
           "FL aggregation: not the exactly rounded column sums")
     del encrypted, s
 
@@ -869,11 +1008,13 @@ def check_ragged_ladders(pub, dev, rng):
                             plain_s, len(checked)))
 
 
-def tensor_core_sass(source, kernel, elems):
+def tensor_core_sass(source, kernel, elems, int_pipe=False):
     """Phase 1, a kernel's instructions as the card runs them: every
-    instantiation <kVec, E> of `kernel` in cuobjdump -sass of the library
-    built from `source` holds int8 tensor-core MMAs (IMMA) and no __dp4a
-    (IDP4A). {instantiation: (IMMA count, IDP4A count)}."""
+    instantiation <kVec, E> (<kVec, E, kMxu> with int_pipe) of `kernel` in
+    cuobjdump -sass of the library built from `source` holds int8
+    tensor-core MMAs (IMMA) and no __dp4a (IDP4A); with int_pipe, each
+    integer-pipe instantiation (kMxu false) holds neither.
+    {instantiation: (IMMA count, IDP4A count)}."""
     import os
     import subprocess
 
@@ -885,22 +1026,28 @@ def tensor_core_sass(source, kernel, elems):
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            # kernel<kVec, E>, mangled as ...ILb<kVec>ELi<E>E...
-            m = re.search(kernel + r"ILb([01])ELi(\d+)E", line)
-            name = m and "%s<%s, %s>" % (
-                kernel, ("false", "true")[int(m.group(1))], m.group(2))
+            # kernel<kVec, E(, kMxu)>, mangled as ...ILb<kVec>ELi<E>E...
+            m = re.search(kernel + r"ILb([01])ELi(\d+)E(?:Lb([01])E)?", line)
+            name = m and "%s<%s, %s%s>" % (
+                kernel, ("false", "true")[int(m.group(1))], m.group(2),
+                "" if m.group(3) is None
+                else (", int", ", mxu")[int(m.group(3))])
             if name:
                 counts[name] = [0, 0]
         elif name:
             counts[name][0] += "IMMA" in line
             counts[name][1] += "IDP4A" in line
-    want = 2 * len(elems)
+    want = (4 if int_pipe else 2) * len(elems)
     check(len(counts) == want, "cuobjdump shows %d %s instantiations, not %d"
           % (len(counts), kernel, want))
     for name, (imma, dp4a) in sorted(counts.items()):
         print("%s SASS %s: %d IMMA, %d IDP4A" % (source, name, imma, dp4a))
-        check(imma > 0 and dp4a == 0, "%s does not run its digit products "
-              "on the int8 tensor cores alone" % name)
+        if name.endswith(", int>"):
+            check(imma == 0 and dp4a == 0, "%s, the integer-pipe body, runs "
+                  "products on the tensor cores or __dp4a" % name)
+        else:
+            check(imma > 0 and dp4a == 0, "%s does not run its digit "
+                  "products on the int8 tensor cores alone" % name)
     return counts
 
 
@@ -1900,6 +2047,380 @@ def programs_phase(keys, dev, card):
     return record
 
 
+@contextlib.contextmanager
+def environment(**values):
+    """os.environ with `values` set inside the block, and every one of them
+    as it was (set or unset) after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def int_names(counts):
+    """Launch counts under the integer-pipe kernels' names."""
+    return {k + "_int" if k.startswith("mont_") else k: v
+            for k, v in counts.items()}
+
+
+def engine_trip(pub, priv, values, engine, dev, totals, int_pipe=False):
+    """One round trip under PHE_TPU_TORCH_ENGINE=engine through the entry
+    points, each half with its launches (TRIP_LAUNCHES), equal to values
+    on every row; (encrypt s, decrypt s) on the host clock."""
+    from phe_tpu_torch.batch import EncryptedBatch
+
+    want_enc, want_dec = TRIP_LAUNCHES[engine]
+    if int_pipe:
+        want_enc, want_dec = int_names(want_enc), int_names(want_dec)
+    bits = pub.n.bit_length()
+    with environment(PHE_TPU_TORCH_ENGINE=engine):
+        batch, t_enc, enc = run_step(
+            lambda: EncryptedBatch.encrypt(pub, values, device=dev), totals)
+        out, t_dec, dec = run_step(lambda: batch.decrypt(priv), totals)
+    expect_launches("%d-bit %s encrypt" % (bits, engine), enc, want_enc)
+    expect_launches("%d-bit %s decrypt" % (bits, engine), dec, want_dec)
+    check(out == values, "%d-bit %s engine: decrypt(encrypt(x)) != x for %d "
+          "of %d rows" % (bits, engine, sum(a != b for a, b in
+                                            zip(out, values)), len(values)))
+    return t_enc, t_dec
+
+
+def check_shared_pow_at_encrypt(pub, dev, rng, card):
+    """mont_pow_shared (the context's body) at the limb encrypt's own
+    launch: r^n over BATCH rows at n^2's L, window 5; four rows against
+    Python's pow, timed beside its bound. Its record."""
+    from phe_tpu_torch.ops import cuda_modexp
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    dc = pub.device_context(dev)
+    ctx, L, N = dc.ctx, dc.L, pub.nsquare
+    mxu = mg.has_matrices(ctx)
+    R = 1 << (14 * L)
+    R_inv = pow(R, -1, N)
+    xs = [rng.randrange(0, 2 * N) for _ in range(BATCH)]
+    base = limbs_on(xs, L, dev)
+    nd = len(dc.n_digits)
+    run = lambda: cuda_modexp.mont_pow_shared(base, dc.n_digits, ctx,
+                                              window=5)
+    got, ms = cuda_once(run)
+    idx = [0, 1, BATCH - 2, BATCH - 1]
+    g = hl.limbs_to_ints(got[idx].cpu().numpy())
+    check([v % N for v in g] == [pow(xs[i] * R_inv, pub.n, N) * R % N
+                                 for i in idx]
+          and int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
+          "mont_pow_shared L=%d at the limb encrypt's launch: value differs "
+          "from Python pow" % L)
+    products = sum(pow_products(5, nd))
+    if mxu:
+        bms, by = mont_pow_bound(BATCH, L, 5, nd, 8 * nd)
+    else:
+        bms, by = bound_ms(8 * (2 * BATCH * L + 3 * L) + 8 * nd,
+                           int32_ops=int_pipe_ops(L, BATCH * products))
+    check(ms >= bms, "mont_pow_shared L=%d ran under its bound" % L)
+    tile = "E = %d, %d rows a block" % pow_tile(L, BATCH, mxu)
+    print("mont_pow_shared%s L=%d windows=%d at the limb encrypt's launch: "
+          "%d rows, %s, Python pow on %d; kernel %.3f ms, bound %.3f ms (%s, "
+          "%d products a row) [%s]"
+          % ("" if mxu else " (integer pipe)", L, nd, BATCH, tile, len(idx),
+             ms, bms, by, products, card))
+    return dict(L=L, rows=BATCH, tile=tile, max_abs_err=0, ms=ms,
+                plain_ms=None, plain_rows=0, bound_ms=bms, bound_by=by,
+                python_pow_rows=len(idx), products=products)
+
+
+def check_int_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
+                  exponent=None):
+    """The integer-pipe modexp (ctx has no REDC matrices) of one form over
+    rows at ctx's L: per-row `bits`-bit schedules (vec), or one shared
+    exponent (`exponent`, else `bits` random bits), window `window`;
+    value-equal to its plain version on plain_rows rows and to Python's
+    pow on four, limbs in [0, 2^14] and values below 1.01 M on every row,
+    timed beside the bound of profiling.mont_mul_cost(L, mxu=False). Its
+    record."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.ops import cuda_modexp
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    L = ctx.num_limbs
+    R = 1 << (14 * L)
+    R_inv = pow(R, -1, M)
+    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    base = limbs_on(xs, L, dev)
+    if vec:
+        es = ([0, (1 << bits) - 1]
+              + [rng.getrandbits(bits) for _ in range(rows - 2)])
+        digits = torch.as_tensor(tbatch._digits_rows(es, bits), device=dev)
+        n_windows = digits.shape[1]
+        run = lambda b, d: cuda_modexp.mont_pow(b, d, ctx)
+        plain = lambda: mg.mont_pow_plain(base[:plain_rows],
+                                          digits[:plain_rows], ctx)
+        digit_bytes = rows * n_windows
+    else:
+        e = exponent if exponent is not None else (
+            rng.getrandbits(bits) | 1 << (bits - 1))
+        es = [e] * rows
+        digits = torch.as_tensor(mg.exponent_digits(e, bits, window),
+                                 device=dev)
+        n_windows = len(digits)
+        run = lambda b, d: cuda_modexp.mont_pow_shared(b, d, ctx,
+                                                       window=window)
+        plain = lambda: mg.mont_pow_shared_plain(base[:plain_rows], digits,
+                                                 ctx, window=window)
+        digit_bytes = 8 * n_windows
+    name = "mont_pow_int" if vec else "mont_pow_shared_int"
+    got, ms = cuda_once(lambda: run(base, digits))
+    sync()
+    t0 = time.perf_counter()
+    ref = plain()
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = int((mg.export_canonical(got[:plain_rows], ctx)
+               - mg.export_canonical(ref, ctx)).abs().max())
+    g = hl.limbs_to_ints(got.cpu().numpy())
+    check(err == 0 and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+          and all(100 * v < 101 * M for v in g),
+          "%s L=%d: kernel value mod M differs from the plain version, or "
+          "out of the contract's bounds" % (name, L))
+    for i in (0, 1, rows - 2, rows - 1):
+        check(g[i] % M == pow(xs[i] * R_inv, es[i], M) * R % M,
+              "%s L=%d: value differs from Python pow" % (name, L))
+    sq, mul = pow_products(window, n_windows)
+    products = sq + mul
+    bms, by = bound_ms(8 * (2 * rows * L + 3 * L) + digit_bytes,
+                       int32_ops=int_pipe_ops(L, rows * products))
+    least_ms = int_pipe_least_ms(L, rows, sq, mul)
+    tile = "E = %d, %d rows a block" % pow_tile(L, rows, False)
+    print("%s L=%d windows=%d: value-equal on %d rows, Python pow on 4; "
+          "kernel %.3f ms at %d rows, %s, plain %.3f ms at %d, bound %.4f "
+          "ms (%s, %d products a row), least work %.4f ms"
+          % (name, L, n_windows, plain_rows, ms, rows, tile, plain_ms,
+             plain_rows, bms, by, products, least_ms))
+    check(ms >= bms, "%s L=%d ran under its bound" % (name, L))
+    return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_rows=plain_rows, bound_ms=bms,
+                bound_by=by, products=products, least_work_ms=least_ms)
+
+
+def check_ragged_products(ctx, M, dev, rng):
+    """Both forms of the Montgomery product for ctx on ragged batches at
+    every (E, rows a block) the wrapper picks at its L on this card (one
+    and three rows a block of E = 8, full blocks of E = 8 and of E = 32,
+    each at its smallest and largest batch), value-equal to the plain
+    version on every row."""
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+    from phe_tpu_torch.ops import montgomery as mg
+
+    L, mxu = ctx.num_limbs, mg.has_matrices(ctx)
+    sms = cuda_rns._sms(dev)
+    sizes = {(8, 1): (1, 7, 9), (8, 3): (2 * sms + 1, 3 * sms - 1)}
+    for E in (8, 32):
+        sizes[E, E] = ((sms - 1) * E + 1, sms * E - 1)
+    for tile, Bs in sizes.items():
+        check(all(pow_tile(L, B, mxu) == tile for B in Bs),
+              "ragged product batches %s do not take %s" % (Bs, tile))
+    rows = max(max(Bs) for Bs in sizes.values())
+    a = limbs_on([rng.randrange(0, 2 * M) for _ in range(rows)], L, dev)
+    b = limbs_on([rng.randrange(0, 2 * M) for _ in range(rows)], L, dev)
+    for B in sorted(B for Bs in sizes.values() for B in Bs):
+        x, y = a[:B].contiguous(), b[:B].contiguous()
+        for got, ref in ((cuda_modexp.mont_mul(x, y, ctx),
+                          cuda_modexp.mont_mul_plain(x, y, ctx)),
+                         (cuda_modexp.mont_mul_const(x, y[0], ctx),
+                          cuda_modexp.mont_mul_plain(x, y[0], ctx))):
+            check(torch.equal(mg.export_canonical(got, ctx),
+                              mg.export_canonical(ref, ctx))
+                  and int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
+                  "mont_mul L=%d: a ragged batch of %d rows differs from the "
+                  "plain version" % (L, B))
+    print("mont_mul, mont_mul_const%s L=%d: ragged batches value-equal to the "
+          "plain version on every row, %d SMs: %s"
+          % ("" if mxu else " (integer pipe)", L, sms, "; ".join(
+              "E = %d, %d rows a block: %s rows" % (E, r, ", ".join(
+                  map(str, Bs))) for (E, r), Bs in sizes.items())))
+
+
+def engines_phase(keys, dev, card, totals):
+    """Phase 10: both engines at the fixed 2048- and 3072-bit keys, and
+    the integer-pipe REDC bodies.
+
+    Under PHE_TPU_TORCH_ENGINE=limb each key's BATCH-row round trip runs on
+    the limb engine (mont_pow_shared at n^2's L for r^n, the CRT halves on
+    mont_pow_shared too), with no rns_ladder launch; after two untimed
+    round trips per engine (the programs' warm-up and capture) they are
+    timed in turns, RNS, limb, limb, RNS, each equal to x on every row. A
+    pinned-r batch is equal across the engines and to raw_encrypt;
+    mul_scalars over MUL_ROWS rows and an aligned add give the RNS
+    engine's ciphertexts on every row and decrypt to the exact results;
+    mont_pow_shared is timed at the limb encrypt's launch. Then, under
+    PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object (its five contexts
+    built without REDC matrices) and the fixed 8192-bit key's n^2: each
+    integer-pipe body against its plain version (the product at L = 296
+    and 80, both forms, on ragged batches too; the modexp at L = 296, both
+    forms, on ragged batches, and at L = 1,176 on LIMB_POW_ROWS rows), and
+    a BATCH-row round trip and mul_scalars on the limb engine with those
+    contexts. The variables are restored as they were after each step.
+    Returns (record, {kernel: [its checks]})."""
+    import phe_tpu_torch as pt
+    from phe_tpu_torch import benchmarks
+    from phe_tpu_torch.batch import EncryptedBatch
+    from phe_tpu_torch.ops import montgomery as mg
+
+    g = np.random.default_rng(SEED + 11)
+    rng = random.Random(SEED + 11)
+    record, checks = {}, {}
+    chunk = EncryptedBatch._INVERSE_CHUNK
+
+    def floats(lo, hi, rows):
+        return [float(v) for v in g.uniform(lo, hi, rows)]
+
+    for pub, priv in keys:
+        bits = pub.n.bit_length()
+        dc = pub.device_context(dev)
+        values = floats(-1e6, 1e6, BATCH)
+        for engine in ("rns", "limb"):
+            for _ in range(2):  # the programs' warm-up and capture
+                engine_trip(pub, priv, values, engine, dev, totals)
+        turns = [(engine, engine_trip(pub, priv, values, engine, dev, totals))
+                 for engine in ("rns", "limb", "limb", "rns")]
+        for i, (engine, (t_enc, t_dec)) in enumerate(turns):
+            print("%d-bit round trip, %s engine (turn %d), %d rows: encrypt "
+                  "%.4f s (%.1f ops/s), decrypt %.4f s (%.1f ops/s), equal "
+                  "to x on every row [%s]"
+                  % (bits, engine, i + 1, BATCH, t_enc, BATCH / t_enc, t_dec,
+                     BATCH / t_dec, card))
+        record["%d-bit turns" % bits] = [
+            dict(engine=e, encrypt_s=te, decrypt_s=td)
+            for e, (te, td) in turns]
+
+        few = values[:ENGINE_PINNED]
+        rs = [rng.randrange(1, pub.n) for _ in few]
+        pinned = {}
+        for engine in ("limb", "rns"):
+            with environment(PHE_TPU_TORCH_ENGINE=engine):
+                batch, _, n = run_step(lambda: EncryptedBatch.encrypt(
+                    pub, few, r_values=rs, device=dev), totals)
+            expect_launches("%d-bit %s pinned-r encrypt" % (bits, engine), n,
+                            TRIP_LAUNCHES[engine][0])
+            pinned[engine] = batch.ciphertext_ints(be_secure=False)
+        encs = pt.EncodedNumber.encode_many(pub, few)
+        check(pinned["limb"] == pinned["rns"]
+              == [pub.raw_encrypt(e.encoding, r_value=r)
+                  for e, r in zip(encs, rs)],
+              "%d-bit pinned-r ciphertexts differ between the engines or "
+              "from raw_encrypt" % bits)
+        print("%d-bit pinned-r batch of %d: the limb engine's ciphertexts "
+              "equal the RNS engine's and raw_encrypt's" % (bits, len(few)))
+
+        checks.setdefault("mont_pow_shared", []).append(
+            check_shared_pow_at_encrypt(pub, dev, rng, card))
+
+        xa, yb = floats(-1e6, 1e6, MUL_ROWS), floats(-1e-3, 1e-3, MUL_ROWS)
+        sc = floats(-100.0, 100.0, MUL_ROWS)
+        a = EncryptedBatch.encrypt(pub, xa, obfuscation="none", device=dev)
+        b = EncryptedBatch.encrypt(pub, yb, obfuscation="none", device=dev)
+        mm, mc = inverse_launches(a.mont.shape[0], chunk)
+        want = {"limb": ({"mont_pow": 1, "mont_mul": mm, "mont_mul_const": mc},
+                         {"mont_pow": 2, "mont_mul": 1}),
+                "rns": ({"rns_ladder_vec": 1, "mont_mul": mm,
+                         "mont_mul_const": mc},
+                        {"rns_ladder_vec": 2, "mont_mul": 1})}
+        res = {}
+        for engine in ("limb", "rns"):
+            # The same ciphertexts, without the inverse a first product
+            # caches on the batch.
+            fresh = EncryptedBatch(pub, a.mont, a.exponents)
+            with environment(PHE_TPU_TORCH_ENGINE=engine):
+                prod, t_mul, n_mul = run_step(lambda: fresh * sc, totals)
+                summ, t_add, n_add = run_step(lambda: a + b, totals)
+            expect_launches("%d-bit %s mul_scalars" % (bits, engine), n_mul,
+                            want[engine][0])
+            expect_launches("%d-bit %s aligned add" % (bits, engine), n_add,
+                            want[engine][1])
+            res[engine] = (prod, summ)
+            print("%d-bit %s engine: mul_scalars %.4f s, aligned add %.4f s "
+                  "over %d rows; launches %s, %s [%s]"
+                  % (bits, engine, t_mul, t_add, MUL_ROWS, json.dumps(n_mul),
+                     json.dumps(n_add), card))
+        for i, what in enumerate(("mul_scalars", "aligned add")):
+            x, y = res["limb"][i], res["rns"][i]
+            check(list(x.exponents) == list(y.exponents)
+                  and dc.export_ints(x.mont) == dc.export_ints(y.mont),
+                  "%d-bit %s: the limb engine's ciphertexts differ from the "
+                  "RNS engine's" % (bits, what))
+        with environment(PHE_TPU_TORCH_ENGINE="limb"):
+            check(decrypt_all(res["limb"][0], priv)
+                  == [x * y for x, y in zip(xa, sc)]
+                  and decrypt_all(res["limb"][1], priv)
+                  == [x + y for x, y in zip(xa, yb)],
+                  "%d-bit limb engine: mul_scalars or the aligned add does "
+                  "not decrypt to the exact result" % bits)
+        print("%d-bit mul_scalars and aligned add over %d rows: the limb "
+              "engine's ciphertexts equal the RNS engine's on every row and "
+              "decrypt (on the limb engine) to the exact results"
+              % (bits, MUL_ROWS))
+        del a, b, fresh, res, prod, summ
+
+    # -- the integer-pipe bodies -------------------------------------------
+    with environment(PHE_TPU_TORCH_MXU="0"):
+        pub0, priv0 = benchmarks.fixed_key(2048)
+        dc0, pdc0 = pub0.device_context(dev), priv0.device_context(dev)
+        M8 = benchmarks.fixed_key(8192)[0].nsquare
+        ctx8 = mg.build_context(M8, dev)
+    contexts = key_contexts(dc0, pdc0) + (ctx8,)
+    check(not any(mg.has_matrices(c) for c in contexts),
+          "a context built under PHE_TPU_TORCH_MXU=0 holds REDC matrices")
+    check(mg.has_matrices(mg.build_context(pub0.nsquare, dev)),
+          "PHE_TPU_TORCH_MXU was not restored")
+    print("PHE_TPU_TORCH_MXU=0: a fresh 2048-bit key's five contexts and the "
+          "8192-bit n^2 built without REDC matrices [%s]" % card)
+    c = pdc0.consts
+    for ctx, M in ((dc0.ctx, pub0.nsquare), (c.ctx_hp, priv0.p)):
+        for shared in (False, True):
+            name = "mont_mul_const_int" if shared else "mont_mul_int"
+            checks.setdefault(name, []).append(
+                check_mont_mul(ctx, M, shared, rng))
+        check_ragged_products(ctx, M, dev, rng)
+    nsq = pub0.nsquare
+    checks["mont_pow_int"] = [check_int_pow(
+        dc0.ctx, nsq, dev, rng, True, BATCH, SHORT_BITS, INT_PLAIN_ROWS)]
+    checks["mont_pow_shared_int"] = [check_int_pow(
+        dc0.ctx, nsq, dev, rng, False, BATCH, dc0.n_bits,
+        INT_SHARED_PLAIN_ROWS, window=5, exponent=pub0.n)]
+    check_ragged_pows(pub0, dev, rng)
+    for vec, name in ((True, "mont_pow_int"), (False, "mont_pow_shared_int")):
+        checks[name].append(check_int_pow(ctx8, M8, dev, rng, vec,
+                                          LIMB_POW_ROWS, 64, LIMB_POW_ROWS))
+    xs = floats(-1e6, 1e6, BATCH)
+    t_enc, t_dec = engine_trip(pub0, priv0, xs, "limb", dev, totals,
+                               int_pipe=True)
+    sc = floats(-100.0, 100.0, BATCH)
+    with environment(PHE_TPU_TORCH_ENGINE="limb"):
+        enc = EncryptedBatch.encrypt(pub0, xs, obfuscation="none", device=dev)
+        prod, t_mul, n_mul = run_step(lambda: enc * sc, totals)
+        out = prod.decrypt(priv0)
+    mm, mc = inverse_launches(enc.mont.shape[0], chunk)
+    expect_launches("integer-pipe mul_scalars", n_mul, {
+        "mont_pow_int": 1, "mont_mul_int": mm, "mont_mul_const_int": mc})
+    check(out == [x * y for x, y in zip(xs, sc)],
+          "integer-pipe mul_scalars: decrypt(x * s) != x * s")
+    print("2048-bit limb engine on contexts without REDC matrices, %d rows: "
+          "round trip equal to x on every row (encrypt %.4f s, decrypt %.4f "
+          "s, the programs' first calls), mul_scalars %.4f s, its decrypt "
+          "exact; launches %s [%s]"
+          % (BATCH, t_enc, t_dec, t_mul, json.dumps(n_mul), card))
+    record["integer pipe"] = dict(encrypt_s=t_enc, decrypt_s=t_dec,
+                                  mul_scalars_s=t_mul)
+    return record, checks
+
+
 def main():
     started = time.time()
     if not torch.cuda.is_available():
@@ -1932,9 +2453,9 @@ def main():
         torch.cuda.device_count()))
     sass = tensor_core_sass("rns_ladder", "rns_ladder_kernel", cuda_rns.ELEMS)
     pow_sass = tensor_core_sass("mont_pow", "mont_pow_kernel",
-                                cuda_modexp.POW_ELEMS)
+                                cuda_modexp.POW_ELEMS, int_pipe=True)
     mul_sass = tensor_core_sass("mont_mul", "mont_mul_kernel",
-                                cuda_modexp.POW_ELEMS)
+                                cuda_modexp.POW_ELEMS, int_pipe=True)
 
     pub, priv = benchmarks.fixed_key(2048)
     pub8, priv8 = benchmarks.fixed_key(8192)
@@ -1950,79 +2471,30 @@ def main():
     rng = random.Random(SEED)
 
     # -- 2. kernels against their plain versions, at the main path's shapes --
-    def limbs_of(values, L):
-        return mg._tensor(hl.ints_to_limbs(values, L), dev)
-
-    def check_mont_mul(ctx, M, shared, rows=BATCH):
-        L = ctx.num_limbs
-        R_inv = pow(1 << (14 * L), -1, M)
-        xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
-        ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
-        a = limbs_of(xs, L)
-        b = limbs_of(ys, L)[0] if shared else limbs_of(ys, L)
-        fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
-        chunk = max(1, PLAIN_CHUNK * 296 * 296 // (L * L))
-
-        def plain():
-            return torch.cat([
-                cuda_modexp.mont_mul_plain(
-                    a[i : i + chunk], b if shared else b[i : i + chunk], ctx)
-                for i in range(0, rows, chunk)])
-
-        got = fn(a, b, ctx)
-        ref = plain()
-        torch.cuda.synchronize()
-        name = "mont_mul_const" if shared else "mont_mul"
-        g = hl.limbs_to_ints(got.cpu().numpy())
-        want = [x * (ys[0] if shared else y) * R_inv % M
-                for x, y in zip(xs, ys * rows if shared else ys)]
-        check([v % M for v in g] == want, "%s L=%d: kernel value mod M "
-              "differs from Python ints" % (name, L))
-        check(int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
-              "%s L=%d: limbs outside [0, 2^14]" % (name, L))
-        check(all(100 * v < 101 * M for v in g),
-              "%s L=%d: value not below 1.01 M" % (name, L))
-        # Both outputs are < 1.01 M: their canonical forms are the values
-        # mod M, compared limb for limb on the card.
-        diff = (mg.export_canonical(got, ctx)
-                - mg.export_canonical(ref, ctx)).abs().max()
-        err = int(diff)
-        check(err == 0, "%s L=%d: kernel value mod M differs from the "
-              "plain version" % (name, L))
-        ms = cuda_ms(lambda: fn(a, b, ctx), 10)
-        plain_ms = cuda_ms(plain, 1)
-        bms, by = mont_mul_bound(rows, L, shared)
-        print("%s L=%d rows=%d (%s): value-equal, bounds hold; kernel "
-              "%.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-              % (name, L, rows, tile_text(L, rows), ms, plain_ms, bms, by))
-        check(ms >= bms, "%s L=%d ran under its bound: mont_mul_bound's "
-              "count no longer matches the kernel" % (name, L))
-        return dict(L=L, rows=rows, tile=tile_text(L, rows), max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
-                    bound_by=by)
-
     mul_checks = {"mont_mul": [], "mont_mul_const": []}
     geoms = [(dc.ctx, pub.nsquare), (pdc.consts.ctx_p, priv.psquare),
              (pdc.consts.ctx_hp, priv.p)]
     for ctx, M in geoms:
         if ctx.num_limbs != 152:  # the two-operand product never runs mod p^2
-            mul_checks["mont_mul"].append(check_mont_mul(ctx, M, False))
-        mul_checks["mont_mul_const"].append(check_mont_mul(ctx, M, True))
+            mul_checks["mont_mul"].append(check_mont_mul(ctx, M, False, rng))
+        mul_checks["mont_mul_const"].append(check_mont_mul(ctx, M, True,
+                                                           rng))
     # The 3072-bit key's n^2 (L = 440) at the encrypt batch, and the
     # 8192-bit key's n^2 (L = 1,176), both in blocks of E = 8 only.
     pub3 = benchmarks.fixed_key(3072)[0]
     ctx3 = mg.build_context(pub3.nsquare, dev)
     dc8 = pub8.device_context(dev)
     for shared, name in ((False, "mont_mul"), (True, "mont_mul_const")):
-        mul_checks[name].append(check_mont_mul(ctx3, pub3.nsquare, shared))
-        mul_checks[name].append(
-            check_mont_mul(dc8.ctx, pub8.nsquare, shared, rows=WIDE_ROWS))
+        mul_checks[name].append(check_mont_mul(ctx3, pub3.nsquare, shared,
+                                               rng))
+        mul_checks[name].append(check_mont_mul(dc8.ctx, pub8.nsquare, shared,
+                                               rng, rows=WIDE_ROWS))
     chain_checks = check_issue_chain(dev)
 
     def check_ladder(rsys, conv, Lin, digits, exit_int, N, rows=BATCH,
                      few=PLAIN_LADDER_ROWS):
         xs = [rng.randrange(1, 2 * N) for _ in range(rows)]
-        x_res = rns.to_rns(limbs_of(xs, Lin), conv, rsys).contiguous()
+        x_res = rns.to_rns(limbs_on(xs, Lin, dev), conv, rsys).contiguous()
         head = x_res[:few].contiguous()
         exit_res = rns.residues(exit_int, rsys)
         run = lambda x: cuda_rns.ladder(x, digits, rsys, window=5,
@@ -2171,6 +2643,13 @@ def main():
     print("programs phase: %.1f s" % (time.time() - t0))
     print(json.dumps({"programs_phase": programs, "card": card}))
 
+    # -- 10. the engines, and the integer-pipe REDC bodies -----------------
+    t0 = time.time()
+    engines, engine_checks = engines_phase([(pub, priv), key3], dev, card,
+                                           path_launches)
+    print("engines phase: %.1f s" % (time.time() - t0))
+    print(json.dumps({"engines_phase": engines, "card": card}))
+
     src = {"mont_mul": "phe_tpu_torch/csrc/mont_mul.cu",
            "mont_mul_const": "phe_tpu_torch/csrc/mont_mul.cu",
            "rns_ladder": "phe_tpu_torch/csrc/rns_ladder.cu",
@@ -2178,6 +2657,11 @@ def main():
            "mont_pow_shared": "phe_tpu_torch/csrc/mont_pow.cu",
            "mont_pow": "phe_tpu_torch/csrc/mont_pow.cu",
            "vpu_microbench": "phe_tpu_torch/csrc/microbench.cu"}
+    # The integer-pipe REDC bodies: the same kernels' kMxu = false
+    # instantiations, phe_tpu's mxu=False branch of the same Pallas calls.
+    for name in ("mont_mul", "mont_mul_const", "mont_pow_shared",
+                 "mont_pow"):
+        src[name + "_int"] = src[name]
     replaces = {"mont_mul": "phe_tpu/ops/pallas_modexp.py:378",
                 "mont_mul_const": "phe_tpu/ops/pallas_modexp.py:434",
                 "rns_ladder": "phe_tpu/ops/pallas_rns.py:234",
@@ -2185,6 +2669,9 @@ def main():
                 "mont_pow_shared": "phe_tpu/ops/pallas_modexp.py:302",
                 "mont_pow": "phe_tpu/ops/pallas_modexp.py:570",
                 "vpu_microbench": "scripts/vpu_microbench.py:36"}
+    for name in list(src):
+        if name.endswith("_int"):
+            replaces[name] = replaces[name[:-4]]
     ladder_checks[0]["one_product_split"] = split
     ladder_checks[2]["one_product_split"] = split_624
     ladder_checks[0]["sass_imma_idp4a"] = sass
@@ -2198,6 +2685,8 @@ def main():
     for name, c in wide_checks.items():
         checks[name].append(c)
     checks["mont_pow_shared"].append(crt_check)
+    for name, c in engine_checks.items():
+        checks.setdefault(name, []).extend(c)
     for name in src:
         check(path_launches.get(name, 0) > 0,
               "%s was not launched on the main path" % name)

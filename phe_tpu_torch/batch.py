@@ -20,16 +20,22 @@ and:
   phe/paillier.py:721-751), negative scalars on the batch-inverted
   ciphertexts; sums are log-depth Montgomery-product trees.
 
-Two modexp engines, as in phe_tpu on its chip, with no knob between them:
-the RNS ladder (csrc/rns_ladder.cu) wherever the channel-prime supply
-covers the modulus (rns.fits: moduli up to ~8,760 bits), and the limb
-engine's windowed modexps (csrc/mont_pow.cu) past it. The choice is made
-per modulus: ``rns_state()`` is None past the supply, and each program
-with an RNS twin (_encrypt_limb, _obfuscate_limb, _pow_elems,
-_decrypt_residue_limb) runs on that answer alone. Keys up to ~4,380 bits
-run everything on RNS; at 8192-bit keys n^2 (16,384 bits) runs on the limb
-engine while the decrypt halves p^2, q^2 (8,192 bits) stay on RNS; only
-above ~8,760-bit keys does decryption take the limb engine too. Encoding
+Two modexp engines, as in phe_tpu: the RNS ladder (csrc/rns_ladder.cu)
+and the limb engine's windowed modexps (csrc/mont_pow.cu), chosen at
+phe_tpu's five sites (encrypt_mont, obfuscate_mont, rstate,
+raw_decrypt_launch, raw_decrypt_compact) as ``self.rns_state() if
+_use_rns() else None``. ``_use_rns()`` reads PHE_TPU_TORCH_ENGINE
+(config.use_rns_engine): under rns or auto (the default) the RNS ladder
+runs wherever the channel-prime supply covers the modulus (rns.fits:
+moduli up to ~8,760 bits) and ``rns_state()`` is None past it; under limb
+every modexp runs on the limb engine and no RNS state is ever built. Each
+program with an RNS twin (_encrypt_limb, _obfuscate_limb, _pow_elems,
+_decrypt_residue_limb) runs on that answer alone. By default keys up to
+~4,380 bits run everything on RNS; at 8192-bit keys n^2 (16,384 bits)
+runs on the limb engine while the decrypt halves p^2, q^2 (8,192 bits)
+stay on RNS; only above ~8,760-bit keys does decryption take the limb
+engine too. crt_powers and short obfuscation run on the limb engine
+under either setting, as in phe_tpu. Encoding
 exponents are host-side numpy metadata. Blinding factors r come from the
 host CSPRNG (``secrets``), never from a torch generator.
 """
@@ -65,6 +71,14 @@ _WINDOW_GROUP = 8
 SHORT_EXPONENT_BITS = 320
 # rns_state()'s cache before its first call (None is a cached answer).
 _UNBUILT = object()
+
+
+def _use_rns():
+    """Engine selection for the modexps of encryption, re-obfuscation,
+    scalar multiply, alignment and decryption: PHE_TPU_TORCH_ENGINE (rns,
+    limb or auto; auto is rns wherever rns.fits the modulus, on every
+    device)."""
+    return config.use_rns_engine()
 
 
 def bucket_rows(b):
@@ -715,8 +729,9 @@ class PublicDeviceContext:
 
     def rstate(self):
         """The engine handle of the per-element programs (_pow_elems):
-        the RnsPubState, or None for the limb engine."""
-        return self.rns_state()
+        the RnsPubState when the RNS engine is selected and fits, else
+        None for the limb engine."""
+        return self.rns_state() if _use_rns() else None
 
     @classmethod
     def build(cls, public_key, device=None):
@@ -787,7 +802,7 @@ class PublicDeviceContext:
         """Fresh encryption (n*m+1)*r^n for encoded residues -> [Bp, L]."""
         m = self.pack_messages(encodings)
         r = self.random_r_bytes(len(encodings), r_values)
-        st = self.rns_state()
+        st = self.rns_state() if _use_rns() else None
         if st is None:
             return _encrypt_dev(m, r, self.nr2_limbs, self.n_digits,
                                 self.ctx, self.Ln)
@@ -797,7 +812,7 @@ class PublicDeviceContext:
     def obfuscate_mont(self, mont):
         """Fresh uniform re-obfuscation of a Montgomery ciphertext batch."""
         r = self.random_r_bytes(mont.shape[0])
-        st = self.rns_state()
+        st = self.rns_state() if _use_rns() else None
         if st is None:
             return _obfuscate_dev(mont, r, self.n_digits, self.ctx)
         return _obfuscate_rns_dev(mont, r, self.n_digits, self.ctx, st)
@@ -955,7 +970,7 @@ class PrivateDeviceContext:
 
     def raw_decrypt_launch(self, ct_mont):
         """Run the decrypt program: [Bp, nbytes] packed plaintext bytes."""
-        halves = self.rns_state()
+        halves = self.rns_state() if _use_rns() else None
         if halves is None:
             return _decrypt_dev(ct_mont, self.pub_ctx.ctx, self.consts)
         return _decrypt_rns_dev(ct_mont, self.pub_ctx.ctx, self.consts,
@@ -967,7 +982,7 @@ class PrivateDeviceContext:
 
     def raw_decrypt_compact(self, ct_mont):
         """(compact decode rows [Bp, 3], full packed bytes) — _decode_compact."""
-        halves = self.rns_state()
+        halves = self.rns_state() if _use_rns() else None
         if halves is None:
             return _decrypt_compact_dev(ct_mont, self.pub_ctx.ctx,
                                         self.consts)

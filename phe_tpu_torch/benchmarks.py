@@ -159,14 +159,16 @@ def _sync(b):
 
 def op_costs(pub, priv, device):
     """Roofline cost models of encrypt, decrypt, add and mul on the engines
-    that actually run them: the RNS models where rns_state() exists, the
-    limb-engine models where it is None."""
+    that actually run them (phe_tpu's bench_key_size chooses them alike):
+    the RNS models where the RNS engine is selected (batch._use_rns) and
+    rns_state() exists, the limb-engine models otherwise."""
     from phe_tpu_torch import batch as bt
     from phe_tpu_torch import profiling
 
     dc = pub.device_context(device)
     pdc = priv.device_context(device)
-    st, halves = dc.rns_state(), pdc.rns_state()
+    st = dc.rstate()
+    halves = pdc.rns_state() if bt._use_rns() else None
     return {
         "encrypt": profiling.rns_encrypt_cost(
             dc.n_bits, st.rsys.k, bt.ENCRYPT_WINDOW
@@ -357,7 +359,7 @@ def bench_mem(keysize=2048, test_size=100_000, step=10_000, emit=print,
     kind = device_name(dev)
     pub, _ = generate_paillier_keypair(n_length=keysize)
     dc = pub.device_context(dev)
-    dc.rns_state()
+    dc.rstate()
     L = dc.L
     r_init = _rss_kb()
     rng = np.random.default_rng(1)

@@ -1,12 +1,14 @@
 // Batched Montgomery product a * b * R^-1 mod M over 14-bit redundant
 // limbs, E rows a block, both constant products of the reduction on the
-// int8 tensor cores.
+// int8 tensor cores, or, for a context without REDC matrices, on the CUDA
+// cores' integer pipe.
 //
 // Replaces phe_tpu/ops/pallas_modexp.py: mont_mul_cols (call :378) and
 // mont_mul_const_cols (call :434), whose kernel body is _mul_kernel
-// (:324-340) -> _mont_mul_into (:155-196). One kernel body serves both: a
-// template flag says whether b is one row per row of a or one row shared
-// by the batch.
+// (:324-340) -> _mont_mul_into (:155-196), both of its bodies: the MXU
+// branch (:166-190) and the integer-pipe one (:192-196). One kernel body
+// serves both forms: a template flag says whether b is one row per row of
+// a or one row shared by the batch; a second (kMxu) picks the REDC body.
 //
 // What it computes: for a, b < 2.01 M with limbs in [0, 2^14], a result
 // congruent to a b R^-1 mod M with limbs in [0, 2^14] and value < 1.01 M:
@@ -21,6 +23,8 @@
 // kRun columns; q = T_lo M' mod R and q M as mma.sync int8 products over
 // the rows against phe_tpu's REDC matrices, packed once per context; two
 // carry passes), and writes the rows out as int64. There is no table.
+// The integer-pipe body runs q = T_lo M' mod R and q M as two more a * b
+// passes on the CUDA cores against M' and M in shared memory.
 //
 // What bounds it on an H100: per row 12 L^2 int8 multiply-adds of the
 // reduction on the tensor cores (1.05 M at L = 296), L^2 int32
@@ -30,7 +34,9 @@
 // operand rows in and out (24 L bytes a row, 16 L with b shared) are far
 // below either. One block an SM (twelve warps, up to 232,448 bytes), so a
 // launch of B rows runs ceil(B / rows) block-products in waves of the
-// card's SMs.
+// card's SMs. The integer-pipe body does about 2.5 L^2 int32
+// multiply-adds a row (q's half product included) and reads no matrices:
+// profiling.mont_mul_cost(L, mxu=False) counts 3 L^2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,19 +49,19 @@ using namespace phe;
 
 // kShared = false: b is [B, L], one row per row of a.
 // kShared = true: b is [L], shared by the batch.
-template <bool kShared, int E>
+// kMxu: the int8 REDC body (true) or the integer-pipe one (false).
+template <bool kShared, int E, bool kMxu>
 __global__ void __launch_bounds__(kThreads, 1)
 mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
-                int64_t* __restrict__ out, const int* __restrict__ wq,
-                const int* __restrict__ wm, const int* __restrict__ cq,
-                const int* __restrict__ cm, int B, int rows, int L) {
+                int64_t* __restrict__ out, const RedcConsts consts, int B,
+                int rows, int L) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t e0 = static_cast<size_t>(blockIdx.x) * rows;
-  RedcTile<E> p;
+  RedcTile<E, kMxu> p;
   p.init(smem_raw, L,
          B - static_cast<int>(e0) < rows ? B - static_cast<int>(e0) : rows,
-         wq, wm, cq, cm);
+         consts);
   const int live = p.live, sa = p.sa, sh = p.sh;
 
   p.zero();
@@ -76,22 +82,22 @@ mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
   }
 }
 
-template <bool kShared, int E>
-int launch(const int64_t* a, const int64_t* b, int64_t* out, const int* wq,
-           const int* wm, const int* cq, const int* cm, int B, int rows,
-           int L, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, E);
+template <bool kShared, int E, bool kMxu>
+int launch(const int64_t* a, const int64_t* b, int64_t* out,
+           const RedcConsts& consts, int B, int rows, int L,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(L, E, kMxu);
   if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < kRun ||
       rows < 1 || rows > E) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      mont_mul_kernel<kShared, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      mont_mul_kernel<kShared, E, kMxu>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + rows - 1) / rows;
-  mont_mul_kernel<kShared, E><<<blocks, kThreads, smem, stream>>>(
-      a, b, out, wq, wm, cq, cm, B, rows, L);
+  mont_mul_kernel<kShared, E, kMxu><<<blocks, kThreads, smem, stream>>>(
+      a, b, out, consts, B, rows, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -101,23 +107,41 @@ int launch(const int64_t* a, const int64_t* b, int64_t* out, const int* wq,
 // block; wq, wm: w_mq and w_m in fragment order (cuda_rns.pack_blocks,
 // two row blocks), 16-byte aligned; cq, cm: [2L] and [4L] int32
 // compensation vectors. phe_mont_mul_const_<E> takes b: [L], shared by
-// the batch. All on the device, contiguous. Each launches on `stream`,
+// the batch. phe_mont_mul_int_<E> and phe_mont_mul_const_int_<E> reduce on
+// the integer pipe and take mp, m: M' and M, int64 [L], in place of the
+// matrices. All on the device, contiguous. Each launches on `stream`,
 // allocates nothing, and returns cudaGetLastError().
 #define PHE_MONT_MUL_ENTRY(NAME, SHARED, E)                                   \
   extern "C" int NAME(const int64_t* a, const int64_t* b, int64_t* out,      \
                       const int* wq, const int* wm, const int* cq,           \
                       const int* cm, int B, int rows, int L,                 \
                       cudaStream_t stream) {                                 \
-    return launch<SHARED, E>(a, b, out, wq, wm, cq, cm, B, rows, L, stream); \
+    return launch<SHARED, E, true>(a, b, out,                                \
+                                   RedcConsts{wq, wm, cq, cm, nullptr,       \
+                                              nullptr},                      \
+                                   B, rows, L, stream);                      \
+  }
+#define PHE_MONT_MUL_INT_ENTRY(NAME, SHARED, E)                               \
+  extern "C" int NAME(const int64_t* a, const int64_t* b, int64_t* out,      \
+                      const int64_t* mp, const int64_t* m, int B, int rows,  \
+                      int L, cudaStream_t stream) {                          \
+    return launch<SHARED, E, false>(                                         \
+        a, b, out, RedcConsts{nullptr, nullptr, nullptr, nullptr, mp, m}, B, \
+        rows, L, stream);                                                    \
   }
 
 PHE_MONT_MUL_ENTRY(phe_mont_mul_8, false, 8)
 PHE_MONT_MUL_ENTRY(phe_mont_mul_32, false, 32)
 PHE_MONT_MUL_ENTRY(phe_mont_mul_const_8, true, 8)
 PHE_MONT_MUL_ENTRY(phe_mont_mul_const_32, true, 32)
+PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_int_8, false, 8)
+PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_int_32, false, 32)
+PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_const_int_8, true, 8)
+PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_const_int_32, true, 32)
 
 // Shared-memory bytes of one block of `elems` rows at L (the tile's, as
-// the modexp's): the GPU tests hold the wrapper's copy against it.
-extern "C" int phe_mont_mul_smem(int L, int elems) {
-  return static_cast<int>(phe::smem_bytes(L, elems));
+// the modexp's) for the int8 body (mxu != 0) or the integer-pipe one: the
+// GPU tests hold the wrapper's copy against it.
+extern "C" int phe_mont_mul_smem(int L, int elems, int mxu) {
+  return static_cast<int>(phe::smem_bytes(L, elems, mxu != 0));
 }

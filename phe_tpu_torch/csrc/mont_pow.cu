@@ -1,11 +1,15 @@
 // Windowed Montgomery exponentiation over 14-bit redundant limbs, with the
 // exponent shared by the batch or one exponent per row, E rows a block and
-// both constant products of each reduction on the int8 tensor cores.
+// both constant products of each reduction on the int8 tensor cores, or,
+// for a context without REDC matrices, on the CUDA cores' integer pipe.
 //
 // Replaces phe_tpu/ops/pallas_modexp.py: mont_pow_shared_cols (call :302),
 // whose kernel body is _pow_kernel (:199-248), and mont_pow_cols (call
-// :570), whose body is _pow_vec_kernel (:458-515). One kernel body serves
-// both: a template flag says whether the digits are shared or per row.
+// :570), whose body is _pow_vec_kernel (:458-515), each with both of
+// _mont_mul_into's REDC bodies (the MXU one, and the integer-pipe one its
+// kernels branch to at :200 and :469). One kernel body serves all four: a
+// template flag says whether the digits are shared or per row, another
+// (kMxu) which REDC body each product runs (redc_tile.cuh).
 //
 // What it computes: for a Montgomery-domain base x < 2.01 M (limbs in
 // [0, 2^14]), a 2^w-entry table (tab[0] = R mod M, tab[1] = x,
@@ -40,7 +44,9 @@
 // 2.1 MB at L = 1,176, E = 8. Twelve warps a block, one block an SM. So a
 // block holding fewer rows saves a b and carries but streams the same
 // matrices: past about 0.5 GB a product over all blocks (POW_STREAM in
-// ops/cuda_modexp.py), more blocks stop paying.
+// ops/cuda_modexp.py), more blocks stop paying. The integer-pipe body
+// streams no matrices and does about 2.5 L^2 int32 multiply-adds a
+// product (2 L^2 a squaring).
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; SM clock stamps of block 0
 // per product): at L = 296, E = 32, 124 k cycles a block-product, a b
 // 36 %, the two MMA phases 35 %, carries and digits the rest; at L = 1,176,
@@ -60,21 +66,21 @@ using namespace phe;
 
 // kVec = false: digits is int64 [n_windows], shared by the batch.
 // kVec = true: digits is int8 [B, n_windows], one schedule per row.
-template <bool kVec, int E>
+// kMxu: the int8 REDC body (true) or the integer-pipe one (false).
+template <bool kVec, int E, bool kMxu>
 __global__ void __launch_bounds__(kThreads, 1)
 mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
                 unsigned int* __restrict__ table,
-                const int64_t* __restrict__ one, const int* __restrict__ wq,
-                const int* __restrict__ wm, const int* __restrict__ cq,
-                const int* __restrict__ cm, const void* __restrict__ digits,
-                int B, int rows, int L, int n_windows, int window) {
+                const int64_t* __restrict__ one, const RedcConsts consts,
+                const void* __restrict__ digits, int B, int rows, int L,
+                int n_windows, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t e0 = static_cast<size_t>(blockIdx.x) * rows;
-  RedcTile<E> p;
+  RedcTile<E, kMxu> p;
   p.init(smem_raw, L,
          B - static_cast<int>(e0) < rows ? B - static_cast<int>(e0) : rows,
-         wq, wm, cq, cm);
+         consts);
   const int live = p.live, sa = p.sa, sh = p.sh;
   const int ntab = 1 << window;
   const size_t tstride = static_cast<size_t>(ntab) * L;  // a row's table
@@ -155,24 +161,23 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
   }
 }
 
-template <bool kVec, int E>
+template <bool kVec, int E, bool kMxu>
 int launch(const int64_t* base, int64_t* out, unsigned int* table,
-           const int64_t* one, const int* wq, const int* wm, const int* cq,
-           const int* cm, const void* digits, int B, int rows, int L,
-           int n_windows, int window, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, E);
+           const int64_t* one, const RedcConsts& consts, const void* digits,
+           int B, int rows, int L, int n_windows, int window,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(L, E, kMxu);
   if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < 16 ||
       window < 1 || window > 8 || rows < 1 || rows > E) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      mont_pow_kernel<kVec, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      mont_pow_kernel<kVec, E, kMxu>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + rows - 1) / rows;
-  mont_pow_kernel<kVec, E><<<blocks, kThreads, smem, stream>>>(
-      base, out, table, one, wq, wm, cq, cm, digits, B, rows, L, n_windows,
-      window);
+  mont_pow_kernel<kVec, E, kMxu><<<blocks, kThreads, smem, stream>>>(
+      base, out, table, one, consts, digits, B, rows, L, n_windows, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,7 +190,9 @@ int launch(const int64_t* base, int64_t* out, unsigned int* table,
 // (cuda_rns.pack_blocks, two row blocks), 16-byte aligned; cq, cm: [2L]
 // and [4L] int32 compensation vectors; digits: [n_windows] int64, MSB
 // first. phe_mont_pow_<E> takes digits: [B, n_windows] int8, one schedule
-// per row. All on the device, contiguous. Each launches on `stream`,
+// per row. phe_mont_pow_shared_int_<E> and phe_mont_pow_int_<E> reduce on
+// the integer pipe and take mp, m: M' and M, int64 [L], in place of the
+// matrices. All on the device, contiguous. Each launches on `stream`,
 // allocates nothing, and returns cudaGetLastError().
 #define PHE_MONT_POW_ENTRY(NAME, VEC, E, DIGIT_T)                              \
   extern "C" int NAME(const int64_t* base, int64_t* out, unsigned int* table, \
@@ -193,18 +200,35 @@ int launch(const int64_t* base, int64_t* out, unsigned int* table,
                       const int* cq, const int* cm, const DIGIT_T* digits,    \
                       int B, int rows, int L, int n_windows, int window,      \
                       cudaStream_t stream) {                                  \
-    return launch<VEC, E>(base, out, table, one, wq, wm, cq, cm, digits, B,   \
-                          rows, L, n_windows, window, stream);                \
+    return launch<VEC, E, true>(                                              \
+        base, out, table, one,                                                \
+        RedcConsts{wq, wm, cq, cm, nullptr, nullptr}, digits, B, rows, L,     \
+        n_windows, window, stream);                                           \
+  }
+#define PHE_MONT_POW_INT_ENTRY(NAME, VEC, E, DIGIT_T)                          \
+  extern "C" int NAME(const int64_t* base, int64_t* out, unsigned int* table, \
+                      const int64_t* one, const int64_t* mp,                  \
+                      const int64_t* m, const DIGIT_T* digits, int B,         \
+                      int rows, int L, int n_windows, int window,             \
+                      cudaStream_t stream) {                                  \
+    return launch<VEC, E, false>(                                             \
+        base, out, table, one,                                                \
+        RedcConsts{nullptr, nullptr, nullptr, nullptr, mp, m}, digits, B,     \
+        rows, L, n_windows, window, stream);                                  \
   }
 
 PHE_MONT_POW_ENTRY(phe_mont_pow_shared_8, false, 8, int64_t)
 PHE_MONT_POW_ENTRY(phe_mont_pow_shared_32, false, 32, int64_t)
 PHE_MONT_POW_ENTRY(phe_mont_pow_8, true, 8, int8_t)
 PHE_MONT_POW_ENTRY(phe_mont_pow_32, true, 32, int8_t)
+PHE_MONT_POW_INT_ENTRY(phe_mont_pow_shared_int_8, false, 8, int64_t)
+PHE_MONT_POW_INT_ENTRY(phe_mont_pow_shared_int_32, false, 32, int64_t)
+PHE_MONT_POW_INT_ENTRY(phe_mont_pow_int_8, true, 8, int8_t)
+PHE_MONT_POW_INT_ENTRY(phe_mont_pow_int_32, true, 32, int8_t)
 
-// Shared-memory bytes of one block of `elems` rows at L: the wrapper
-// chooses E with its own copy of this formula, which the GPU tests hold
-// against this one.
-extern "C" int phe_mont_pow_smem(int L, int elems) {
-  return static_cast<int>(phe::smem_bytes(L, elems));
+// Shared-memory bytes of one block of `elems` rows at L for the int8 body
+// (mxu != 0) or the integer-pipe one: the wrapper chooses E with its own
+// copy of this formula, which the GPU tests hold against this one.
+extern "C" int phe_mont_pow_smem(int L, int elems, int mxu) {
+  return static_cast<int>(phe::smem_bytes(L, elems, mxu != 0));
 }

@@ -1,7 +1,8 @@
 // The REDC tile: Montgomery products over 14-bit redundant limbs for E
 // rows a block, both constant products of each reduction on the int8
-// tensor cores. mont_mul.cu runs one product a row on it, mont_pow.cu a
-// whole windowed modexp a row.
+// tensor cores (kMxu), or, for a context without REDC matrices, on the
+// CUDA cores' integer pipe (the integer-pipe body, below). mont_mul.cu
+// runs one product a row on it, mont_pow.cu a whole windowed modexp a row.
 //
 // What a product computes: for a, b < 2.01 M with limbs in [0, 2^14] and
 // R = 2^(14 L) >= 2^16 M, a result congruent to a b R^-1 mod M with limbs
@@ -47,6 +48,19 @@
 // all live rows between block barriers: 12 barriers a product, shared by
 // the block's rows.
 //
+// The integer-pipe body (kMxu = false) computes what phe_tpu's mxu=False
+// branch of _mont_mul_into computes (pallas_modexp.py :192-196, its
+// kernels' branch at :200, :325, :469): m_q = the low L limbs of T_lo M',
+// then T + m_q M, then the exact / R of _redc_tail, all three products on
+// the CUDA cores with the a * b machinery above (runs of kRun columns from
+// registers, 64-bit column sums). T_lo, then q, take the accumulator rows
+// as their operand (a is dead once T = a b), M' and M one shared row each,
+// read by every row slot; q is normalised run by run and rippled (its top
+// carry dropped: mod R), and T + q M is normalised in place over T, so the
+// same two carry passes and the same / R end the product. No matrix ring
+// and no digit rows: smem_bytes(L, E, false) is 215,080 bytes at L = 296,
+// E = 32 and 217,640 at L = 1,176, E = 8.
+//
 // Limb counts: any multiple of kRun. At L = 8 the MMAs' one K-step holds
 // the 16 digits and 16 zero digits of padding (the digit rows are zeroed
 // with the block and only [0, 2L) is ever written), q's one slab holds L
@@ -89,21 +103,32 @@ __host__ __device__ inline int n_runs(int L) { return 2 * L / kRun; }
 __host__ __device__ inline int k_pad(int L) { return (2 * L + 31) / 32 * 32; }
 __host__ __device__ inline int dig_stride(int L) { return k_pad(L) + 16; }
 __host__ __device__ inline int q_slabs(int L) { return (L + 15) / 16; }
-// The accumulator rows and the carry arrays come first: the MMA phases
-// use that region, idle then, as their ring (kWarps x kStages slots of
-// 1 KB), and a block is never smaller than the ring.
-__host__ __device__ inline size_t ring_region(int L, int elems) {
+// The accumulator rows and the carry arrays come first. The int8 body's
+// MMA phases use that region, idle then, as their ring (kWarps x kStages
+// slots of 1 KB), so with mxu it is never smaller than the ring.
+__host__ __device__ inline size_t ring_region(int L, int elems, bool mxu) {
   const size_t rows = 4 * static_cast<size_t>(elems) *
                       (op_stride(L) + 2 * n_runs(L));
   const size_t ring = static_cast<size_t>(kWarps) * kStages * 64 * 16;
-  return rows > ring ? rows : ring;
+  return rows > ring || !mxu ? rows : ring;
 }
-inline size_t smem_bytes(int L, int elems) {
-  return ring_region(L, elems) +
-         static_cast<size_t>(elems) *
-             (4 * (static_cast<size_t>(wide_stride(L)) + h_stride(L) + 1) +
-              dig_stride(L));
+// Then per row T, H and the flag; then the int8 body's digit rows, or the
+// integer-pipe body's two constant rows (M', M), padded as operands.
+inline size_t smem_bytes(int L, int elems, bool mxu) {
+  const size_t rows = static_cast<size_t>(elems) * 4 *
+                      (static_cast<size_t>(wide_stride(L)) + h_stride(L) + 1);
+  return ring_region(L, elems, mxu) + rows +
+         (mxu ? static_cast<size_t>(elems) * dig_stride(L)
+              : 2 * 4 * static_cast<size_t>(op_stride(L)));
 }
+
+// The reduction's constants in device memory: for the int8 body the packed
+// matrices (w_mq, w_m in fragment order) and their compensation vectors
+// c_mq, c_m; for the integer-pipe body M' and M, int64 [L] limbs.
+struct RedcConsts {
+  const int *wq, *wm, *cq, *cm;
+  const int64_t *mp, *m;
+};
 
 // c += A B for one m16n8k32 tile: A's four registers, B's two.
 __device__ __forceinline__ void mma_s8(int* c, const int4& a, unsigned int b0,
@@ -131,7 +156,8 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int E>
+// kMxu: the int8 tensor-core body (true) or the integer-pipe one (false).
+template <int E, bool kMxu>
 struct RedcTile {
   static constexpr int kTiles = E / 8;  // n-tiles of 8 rows
   int L, sa, st, sh, nr, ds, ksteps, live;
@@ -142,43 +168,51 @@ struct RedcTile {
   unsigned int* c2;    // [E, nr]: each run's carry after the ripple
   unsigned int* flag;  // [E]: U's low half is non-zero
   unsigned char* dig;  // [E, ds]: the B operand's digits; [2L, ds) zero
+  unsigned int* mq;    // [sa]: M', padded as acc (integer pipe)
+  unsigned int* mm;    // [sa]: M, padded as acc (integer pipe)
   int4* ring;          // over acc, c1, c2 during the MMA phases
-  const int4 *wq, *wm;  // the packed REDC matrices
-  const int *cq, *cm;   // their compensation vectors
+  RedcConsts consts;   // the reduction's constants in device memory
 
   // The block's shared memory carved for `live` rows at L, and the
-  // packed REDC operands (w_mq, w_m in fragment order; c_mq, c_m).
-  __device__ void init(unsigned char* smem, int L_, int live_, const int* wq_,
-                       const int* wm_, const int* cq_, const int* cm_) {
+  // reduction's constants.
+  __device__ void init(unsigned char* smem, int L_, int live_,
+                       const RedcConsts& consts_) {
     L = L_;
     live = live_;
+    consts = consts_;
     sa = op_stride(L);
     st = wide_stride(L);
     sh = h_stride(L);
     nr = n_runs(L);
     ds = dig_stride(L);
     ksteps = k_pad(L) / 32;
-    wq = reinterpret_cast<const int4*>(wq_);
-    wm = reinterpret_cast<const int4*>(wm_);
-    cq = cq_;
-    cm = cm_;
     ring = reinterpret_cast<int4*>(smem);
     acc = reinterpret_cast<unsigned int*>(smem);
     c1 = acc + E * sa;
     c2 = c1 + E * nr;
-    T = reinterpret_cast<unsigned int*>(smem + ring_region(L, E));
+    T = reinterpret_cast<unsigned int*>(smem + ring_region(L, E, kMxu));
     H = T + E * st;
     flag = H + E * sh;
     dig = reinterpret_cast<unsigned char*>(flag + E);
+    mq = flag + E;
+    mm = mq + sa;
   }
 
   // Zero the whole block (the operand pads and the digit padding stay
-  // zero from here on).
+  // zero from here on); the integer pipe's constant rows loaded.
   __device__ void zero() {
     const int words = static_cast<int>(
-        (dig - reinterpret_cast<unsigned char*>(acc)) / 4) + E * ds / 4;
+        (dig - reinterpret_cast<unsigned char*>(acc)) / 4) +
+        (kMxu ? E * ds / 4 : 2 * sa);
     for (int i = threadIdx.x; i < words; i += blockDim.x) acc[i] = 0;
     __syncthreads();
+    if constexpr (!kMxu) {
+      for (int i = threadIdx.x; i < L; i += blockDim.x) {
+        mq[kPad + i] = static_cast<unsigned int>(consts.mp[i]);
+        mm[kPad + i] = static_cast<unsigned int>(consts.m[i]);
+      }
+      __syncthreads();
+    }
   }
 
   // Jobs of one kind over the live rows: job idx is (run idx / live, row
@@ -213,6 +247,59 @@ struct RedcTile {
     for (int m = kRun - 2; m >= 0; --m) bb[kRun + m] = bb[m];
   }
 
+  // Columns c0 ... c0 + kRun - 1 of A * B into s (A, B: operand rows at
+  // the operand offset, their zero pads either side readable), or of A * A
+  // when kSquare.
+  template <bool kSquare>
+  __device__ __forceinline__ void columns(
+      const unsigned int* A, const unsigned int* B, int c0,
+      unsigned long long (&s)[kRun]) const {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) s[j] = 0;
+    int i0 = c0 - (L - 1) > 0 ? (c0 - (L - 1)) & ~(kRun - 1) : 0;
+    int i_hi = c0 + kRun - 1 < L - 1 ? c0 + kRun - 1 : L - 1;
+    if (kSquare) {
+      // Cross terms i < c - i only: some column of the run has one iff
+      // 2 i < c0 + kRun - 1.
+      const int top = (c0 + kRun - 2) / 2;
+      i_hi = i_hi < top ? i_hi : top;
+    }
+    // bb[m] = B[c0 - i0 - kRun + 1 + m]: column c0 + j takes a[i0 + ii]
+    // times bb[j - ii + kRun - 1].
+    unsigned int bb[2 * kRun - 1];
+#pragma unroll
+    for (int m = 0; m < kRun - 1; ++m) bb[kRun + m] = B[c0 - i0 + 1 + m];
+    // Squares: blocks wholly below the diagonal (every i < c - i) run
+    // unmasked; the one or two that straddle it keep i < c - i only.
+    const int i_full = kSquare ? (c0 - 2 * kRun + 2) / 2 : i_hi + 1;
+    for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
+      block<false>(A, B, c0, i0, bb, s);
+    }
+    for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
+    if (kSquare) {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        const int c = c0 + j;
+        const unsigned int d = (c & 1) ? 0u : A[c >> 1];
+        s[j] = 2 * s[j] + static_cast<unsigned long long>(d * d);
+      }
+    }
+  }
+
+  // Run k of row e, normalised into out[0 .. kRun); c1 <- its carry-out.
+  __device__ __forceinline__ void put_run(unsigned int* out,
+                                          const unsigned long long (&s)[kRun],
+                                          int e, int k) const {
+    unsigned long long carry = 0;
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      const unsigned long long v = s[j] + carry;
+      out[j] = static_cast<unsigned int>(v) & kMask;
+      carry = v >> 14;
+    }
+    c1[e * nr + k] = static_cast<unsigned int>(carry);  // < 2^26
+  }
+
   // T <- a * b for a = acc and b = the factor in H (or acc itself when
   // square), normalised run by run; c1 <- each run's carry-out.
   template <bool kSquare>
@@ -220,49 +307,62 @@ struct RedcTile {
     const unsigned int* bsrc = kSquare ? acc : H;
     const int sb = kSquare ? sa : sh;
     for (int idx = threadIdx.x; idx < jobs(nr); idx += blockDim.x) {
-      const int k = idx / live, e = idx - k * live, c0 = k * kRun;
-      const unsigned int* A = acc + e * sa + kPad;
-      const unsigned int* B = bsrc + e * sb + kPad;
+      const int k = idx / live, e = idx - k * live;
       unsigned long long s[kRun];
+      columns<kSquare>(acc + e * sa + kPad, bsrc + e * sb + kPad, k * kRun, s);
+      put_run(T + e * st + k * kRun, s, e, k);
+    }
+    __syncthreads();
+  }
+
+  // Integer pipe: T's carry bits folded into T, and T_lo copied into the
+  // accumulator rows as the next operand (a is read no more); the flags
+  // cleared.
+  __device__ void fold_low() {
+    const int n = 2 * L;
+    for (int idx = threadIdx.x; idx < live * n; idx += blockDim.x) {
+      const int e = idx / n, c = idx - e * n;
+      const unsigned int v = limb(T + e * st, e, c);
+      T[e * st + c] = v;
+      if (c < L) acc[e * sa + kPad + c] = v;
+    }
+    if (threadIdx.x < E) flag[threadIdx.x] = 0;
+    __syncthreads();
+  }
+
+  // Integer pipe: q = T_lo M' mod R, the low L columns normalised run by
+  // run into H; c1 <- each run's carry-out.
+  __device__ void q_runs() {
+    for (int idx = threadIdx.x; idx < jobs(L / kRun); idx += blockDim.x) {
+      const int k = idx / live, e = idx - k * live;
+      unsigned long long s[kRun];
+      columns<false>(acc + e * sa + kPad, mq + kPad, k * kRun, s);
+      put_run(H + e * sh + k * kRun, s, e, k);
+    }
+    __syncthreads();
+  }
+
+  // Integer pipe: q into the accumulator rows, its carry bits folded (the
+  // top one dropped: q mod R).
+  __device__ void fold_q() {
+    for (int idx = threadIdx.x; idx < live * L; idx += blockDim.x) {
+      const int e = idx / L, c = idx - e * L;
+      acc[e * sa + kPad + c] = limb(H + e * sh, e, c);
+    }
+    __syncthreads();
+  }
+
+  // Integer pipe: U = T + q M, every column normalised run by run in place
+  // over T; c1 <- each run's carry-out.
+  __device__ void qm_runs() {
+    for (int idx = threadIdx.x; idx < jobs(nr); idx += blockDim.x) {
+      const int k = idx / live, e = idx - k * live, c0 = k * kRun;
+      unsigned long long s[kRun];
+      columns<false>(acc + e * sa + kPad, mm + kPad, c0, s);
+      unsigned int* t = T + e * st + c0;
 #pragma unroll
-      for (int j = 0; j < kRun; ++j) s[j] = 0;
-      int i0 = c0 - (L - 1) > 0 ? (c0 - (L - 1)) & ~(kRun - 1) : 0;
-      int i_hi = c0 + kRun - 1 < L - 1 ? c0 + kRun - 1 : L - 1;
-      if (kSquare) {
-        // Cross terms i < c - i only: some column of the run has one iff
-        // 2 i < c0 + kRun - 1.
-        const int top = (c0 + kRun - 2) / 2;
-        i_hi = i_hi < top ? i_hi : top;
-      }
-      // bb[m] = B[c0 - i0 - kRun + 1 + m]: column c0 + j takes a[i0 + ii]
-      // times bb[j - ii + kRun - 1].
-      unsigned int bb[2 * kRun - 1];
-#pragma unroll
-      for (int m = 0; m < kRun - 1; ++m) bb[kRun + m] = B[c0 - i0 + 1 + m];
-      // Squares: blocks wholly below the diagonal (every i < c - i) run
-      // unmasked; the one or two that straddle it keep i < c - i only.
-      const int i_full = kSquare ? (c0 - 2 * kRun + 2) / 2 : i_hi + 1;
-      for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
-        block<false>(A, B, c0, i0, bb, s);
-      }
-      for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
-      if (kSquare) {
-#pragma unroll
-        for (int j = 0; j < kRun; ++j) {
-          const int c = c0 + j;
-          const unsigned int d = (c & 1) ? 0u : A[c >> 1];
-          s[j] = 2 * s[j] + static_cast<unsigned long long>(d * d);
-        }
-      }
-      unsigned long long carry = 0;
-      unsigned int* out = T + e * st + c0;
-#pragma unroll
-      for (int j = 0; j < kRun; ++j) {
-        const unsigned long long v = s[j] + carry;
-        out[j] = static_cast<unsigned int>(v) & kMask;
-        carry = v >> 14;
-      }
-      c1[e * nr + k] = static_cast<unsigned int>(carry);  // < 2^26
+      for (int j = 0; j < kRun; ++j) s[j] += t[j];
+      put_run(t, s, e, k);
     }
     __syncthreads();
   }
@@ -354,7 +454,7 @@ struct RedcTile {
   // One slab's two row-block sums over the block's rows: c[b][n][i] is
   // block b, n-tile n, register i of the m16n8 C fragment (row g + 8 (i/2),
   // row 8 n + 2 t + i % 2 of the batch).
-  __device__ __forceinline__ void slab(const int4* wp, int s,
+  __device__ __forceinline__ void slab(const int* wp, int s,
                                        int (&c)[2][kTiles][4]) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -363,7 +463,8 @@ struct RedcTile {
       for (int n = 0; n < kTiles; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) c[b][n][i] = 0;
-    const int4* ap = wp + static_cast<size_t>(s) * ksteps * 64 + lane;
+    const int4* ap = reinterpret_cast<const int4*>(wp) +
+                     static_cast<size_t>(s) * ksteps * 64 + lane;
     // This warp's kStages ring slots of both blocks' fragments: each lane
     // copies its own 16 bytes and reads them back, so a lane's wait on
     // its own copies is the only synchronisation.
@@ -406,12 +507,13 @@ struct RedcTile {
     const int g = lane >> 2, t = lane & 3;
     for (int s = warp; s < q_slabs(L); s += kWarps) {
       int c[2][kTiles][4];
-      slab(wq, s, c);
+      slab(consts.wq, s, c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = s * 16 + g + 8 * h;
         if (j >= L) continue;  // a zero padding row
-        const int clo = __ldg(cq + j), chi = __ldg(cq + L + j);
+        const int clo = __ldg(consts.cq + j);
+        const int chi = __ldg(consts.cq + L + j);
 #pragma unroll
         for (int n = 0; n < kTiles; ++n)
 #pragma unroll
@@ -435,11 +537,12 @@ struct RedcTile {
     const int g = lane >> 2, t = lane & 3;
     for (int s = warp; s < 2 * L / 16; s += kWarps) {
       int c[2][kTiles][4];
-      slab(wm, s, c);
+      slab(consts.wm, s, c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = s * 16 + g + 8 * h;
-        const int clo = __ldg(cm + j), chi = __ldg(cm + 2 * L + j);
+        const int clo = __ldg(consts.cm + j);
+        const int chi = __ldg(consts.cm + 2 * L + j);
 #pragma unroll
         for (int n = 0; n < kTiles; ++n)
 #pragma unroll
@@ -464,14 +567,22 @@ struct RedcTile {
   __device__ void product() {
     mul_runs<kSquare>();             // T = a b, runs normalised; c1
     ripple<false>(T, st, nr);        // c2
-    digits_of<true>(T, st, 2 * L);   // T's carry bits folded; digits of T_lo
-    if (threadIdx.x < E) flag[threadIdx.x] = 0;
-    mma_q();                         // q slots split over H[0, 2L)
-    split_runs(H, sh, H + L, sh, L / kRun);
-    ripple<false>(H, sh, L / kRun);
-    digits_of<false>(H, sh, L);      // digits of q mod R (top carry dropped)
-    mma_m();                         // U split over T and H
-    split_runs(T, st, H, sh, nr);
+    if constexpr (kMxu) {
+      digits_of<true>(T, st, 2 * L);  // T's carry bits folded; T_lo's digits
+      if (threadIdx.x < E) flag[threadIdx.x] = 0;
+      mma_q();                        // q slots split over H[0, 2L)
+      split_runs(H, sh, H + L, sh, L / kRun);
+      ripple<false>(H, sh, L / kRun);
+      digits_of<false>(H, sh, L);     // digits of q mod R (top carry dropped)
+      mma_m();                        // U split over T and H
+      split_runs(T, st, H, sh, nr);
+    } else {
+      fold_low();                     // T's carry bits folded; T_lo in acc
+      q_runs();                       // q's runs in H; c1
+      ripple<false>(H, sh, L / kRun);
+      fold_q();                       // q mod R in acc (top carry dropped)
+      qm_runs();                      // U = T + q M over T; c1
+    }
     ripple<true>(T, st, nr);         // c2 and the low half's flag
     // U / R: the high half, its carry bits, and one iff the low half is R;
     // the pads, which the ring overwrote, zero again.

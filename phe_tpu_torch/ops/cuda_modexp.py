@@ -9,10 +9,13 @@ exponent shared by the batch or one per row) launch the kernel of
 ``csrc/mont_pow.cu``. Both run the REDC tile of ``csrc/redc_tile.cuh``: E
 rows a block (``_pow_elems``), both constant products of each reduction
 on the int8 tensor cores against the context's REDC matrices, packed once
-per context and card (``_pow_columns``). Each launches its kernel for
-tensors on the card and takes its plain PyTorch version
-(montgomery.mont_mul_plain, mont_pow_shared_plain, mont_pow_plain) for
-tensors on the CPU; any other device raises.
+per context and card (``_pow_columns``), or, for a context built without
+them (montgomery.has_matrices False: PHE_TPU_TORCH_MXU=0), on the CUDA
+cores' integer pipe against M' and M (the ``_int`` entry points). Each
+launches its kernel for tensors on the card and takes its plain PyTorch
+version (montgomery.mont_mul_plain, mont_pow_shared_plain,
+mont_pow_plain: the integer-pipe formulation) for tensors on the CPU;
+any other device raises.
 
 The contract (phe_tpu's tests state it for its kernels): for inputs below
 2.01 M with limbs in [0, 2^14], the output is congruent to a*b*R^-1 mod M
@@ -22,8 +25,8 @@ M, not necessarily limb for limb. The products take L from 8 to
 MAX_MUL_LIMBS (1,200: the widest whose E = 8 block fits), the modexps
 from 16.
 
-``launches`` counts the kernel launches of each form; nothing else changes
-it.
+``launches`` counts the kernel launches of each form and body (the
+integer-pipe ones under ``<form>_int``); nothing else changes it.
 """
 
 import ctypes
@@ -40,8 +43,8 @@ from phe_tpu_torch.ops import montgomery as mg
 MAX_SMEM = 232448
 # The widest L (a multiple of 8) whose block of E = 8 rows fits MAX_SMEM.
 MAX_MUL_LIMBS = 1200
-launches = {"mont_mul": 0, "mont_mul_const": 0, "mont_pow_shared": 0,
-            "mont_pow": 0}
+FORMS = ("mont_mul", "mont_mul_const", "mont_pow_shared", "mont_pow")
+launches = {name + body: 0 for body in ("", "_int") for name in FORMS}
 # Rows a modexp block holds: the kernel's instantiations, widest first.
 POW_ELEMS = (32, 8)
 # REDC matrix bytes (12 L^2 a block) that the blocks of one launch may
@@ -50,46 +53,52 @@ POW_ELEMS = (32, 8)
 # spread over 128, while 64 blocks at L = 592 (0.27 GB) ran faster than
 # 8 (PERF.md, section 6).
 POW_STREAM = 1 << 29
-# Per context (keyed by its m tensor): the kernels' packed REDC operands
-# on its card, built at the context's first launch of either kernel.
+# Per context with REDC matrices (keyed by its m tensor): the kernels'
+# packed REDC operands on its card, built at its first launch of either
+# kernel.
 _pow_packed = WeakIdKeyDictionary()
 
 mont_mul_plain = mg.mont_mul_plain
 
 
-def _lib(shared, elems):
-    """The Montgomery-product kernel's C entry point for one form and one
-    E."""
+def _entry(lib, name, pointers, ints):
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib(shared, elems, mxu=True):
+    """The Montgomery-product kernel's C entry point for one form, one E
+    and one REDC body."""
     lib = _build.load("mont_mul")
     if lib.phe_mont_mul_smem.argtypes is None:
         for e in POW_ELEMS:
             for form in ("phe_mont_mul_%d", "phe_mont_mul_const_%d"):
-                fn = getattr(lib, form % e)
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-                    ctypes.c_void_p
-                ]
-                fn.restype = ctypes.c_int
-        lib.phe_mont_mul_smem.argtypes = [ctypes.c_int] * 2
+                _entry(lib, form % e, 7, 3)
+            for form in ("phe_mont_mul_int_%d", "phe_mont_mul_const_int_%d"):
+                _entry(lib, form % e, 5, 3)
+        lib.phe_mont_mul_smem.argtypes = [ctypes.c_int] * 3
         lib.phe_mont_mul_smem.restype = ctypes.c_int
-    return getattr(lib, ("phe_mont_mul_const_%d" if shared
-                         else "phe_mont_mul_%d") % elems)
+    return getattr(lib, "phe_mont_mul%s%s_%d" % (
+        "_const" if shared else "", "" if mxu else "_int", elems))
 
 
-def _pow_lib(vec, elems):
-    """The modexp kernel's C entry point for one form and one E."""
+def _pow_lib(vec, elems, mxu=True):
+    """The modexp kernel's C entry point for one form, one E and one REDC
+    body."""
     lib = _build.load("mont_pow")
     if lib.phe_mont_pow_smem.argtypes is None:
         for e in POW_ELEMS:
             for form in ("phe_mont_pow_%d", "phe_mont_pow_shared_%d"):
-                fn = getattr(lib, form % e)
-                fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-                    ctypes.c_void_p
-                ]
-                fn.restype = ctypes.c_int
-        lib.phe_mont_pow_smem.argtypes = [ctypes.c_int] * 2
+                _entry(lib, form % e, 9, 5)
+            for form in ("phe_mont_pow_int_%d", "phe_mont_pow_shared_int_%d"):
+                _entry(lib, form % e, 7, 5)
+        lib.phe_mont_pow_smem.argtypes = [ctypes.c_int] * 3
         lib.phe_mont_pow_smem.restype = ctypes.c_int
-    return getattr(lib, ("phe_mont_pow_%d" if vec
-                         else "phe_mont_pow_shared_%d") % elems)
+    return getattr(lib, "phe_mont_pow%s%s_%d" % (
+        "" if vec else "_shared", "" if mxu else "_int", elems))
 
 
 # csrc/redc_tile.cuh's geometry: kRun columns a job, kPad zero limbs
@@ -98,47 +107,56 @@ def _pow_lib(vec, elems):
 POW_RUN, POW_PAD, POW_RING = 8, 14, 12 * 4 * 1024
 
 
-def _pow_smem(L, elems):
+def _pow_smem(L, elems, mxu=True):
     """Shared-memory bytes of one block of either kernel (csrc/redc_tile.cuh's
     smem_bytes): per row the operand row with its pads (L + 2 kPad + 1
     words) and the two carry arrays (2L / kRun words each), a region the
-    MMA phases reuse as their ring and never smaller than it; then per row
-    T and the scratch H (2L + 1 words each, H at least the padded
-    operand), the flag, and the digit row (2L padded to 32, plus a
-    16-byte skew)."""
-    ring = max(4 * elems * ((L + 2 * POW_PAD + 1) + 2 * (2 * L // POW_RUN)),
-               POW_RING)
+    int8 body's MMA phases reuse as their ring and never smaller than it
+    there; then per row T and the scratch H (2L + 1 words each, H at least
+    the padded operand) and the flag; then, for the int8 body (mxu), the
+    digit row (2L padded to 32, plus a 16-byte skew) per row, or, for the
+    integer-pipe body, the two padded constant rows M' and M."""
+    rows = 4 * elems * ((L + 2 * POW_PAD + 1) + 2 * (2 * L // POW_RUN))
     words = (2 * L + 1) + (max(2 * L, L + 2 * POW_PAD) + 1) + 1
-    return ring + elems * (4 * words + -(-2 * L // 32) * 32 + 16)
+    if not mxu:
+        return rows + 4 * elems * words + 8 * (L + 2 * POW_PAD + 1)
+    return max(rows, POW_RING) + elems * (4 * words + -(-2 * L // 32) * 32
+                                          + 16)
 
 
-def _pow_elems(L, B, sms):
+def _pow_elems(L, B, sms, mxu=True):
     """(E, rows) of a product or modexp launch of B rows at L on a card of
-    `sms` multiprocessors: the instantiation E and the rows each block holds.
+    `sms` multiprocessors, for the int8 body (mxu) or the integer-pipe one:
+    the instantiation E and the rows each block holds.
     E is the widest instantiation whose shared memory fits and whose
     ceil(B / E) blocks still cover the SMs, a block then holding E rows;
     when none does, the narrowest that fits, its blocks holding
     ceil(B / sms) rows (at most E), so that a small batch spreads over
-    the card, but no fewer than keep the blocks' matrix stream within
-    POW_STREAM. A fuller block divides the REDC matrices' L2 reads by
-    its rows. The window does not enter: the table lives in device
+    the card, but, with mxu, no fewer than keep the blocks' matrix stream
+    within POW_STREAM. A fuller block divides the REDC matrices' L2 reads
+    by its rows. The window does not enter: the table lives in device
     memory. The stream is per product, so a launch of one product and a
     modexp of many choose alike."""
-    fits = [e for e in POW_ELEMS if _pow_smem(L, e) <= MAX_SMEM]
+    fits = [e for e in POW_ELEMS if _pow_smem(L, e, mxu) <= MAX_SMEM]
     if not fits:
         raise ValueError("no modexp block fits %d bytes of shared memory at "
                          "L = %d" % (MAX_SMEM, L))
     for e in fits:
         if -(-B // e) >= sms:
             return e, e
-    rows = max(-(-B // sms), -(-B * 12 * L * L // POW_STREAM))
+    rows = -(-B // sms)
+    if mxu:
+        rows = max(rows, -(-B * 12 * L * L // POW_STREAM))
     return fits[-1], min(fits[-1], rows)
 
 
 def _pow_columns(ctx):
     """(w_mq, w_m packed in fragment order, c_mq, c_m as int32) on the
     context's device, packed on the host once per context and card; the
-    unpacked matrices are not kept."""
+    unpacked matrices are not kept. None for a context without REDC
+    matrices: nothing is packed."""
+    if not mg.has_matrices(ctx):
+        return None
     cols = _pow_packed.get(ctx.m)
     if cols is None:
         mats = mg.redc_matrices(ctx)
@@ -149,6 +167,16 @@ def _pow_columns(ctx):
                 mats.c_mq.to(torch.int32).contiguous(),
                 mats.c_m.to(torch.int32).contiguous()))
     return cols
+
+
+def _redc_args(ctx, dev, L):
+    """(mxu, the REDC constants' pointers): the packed matrices and their
+    compensation vectors, or M' and M for the integer-pipe body."""
+    cols = _pow_columns(ctx)
+    if cols is None:
+        _check(ctx.m_prime, "ctx.m_prime", (L,), dev)
+        return False, (ctx.m_prime.data_ptr(), ctx.m.data_ptr())
+    return True, tuple(t.data_ptr() for t in cols)
 
 
 def _check(t, name, shape, device):
@@ -182,16 +210,16 @@ def _launch(a, b, ctx, shared):
     out = torch.empty_like(a)
     if B == 0:
         return out
-    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev))
-    wq, wm, cq, cm = _pow_columns(ctx)
-    rc = _lib(shared, elems)(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), wq.data_ptr(),
-        wm.data_ptr(), cq.data_ptr(), cm.data_ptr(), B, rows, L,
+    mxu, consts = _redc_args(ctx, dev, L)
+    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev), mxu)
+    rc = _lib(shared, elems, mxu)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), *consts, B, rows, L,
         _build.stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError("mont_mul kernel launch failed: CUDA error %d" % rc)
-    launches["mont_mul_const" if shared else "mont_mul"] += 1
+    launches[("mont_mul_const" if shared else "mont_mul")
+             + ("" if mxu else "_int")] += 1
     return out
 
 
@@ -243,16 +271,15 @@ def _pow_launch(base, digits, ctx, window, vec):
     out = torch.empty_like(base)
     if B == 0:
         return out
-    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev))
-    wq, wm, cq, cm = _pow_columns(ctx)
+    mxu, consts = _redc_args(ctx, dev, L)
+    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev), mxu)
     table = _pow_table(B, rows, window, L, dev)
-    rc = _pow_lib(vec, elems)(
+    rc = _pow_lib(vec, elems, mxu)(
         base.data_ptr(), out.data_ptr(), table.data_ptr(),
-        ctx.one.data_ptr(), wq.data_ptr(), wm.data_ptr(), cq.data_ptr(),
-        cm.data_ptr(), digits.data_ptr(), B, rows, L, digits.shape[-1],
-        window, _build.stream_handle(dev),
+        ctx.one.data_ptr(), *consts, digits.data_ptr(), B, rows, L,
+        digits.shape[-1], window, _build.stream_handle(dev),
     )
-    name = "mont_pow" if vec else "mont_pow_shared"
+    name = ("mont_pow" if vec else "mont_pow_shared") + ("" if mxu else "_int")
     if rc != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, rc))

@@ -11,6 +11,10 @@ the encrypt -> decrypt round trip runs:
 * every Montgomery product goes through the hand-written CUDA kernel
   (phe_tpu_torch.ops.cuda_modexp) for tensors on the card, and through its
   plain PyTorch version, ``redc(mul_full(a, b))``, for tensors on the CPU;
+  the kernel reduces on the int8 tensor cores against the context's REDC
+  matrices, or, for a context built without them (``mxu=False`` or
+  PHE_TPU_TORCH_MXU=0, as phe_tpu's PHE_TPU_MXU=0), on the CUDA cores'
+  integer pipe (``has_matrices``);
 * so do the windowed modexps with a shared or a per-element exponent
   (``mont_pow_shared``, ``mont_pow``), whose plain versions are the
   windowed-table loops below;
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
+from phe_tpu_torch import config
 from phe_tpu_torch.ops import limb_math as lm
 from phe_tpu_torch.utils import limbs as hl
 
@@ -46,9 +51,11 @@ class MontgomeryContext(NamedTuple):
     The int8 REDC matrices that phe_tpu's context carries as fields ride
     beside it, on the host: ``redc_matrices(ctx)`` returns the ones
     ``interop.montgomery_context`` carried across from phe_tpu, or builds
-    them. The modexp kernel (csrc/mont_pow.cu) reads them, packed once per
-    context on its card (cuda_modexp._pow_columns); the Montgomery-product
-    kernel (csrc/mont_mul.cu) still reduces by schoolbook.
+    them. Both limb kernels (csrc/mont_pow.cu, csrc/mont_mul.cu) read them,
+    packed once per context on its card (cuda_modexp._pow_columns). A
+    context built without them (phe_tpu's ``w_mq is None``) is recorded
+    beside it the same way (``has_matrices`` is False), and its kernels
+    reduce on the integer pipe.
     """
 
     m: torch.Tensor
@@ -68,8 +75,13 @@ def num_limbs_for_modulus(modulus_bits):
     return -(-raw // 8) * 8
 
 
-def build_context(modulus, device, num_limbs=None):
-    """Host-side construction of a MontgomeryContext from a Python int."""
+def build_context(modulus, device, num_limbs=None, mxu=True):
+    """Host-side construction of a MontgomeryContext from a Python int.
+
+    mxu=True (the default; PHE_TPU_TORCH_MXU=0 overrides it, read here)
+    gives the context REDC matrices, built at its first launch, at every
+    L; otherwise its kernels take the integer-pipe REDC body.
+    """
     if num_limbs is None:
         num_limbs = num_limbs_for_modulus(modulus.bit_length())
     R = 1 << (lm.LIMB_BITS * num_limbs)
@@ -77,13 +89,16 @@ def build_context(modulus, device, num_limbs=None):
         raise ValueError("num_limbs too small for subtraction-free Montgomery")
     m_prime = (-pow(modulus, -1, R)) % R
     pack = lambda v: _tensor(hl.int_to_limbs(v, num_limbs), device)
-    return MontgomeryContext(
+    ctx = MontgomeryContext(
         m=pack(modulus),
         m_prime=pack(m_prime),
         r2=pack(R * R % modulus),
         one=pack(R % modulus),
         m_comp=pack(R - modulus),
     )
+    if not (mxu and config.use_mxu()):
+        drop_redc_matrices(ctx)
+    return ctx
 
 
 class RedcMatrices(NamedTuple):
@@ -109,7 +124,7 @@ class RedcMatrices(NamedTuple):
 
 
 # Per context, keyed by its m tensor: the RedcMatrices carried across from
-# phe_tpu, on the host.
+# phe_tpu, on the host, or None for a context without them.
 _carried = WeakIdKeyDictionary()
 
 
@@ -149,10 +164,19 @@ def build_redc_matrices(modulus, num_limbs, device):
                         c_m=_tensor(c_m, device))
 
 
+def has_matrices(ctx):
+    """Whether the context's kernels reduce against REDC matrices (else
+    on the integer pipe)."""
+    return _carried.get(ctx.m, True) is not None
+
+
 def redc_matrices(ctx):
     """The context's RedcMatrices on the host: the ones carried across
     from phe_tpu, else built from M's limbs. No built copy is kept: the
     modexp's wrapper keeps only its packed operands."""
+    if not has_matrices(ctx):
+        raise ValueError("this Montgomery context was built without REDC "
+                         "matrices")
     mats = _carried.get(ctx.m)
     if mats is None:
         modulus = hl.limbs_to_int(ctx.m.cpu().numpy())
@@ -163,6 +187,12 @@ def redc_matrices(ctx):
 def attach_redc_matrices(ctx, mats):
     """Keep mats (carried across from phe_tpu) as the context's own."""
     _carried[ctx.m] = mats
+
+
+def drop_redc_matrices(ctx):
+    """Record the context as one without REDC matrices (phe_tpu's
+    ``w_mq is None``): its kernels reduce on the integer pipe."""
+    _carried[ctx.m] = None
 
 
 def redc(t, ctx):

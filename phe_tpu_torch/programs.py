@@ -235,7 +235,11 @@ class DeviceProgram:
         return self.run(dev, bound.arguments, GRAPHS)
 
     def _key(self, dev, arguments):
-        """(key, the constants' tensors)."""
+        """(key, the constants' tensors). A context enters by the identity
+        of its tensors, so a graph captured for a Montgomery context with
+        REDC matrices never replays for one without: the REDC body is fixed
+        when a context is built (montgomery.build_context) and recorded
+        against its m tensor."""
         parts, tensors = [dev], []
         for name, v in arguments.items():
             if name in self.static:

@@ -19,7 +19,11 @@ encryption and an add on the card. The wire format round-trips a batch on
 the card (pinned: raw_encrypt's JSON; secure: re-obfuscated on the card),
 crt_powers equals Python's pow at 2048 bits through mont_pow_shared, the
 CLI's vector commands run on the card through click's CliRunner, and a
-world of one on NCCL sums as batch.sum() does. Tolerance zero throughout:
+world of one on NCCL sums as batch.sum() does. The integer-pipe REDC
+bodies (contexts built with mxu=False) run every block width on ragged
+batches at L = 80 and 296, both layouts' shared-memory formulas match
+the kernels', and PHE_TPU_TORCH_ENGINE=limb gives the RNS engine's
+pinned-r ciphertexts at 2048 bits. Tolerance zero throughout:
 all exact integer arithmetic.
 """
 
@@ -178,12 +182,15 @@ def test_mont_mul_every_width_and_ragged_batch_value_equal(dev, which,
 
 
 def test_mont_mul_smem_formula_matches_the_kernel(dev):
+    """Both layouts: the int8 body's (mxu) and the integer pipe's."""
     cuda_modexp._lib(False, 8)
     lib = cuda_modexp._build.load("mont_mul")
     for L in (8, 16, 24, 40, 80, 152, 296, 440, 592, 1176,
               cuda_modexp.MAX_MUL_LIMBS):
         for E in cuda_modexp.POW_ELEMS:
-            assert lib.phe_mont_mul_smem(L, E) == cuda_modexp._pow_smem(L, E)
+            for mxu in (True, False):
+                assert (lib.phe_mont_mul_smem(L, E, int(mxu))
+                        == cuda_modexp._pow_smem(L, E, mxu))
 
 
 def test_3072_bit_default_key_on_the_card(dev):
@@ -485,18 +492,19 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
     assert all(100 * v < 101 * M for v in g)
 
 
-def _pow_widths(dev, L):
+def _pow_widths(dev, L, mxu=True):
     """(B, (E, rows a block)): batches of 1, 7, 8 and 9 rows at one row a
-    block of E = 8; at three rows a block of E = 8 (where their matrix
-    stream allows it), at full blocks of E = 8 and, where a block of 32
-    rows fits, of E = 32, the smallest and largest batches that take it
-    on this card, their last block holding 1 row and all but one."""
+    block of E = 8; at three rows a block of E = 8 (where, with mxu, their
+    matrix stream allows it), at full blocks of E = 8 and, where a block
+    of 32 rows fits the body's layout, of E = 32, the smallest and largest
+    batches that take it on this card, their last block holding 1 row and
+    all but one."""
     sms = cuda_rns._sms(dev)
     out = [(B, (8, 1)) for B in (1, 7, 8, 9)]
-    if (3 * sms - 1) * 12 * L * L <= 3 * cuda_modexp.POW_STREAM:
+    if not mxu or (3 * sms - 1) * 12 * L * L <= 3 * cuda_modexp.POW_STREAM:
         out += [(2 * sms + 1, (8, 3)), (3 * sms - 1, (8, 3))]
     for E in (8, 32):
-        if cuda_modexp._pow_smem(L, E) <= cuda_modexp.MAX_SMEM:
+        if cuda_modexp._pow_smem(L, E, mxu) <= cuda_modexp.MAX_SMEM:
             out += [((sms - 1) * E + 1, (E, E)), (sms * E - 1, (E, E))]
     return out
 
@@ -553,11 +561,102 @@ def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
 
 
 def test_pow_smem_formula_matches_the_kernel(dev):
+    """Both layouts: the int8 body's (mxu) and the integer pipe's."""
     cuda_modexp._pow_lib(False, 8)
     lib = cuda_modexp._build.load("mont_pow")
     for L in (16, 24, 40, 152, 296, 304, 592, 1176):
         for E in cuda_modexp.POW_ELEMS:
-            assert lib.phe_mont_pow_smem(L, E) == cuda_modexp._pow_smem(L, E)
+            for mxu in (True, False):
+                assert (lib.phe_mont_pow_smem(L, E, int(mxu))
+                        == cuda_modexp._pow_smem(L, E, mxu))
+
+
+@pytest.mark.parametrize("which", ["p", "n2"])
+@pytest.mark.parametrize("form", ["mul", "mul_const", "pow_shared", "pow"])
+def test_integer_pipe_bodies_value_equal_on_ragged_batches(dev, which, form):
+    """Each integer-pipe REDC body (a context built with mxu=False) at the
+    fixed 2048-bit key's p (L = 80) and n^2 (L = 296), at every (E, rows a
+    block) the wrapper picks, reached through the batch size: value-equal
+    to the plain version (every row of a product; the first rows and the
+    last two blocks of a modexp, 64-bit exponents, window 4) and to
+    Python's pow, limbs in [0, 2^14], value < 1.01 M, and counted under
+    its own name."""
+    pub, priv = benchmarks.fixed_key(2048)
+    M = priv.p if which == "p" else pub.nsquare
+    ctx = mg.build_context(M, dev, mxu=False)
+    assert not mg.has_matrices(ctx) and cuda_modexp._pow_columns(ctx) is None
+    L = ctx.num_limbs
+    assert L == {"p": 80, "n2": 296}[which]
+    rng = random.Random(L + len(form))
+    widths = _pow_widths(dev, L, mxu=False)
+    rows = max(B for B, _ in widths)
+    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    ys = [rng.randrange(0, 2 * M) for _ in range(rows)]
+    a, b = _limbs(xs, L, dev), _limbs(ys, L, dev)
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    e = rng.getrandbits(64) | 1 << 63
+    es = ([(0, (1 << 64) - 1)[i % 2] if i < 4 else rng.getrandbits(64)
+           for i in range(rows)] if form == "pow" else [e] * rows)
+    digits = torch.as_tensor(tbatch._digits_rows(es, 64) if form == "pow"
+                             else mg.exponent_digits(e, 64), device=dev)
+    name = "mont_" + form + "_int"
+    for B, (E, per) in widths:
+        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev),
+                                      False) == (E, per)
+        x, y = a[:B].contiguous(), b[:B].contiguous()
+        before = cuda_modexp.launches[name]
+        if form.startswith("mul"):
+            shared = form == "mul_const"
+            got = (cuda_modexp.mont_mul_const(x, y[0], ctx) if shared
+                   else cuda_modexp.mont_mul(x, y, ctx))
+            ref = cuda_modexp.mont_mul_plain(x, y[0] if shared else y, ctx)
+            idx = list(range(B))
+            want = [xs[i] * ys[0 if shared else i] * Rinv % M for i in idx]
+        else:
+            d = digits[:B].contiguous() if form == "pow" else digits
+            fn = (cuda_modexp.mont_pow if form == "pow"
+                  else cuda_modexp.mont_pow_shared)
+            got = fn(x, d, ctx)
+            idx = sorted(set(range(min(B, 4)))
+                         | set(range(max(0, B - 2 * per), B)))
+            ref = (mg.mont_pow_plain(x[idx], digits[idx], ctx) if form == "pow"
+                   else mg.mont_pow_shared_plain(x[idx], digits, ctx))
+            want = [pow(xs[i] * Rinv, es[i], M) * R % M for i in idx]
+        assert cuda_modexp.launches[name] == before + 1
+        torch.cuda.synchronize()
+        g = hl.limbs_to_ints(got.cpu().numpy())
+        assert [g[i] % M for i in idx] == want, (B, E, per)
+        assert [v % M for v in hl.limbs_to_ints(ref.cpu().numpy())] == want
+        assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+        assert all(100 * v < 101 * M for v in g)
+
+
+def test_limb_engine_at_2048_bits_equals_the_rns_engine(dev, monkeypatch):
+    """PHE_TPU_TORCH_ENGINE=limb at the fixed 2048-bit key, 64 rows: the
+    limb engine's pinned-r ciphertexts equal the RNS engine's and
+    raw_encrypt's, its round trip returns x, and no ladder runs."""
+    pub, priv = benchmarks.fixed_key(2048)
+    rng = random.Random(2048)
+    values = [rng.uniform(-1e6, 1e6) for _ in range(64)]
+    rs = [rng.randrange(1, pub.n) for _ in values]
+    ints = {}
+    for engine in ("limb", "rns"):
+        monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", engine)
+        for counts in (cuda_modexp.launches, cuda_rns.launches):
+            for key in counts:
+                counts[key] = 0
+        batch = pt.EncryptedBatch.encrypt(pub, values, r_values=rs,
+                                          device=dev)
+        ints[engine] = batch.ciphertext_ints(be_secure=False)
+        assert batch.decrypt(priv) == values
+        ladders = cuda_rns.launches["rns_ladder"]
+        assert (ladders == 0) == (engine == "limb")
+        assert (cuda_modexp.launches["mont_pow_shared"] == 3) == (
+            engine == "limb")
+    encs = pt.EncodedNumber.encode_many(pub, values)
+    assert ints["limb"] == ints["rns"] == [
+        pub.raw_encrypt(e.encoding, r_value=r) for e, r in zip(encs, rs)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,14 +1,16 @@
-"""The port's limb-engine fallback against phe_tpu's limb route.
+"""The port's limb engine against phe_tpu's limb route.
 
-Past the RNS channel-prime supply (n^2 above ~8,760 bits) the port runs
-its modexps on the limb engine, as phe_tpu does on its chip. On the CPU,
-at a 256-bit key, phe_tpu runs its limb route (PHE_TPU_ENGINE=limb, with
+The limb engine runs the modexps wherever PHE_TPU_TORCH_ENGINE=limb asks
+for it, and past the RNS channel-prime supply (n^2 above ~8,760 bits)
+under any setting, as phe_tpu does on its chip. On the CPU, at a 256-bit
+key, phe_tpu runs its limb route (PHE_TPU_ENGINE=limb, with
 PHE_TPU_BACKEND=xla, and pallas in interpret mode for one test) and the
-port the plain versions of its limb kernels, with rns_state patched to
-None (the package itself has no knob). Ciphertext ints, decrypted
-residues, compact-decode rows and decoded values are equal: tolerance
-zero, all exact integer arithmetic. The last two tests check where the
-supply ends, with the real builders at 8,800 and 8,192 bits.
+port the plain versions of its limb kernels under
+PHE_TPU_TORCH_ENGINE=limb (the ``limb`` fixture). Ciphertext ints,
+decrypted residues, compact-decode rows and decoded values are equal:
+tolerance zero, all exact integer arithmetic. The supply-boundary tests
+check where the supply ends, with the real builders at 8,800 and 8,192
+bits, under the default setting.
 """
 
 import numpy as np
@@ -36,11 +38,8 @@ def _phe_tpu_limb_route(monkeypatch):
 
 @pytest.fixture
 def limb(monkeypatch):
-    """The port on its limb engine: both contexts answer as past the supply."""
-    monkeypatch.setattr(tbatch.PublicDeviceContext, "rns_state",
-                        lambda self: None)
-    monkeypatch.setattr(tbatch.PrivateDeviceContext, "rns_state",
-                        lambda self: None)
+    """The port on its limb engine, at every key size."""
+    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", "limb")
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +175,7 @@ def test_mont_mul_wrapper_takes_the_8192_bit_geometry(monkeypatch):
     from phe_tpu_torch.ops import montgomery as mg
 
     calls = []
-    monkeypatch.setattr(cuda_modexp, "_lib", lambda shared, elems: (
+    monkeypatch.setattr(cuda_modexp, "_lib", lambda shared, elems, mxu: (
         lambda *args: calls.append((shared, elems) + args) or 0))
     monkeypatch.setattr(_build, "stream_handle", lambda device: None)
     monkeypatch.setattr(cuda_rns, "_sms", lambda device: 132)

@@ -13,10 +13,13 @@ unpack to them; a numpy walk of one product as the tile runs it (its run
 jobs, carry passes, digit rows, MMA fragments read lane by lane as the PTX
 ISA lays them out, and 64-bit epilogues) equals the plain Montgomery
 product in value mod M and keeps its bounds, on rows with limbs of
-exactly 2^14; the same walk over the product kernel's blocks (live rows
-of E slots, a ragged last block, b broadcast in the shared form, L = 8)
-equals phe_tpu's mont_mul and mont_mul_const kernels in interpret mode;
-and the rows a block holds fit the card's shared memory. Tolerance zero:
+exactly 2^14, and so does the walk of the integer-pipe body (a context
+built with mxu=False: T_lo M' and q M as two more run passes against
+shared M' and M rows); the same walks over the product kernel's blocks
+(live rows of E slots, a ragged last block, b broadcast in the shared
+form, L = 8) equal phe_tpu's mont_mul and mont_mul_const kernels in
+interpret mode with the same REDC body; and the rows a block holds fit
+the card's shared memory. Tolerance zero:
 exact integer arithmetic.
 """
 
@@ -225,15 +228,64 @@ def _digits(x, L, ds, slots):
     return dig
 
 
-def _emulate_product(a, b, L, cols, square, slots=None):
+def _run_columns(A, Bf, L, c0, square):
+    """[E, kRun] column sums c0 ... c0 + kRun - 1 of A * Bf (operand rows
+    padded by POW_PAD zero limbs either side) as a run job computes them:
+    blocks of kRun limbs of A against a sliding window of Bf, a squaring's
+    cross terms once, doubled, plus the diagonal."""
+    r, P = cm.POW_RUN, cm.POW_PAD
+    E = len(A)
+    tz = np.arange(r)[None, :] - np.arange(r)[:, None] + r - 1  # [ii, j]
+    ii, jj = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
+    s = np.zeros((E, r), np.int64)
+    i0 = (c0 - (L - 1)) & ~(r - 1) if c0 - (L - 1) > 0 else 0
+    i_hi = min(c0 + r - 1, L - 1)
+    if square:
+        i_hi = min(i_hi, (c0 + r - 2) // 2)
+    i_full = (c0 - 2 * r + 2) // 2 if square else i_hi + 1
+    while i0 <= i_hi:
+        lo_b = P + c0 - i0 - r + 1
+        assert lo_b >= 0 and lo_b + 2 * r - 1 <= Bf.shape[1]
+        assert P + i0 + r <= A.shape[1]
+        av = A[:, P + i0: P + i0 + r]
+        bb = Bf[:, lo_b: lo_b + 2 * r - 1]
+        prod = av[:, :, None] * bb[:, tz]
+        if square and not i0 < i_full:
+            prod = prod * (2 * (i0 + ii) < c0 + jj)
+        p = prod.sum(axis=1)
+        assert p.max() < 1 << 32  # unsigned partial sums
+        s += p
+        i0 += r
+    if square:
+        for j in range(r):
+            c = c0 + j
+            d = 0 if c & 1 else A[:, P + (c >> 1)]
+            s[:, j] = 2 * s[:, j] + d * d
+    return s
+
+
+def _put_run(out, s, c1, k):
+    """A run's columns s normalised into out (in place); c1 <- its
+    carry-out."""
+    r = cm.POW_RUN
+    carry = np.zeros(len(out), np.int64)
+    for j in range(r):
+        v = s[:, j] + carry
+        out[:, k * r + j] = v & MASK
+        carry = v >> 14
+    assert carry.max() < 1 << 26
+    c1[:, k] = carry
+
+
+def _emulate_product(a, b, ctx, square, slots=None):
     """One Montgomery product of the tile's live rows a (and b) as
-    csrc/redc_tile.cuh runs it, the MMAs over `slots` row slots (default:
-    one a live row)."""
+    csrc/redc_tile.cuh runs it for ctx: the int8 body against its packed
+    REDC matrices, the MMAs over `slots` row slots (default: one a live
+    row), or, for a context without matrices, the integer-pipe body."""
     E = len(a)
+    L = ctx.num_limbs
     slots = slots or E
     r, P = cm.POW_RUN, cm.POW_PAD
-    wq, wm = cols[0], cols[1]
-    cq, cmv = (c.numpy().astype(np.int64) for c in cols[2:])
     ds = -(-2 * L // 32) * 32 + 16
     nr = 2 * L // r
     A = np.zeros((E, L + 2 * P + 1), np.int64)
@@ -244,56 +296,43 @@ def _emulate_product(a, b, L, cols, square, slots=None):
     T = np.zeros((E, 2 * L), np.int64)
     c1 = np.zeros((E, nr), np.int64)
     c2 = np.zeros((E, nr), np.int64)
-    tz = np.arange(r)[None, :] - np.arange(r)[:, None] + r - 1  # [ii, j]
-    ii, jj = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
     for k in range(nr):
-        c0 = k * r
-        s = np.zeros((E, r), np.int64)
-        i0 = (c0 - (L - 1)) & ~(r - 1) if c0 - (L - 1) > 0 else 0
-        i_hi = min(c0 + r - 1, L - 1)
-        if square:
-            i_hi = min(i_hi, (c0 + r - 2) // 2)
-        i_full = (c0 - 2 * r + 2) // 2 if square else i_hi + 1
-        while i0 <= i_hi:
-            lo_b = P + c0 - i0 - r + 1
-            assert lo_b >= 0 and lo_b + 2 * r - 1 <= Bf.shape[1]
-            assert P + i0 + r <= A.shape[1]
-            av = A[:, P + i0: P + i0 + r]
-            bb = Bf[:, lo_b: lo_b + 2 * r - 1]
-            prod = av[:, :, None] * bb[:, tz]
-            if square and not i0 < i_full:
-                prod = prod * (2 * (i0 + ii) < c0 + jj)
-            p = prod.sum(axis=1)
-            assert p.max() < 1 << 32  # unsigned partial sums
-            s += p
-            i0 += r
-        if square:
-            for j in range(r):
-                c = c0 + j
-                d = 0 if c & 1 else A[:, P + (c >> 1)]
-                s[:, j] = 2 * s[:, j] + d * d
-        carry = np.zeros(E, np.int64)
-        for j in range(r):
-            v = s[:, j] + carry
-            T[:, c0 + j] = v & MASK
-            carry = v >> 14
-        assert carry.max() < 1 << 26
-        c1[:, k] = carry
+        _put_run(T, _run_columns(A, Bf, L, k * r, square), c1, k)
     _ripple(T, c1, c2, nr)
     T = np.stack([_limb(T, c2, c) for c in range(2 * L)], axis=1)
-    C = _walk_mma(wq, _digits(T[:, :L], L, ds, slots))[:, :, :E]
-    slot = (C[0, :L].T + cq[None, :L]) + ((C[1, :L].T + cq[None, L:]) << 7)
-    H = np.zeros((E, 2 * L), np.int64)
-    H[:, :L], H[:, L:] = slot & MASK, slot >> 14
-    qlo = H[:, :L].copy()
-    _split(qlo, H[:, L:], c1, L // r)
-    _ripple(qlo, c1, c2, L // r)
-    q = np.stack([_limb(qlo, c2, c) for c in range(L)], axis=1)
-    C = _walk_mma(wm, _digits(q, L, ds, slots))[:, :, :E]
-    u = T + (C[0].T + cmv[None, : 2 * L]) + ((C[1].T + cmv[None, 2 * L:]) << 7)
-    T, H = u & MASK, u >> 14
-    _split(T, H, c1, nr)
+    cols = cm._pow_columns(ctx)
     flag = np.zeros(E, bool)
+    if cols is None:
+        # The integer pipe: T_lo, then q, as the accumulator rows' operand;
+        # M' and M one padded row each, read by every row.
+        const = lambda t: np.broadcast_to(
+            np.pad(t.numpy(), (P, P + 1)), (E, L + 2 * P + 1))
+        A[:, P: P + L] = T[:, :L]
+        H = np.zeros((E, 2 * L), np.int64)
+        for k in range(L // r):
+            _put_run(H, _run_columns(A, const(ctx.m_prime), L, k * r, False),
+                     c1, k)
+        _ripple(H, c1, c2, L // r)
+        A[:, P: P + L] = np.stack([_limb(H, c2, c) for c in range(L)], axis=1)
+        for k in range(nr):
+            s = _run_columns(A, const(ctx.m), L, k * r, False)
+            _put_run(T, s + T[:, k * r: (k + 1) * r], c1, k)
+    else:
+        wq, wm = cols[0], cols[1]
+        cq, cmv = (c.numpy().astype(np.int64) for c in cols[2:])
+        C = _walk_mma(wq, _digits(T[:, :L], L, ds, slots))[:, :, :E]
+        slot = (C[0, :L].T + cq[None, :L]) + ((C[1, :L].T + cq[None, L:]) << 7)
+        H = np.zeros((E, 2 * L), np.int64)
+        H[:, :L], H[:, L:] = slot & MASK, slot >> 14
+        qlo = H[:, :L].copy()
+        _split(qlo, H[:, L:], c1, L // r)
+        _ripple(qlo, c1, c2, L // r)
+        q = np.stack([_limb(qlo, c2, c) for c in range(L)], axis=1)
+        C = _walk_mma(wm, _digits(q, L, ds, slots))[:, :, :E]
+        u = T + (C[0].T + cmv[None, : 2 * L]) + ((C[1].T + cmv[None, 2 * L:])
+                                                 << 7)
+        T, H = u & MASK, u >> 14
+        _split(T, H, c1, nr)
     _ripple(T, c1, c2, nr, flag, L)
     out = np.stack([_limb(T, c2, L + i) for i in range(L)], axis=1)
     out[:, 0] += flag
@@ -301,15 +340,18 @@ def _emulate_product(a, b, L, cols, square, slots=None):
 
 
 @pytest.mark.parametrize("which", ["256", "2048"])
-def test_kernel_product_walk_equals_plain_redc(which):
+@pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
+def test_kernel_product_walk_equals_plain_redc(which, mxu):
     M = _modulus(which)
-    ctx = mg.build_context(M, CPU)
+    ctx = mg.build_context(M, CPU, mxu=mxu)
     L = ctx.num_limbs
     R = 1 << (14 * L)
     Rinv = pow(R, -1, M)
     cols = cm._pow_columns(ctx)
     assert cm._pow_columns(ctx) is cols  # packed once per context
-    assert all(w.dtype == torch.int32 for w in cols)
+    assert mg.has_matrices(ctx) == mxu == (cols is not None)
+    if mxu:
+        assert all(w.dtype == torch.int32 for w in cols)
     rng = np.random.default_rng(L)
     E = 8
     a = _operands(rng, M, L, E)
@@ -317,7 +359,7 @@ def test_kernel_product_walk_equals_plain_redc(which):
     plain = mg.mont_mul_plain(torch.as_tensor(a), torch.as_tensor(b), ctx)
     for square in (False, True):
         bb = a if square else b
-        got = _emulate_product(a, bb, L, cols, square)
+        got = _emulate_product(a, bb, ctx, square)
         want = [x * y * Rinv % M for x, y in zip(hl.limbs_to_ints(a),
                                                  hl.limbs_to_ints(bb))]
         vals = hl.limbs_to_ints(got)
@@ -328,27 +370,29 @@ def test_kernel_product_walk_equals_plain_redc(which):
             assert [v % M for v in hl.limbs_to_ints(plain.numpy())] == want
 
 
-def _emulate_mont_mul(a, b, L, cols, E, rows, shared):
+def _emulate_mont_mul(a, b, ctx, E, rows, shared):
     """csrc/mont_mul.cu over a batch: block i holds rows i rows ... of a in
     its first live = min(rows, B - i rows) of E row slots, b's matching
     rows (or, shared, b itself in every live slot) as the factor, and runs
     one product."""
-    B = len(a)
+    B, L = a.shape
     out = np.zeros_like(a)
     for e0 in range(0, B, rows):
         live = min(rows, B - e0)
         factor = np.broadcast_to(b, (live, L)) if shared else b[e0: e0 + live]
-        out[e0: e0 + live] = _emulate_product(a[e0: e0 + live], factor, L,
-                                              cols, False, slots=E)
+        out[e0: e0 + live] = _emulate_product(a[e0: e0 + live], factor, ctx,
+                                              False, slots=E)
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _phe_tpu_products(which, shared, rows):
+def _phe_tpu_products(which, shared, rows, mxu):
     """(M, a, b, phe_tpu's mont_mul or mont_mul_const on them, interpret
-    mode): [rows, L] operands below 2.01 M with limbs of exactly 2^14."""
+    mode, its MXU body or, with mxu False, its integer-pipe one): [rows, L]
+    operands below 2.01 M with limbs of exactly 2^14."""
     M = _modulus(which)
-    jctx = jmg.build_context(M)
+    jctx = jmg.build_context(M, mxu=mxu)
+    assert (jctx.w_mq is not None) == mxu
     L = jctx.num_limbs
     rng = np.random.default_rng(L + shared)
     a = _operands(rng, M, L, rows)
@@ -374,18 +418,20 @@ _MUL_BLOCKS = [("256", 8, 1, 3), ("256", 8, 3, 7), ("256", 8, 8, 9),
 
 @pytest.mark.parametrize("which,E,rows,B", _MUL_BLOCKS)
 @pytest.mark.parametrize("shared", [False, True], ids=["two", "shared"])
-def test_mont_mul_block_walk_equals_phe_tpu(which, E, rows, B, shared):
+@pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
+def test_mont_mul_block_walk_equals_phe_tpu(which, E, rows, B, shared, mxu):
     """The product kernel's blocks, walked in numpy, against phe_tpu's
-    Pallas mont_mul / mont_mul_const (interpret mode), the plain product
-    and Python ints, in value mod M with the contract's bounds."""
-    M, a, b, want_limbs = _phe_tpu_products(which, shared, 33)
+    Pallas mont_mul / mont_mul_const (interpret mode) with the same REDC
+    body, the plain product and Python ints, in value mod M with the
+    contract's bounds."""
+    M, a, b, want_limbs = _phe_tpu_products(which, shared, 33, mxu)
     a, want_limbs = a[:B], want_limbs[:B]
     if not shared:
         b = b[:B]
-    ctx = mg.build_context(M, CPU)
+    ctx = mg.build_context(M, CPU, mxu=mxu)
     L = ctx.num_limbs
     assert L == {"256": 40, "p128": 8}[which]
-    got = _emulate_mont_mul(a, b, L, cm._pow_columns(ctx), E, rows, shared)
+    got = _emulate_mont_mul(a, b, ctx, E, rows, shared)
     Rinv = pow(1 << (14 * L), -1, M)
     ys = hl.limbs_to_ints(np.broadcast_to(b, a.shape))
     want = [x * y * Rinv % M for x, y in zip(hl.limbs_to_ints(a), ys)]
@@ -476,20 +522,26 @@ def test_tile_chooser_and_smem_fit_every_path_width(L):
                                                  else (8, 8))
 
 
-def test_mont_mul_limits_and_launch_tiles(monkeypatch):
-    """MAX_MUL_LIMBS is the widest L whose E = 8 block fits; the wrapper
-    launches the entry point of the chosen E with the chosen rows, counts
-    one launch a call, and refuses a width it cannot hold."""
-    assert cm._pow_smem(cm.MAX_MUL_LIMBS, 8) <= cm.MAX_SMEM
-    assert cm._pow_smem(cm.MAX_MUL_LIMBS + 8, 8) > cm.MAX_SMEM
+@pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
+def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
+    """MAX_MUL_LIMBS is the widest L whose E = 8 block fits, for either
+    body; the wrapper launches the entry point of the chosen E and body
+    with the chosen rows (the packed matrices, or M' and M), counts one
+    launch a call under its body's name, and refuses a width it cannot
+    hold."""
+    for body in (True, False):
+        assert cm._pow_smem(cm.MAX_MUL_LIMBS, 8, body) <= cm.MAX_SMEM
+        assert cm._pow_smem(cm.MAX_MUL_LIMBS + 8, 8, True) > cm.MAX_SMEM
     calls = []
-    monkeypatch.setattr(cm, "_lib", lambda shared, elems: (
-        lambda *args: calls.append((shared, elems) + args[7:10]) or 0))
+    monkeypatch.setattr(cm, "_lib", lambda shared, elems, body: (
+        lambda *args: calls.append((shared, elems) + args[-4:-1]) or 0
+        if body == mxu and len(args) == (11 if mxu else 9) else 1))
     monkeypatch.setattr(cm._build, "stream_handle", lambda device: None)
     monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
-    monkeypatch.setitem(cm.launches, "mont_mul", 0)
-    monkeypatch.setitem(cm.launches, "mont_mul_const", 0)
-    ctx = mg.build_context(_modulus("256"), CPU)
+    suffix = "" if mxu else "_int"
+    monkeypatch.setitem(cm.launches, "mont_mul" + suffix, 0)
+    monkeypatch.setitem(cm.launches, "mont_mul_const" + suffix, 0)
+    ctx = mg.build_context(_modulus("256"), CPU, mxu=mxu)
     for B in (1, 9, 2 * H100_SMS + 1, 32 * H100_SMS + 1):
         a = torch.zeros((B, 40), dtype=torch.int64)
         cm._launch(a, a, ctx, shared=False)
@@ -500,7 +552,8 @@ def test_mont_mul_limits_and_launch_tiles(monkeypatch):
         (False, 8, 2 * H100_SMS + 1, 3, 40), (True, 8, 2 * H100_SMS + 1, 3, 40),
         (False, 32, 32 * H100_SMS + 1, 32, 40),
         (True, 32, 32 * H100_SMS + 1, 32, 40)]
-    assert cm.launches["mont_mul"] == cm.launches["mont_mul_const"] == 4
+    assert (cm.launches["mont_mul" + suffix]
+            == cm.launches["mont_mul_const" + suffix] == 4)
     a = torch.zeros((2, 40), dtype=torch.int64)
     with pytest.raises(ValueError, match="limb count"):
         cm._launch(a[:, :32].contiguous(), a[:, :32].contiguous(), ctx, False)
