@@ -112,16 +112,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    warm-up and capture, equal to x on every row; a pinned-r batch equal
    across the engines and to raw_encrypt; mul_scalars over 65,536 rows and
    an aligned add equal, ciphertext for ciphertext, to the RNS engine's
-   and exact after a limb decrypt; mont_pow_shared at the limb encrypt's
-   launch (L = 296 and 440 over 16,384 rows). Then, under
-   PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object and the 8192-bit n^2,
-   whose contexts have no REDC matrices: each integer-pipe body against
-   its plain version (the product at L = 296 and 80, both forms, with
-   ragged batches; the modexp at L = 296, both forms, with ragged batches,
-   and at L = 1,176 on 16 rows), each no faster than the bound of
-   profiling.mont_mul_cost(L, mxu=False) on the int32 rate; and a
-   16,384-row round trip and mul_scalars on the limb engine with those
-   contexts, exact, launching only the integer-pipe kernels.
+   and exact after a limb decrypt; the limb path's kernels against their
+   plain versions at its own shapes: mont_pow_shared at the encrypt's
+   launch (L = 296 and 440) and the CRT halves' (L = 152 and 224) over
+   16,384 rows, mont_pow at mul_scalars' (L = 296 and 440 over 65,536
+   rows, its own exponents), the 3072-bit key's products mod p^2 and p.
+   Then, under PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object and the
+   8192-bit n^2, whose contexts have no REDC matrices: each integer-pipe
+   body against its plain version (the product at L = 296, 152 and 80,
+   with ragged batches; the modexp at L = 296 and 152 at the path's
+   launches, with ragged batches, and at L = 1,176 on 16 rows), each no
+   faster than its least int32 work (int_pipe_bound); and a 16,384-row
+   round trip and mul_scalars on the limb engine with those contexts,
+   exact, launching only the integer-pipe kernels.
 
 The second-to-last lines are the kernels' JSON record, the seconds the
 whole run took, and the card's name and power limit; the last line is
@@ -166,8 +169,8 @@ CRT_PLAIN_ROWS = 64  # rows of mont_pow_shared's plain version at L = 152
 CLI_FEW = 4  # values of the CLI run in a process of its own
 CLI_TIMEOUT_S = 300
 ENGINE_PINNED = 16  # the pinned-r batch held across the two engines
-INT_PLAIN_ROWS = 128  # rows of the integer-pipe mont_pow's plain version
-INT_SHARED_PLAIN_ROWS = 4  # and of its mont_pow_shared's, at L = 296
+VEC_PLAIN_ROWS = 128  # rows of phase 10's mont_pow checks' plain version
+SHARED_PLAIN_ROWS = 4  # and of its mont_pow_shared checks'
 # Each engine's launches a round trip, at keys whose n^2 the RNS channel
 # supply covers (the 2048- and 3072-bit keys).
 TRIP_LAUNCHES = {
@@ -316,25 +319,17 @@ def limbs_on(values, L, dev):
     return mg._tensor(hl.ints_to_limbs(values, L), dev)
 
 
-def int_pipe_ops(L, products=1):
-    """The integer-pipe REDC body's int32 multiplies for `products`
-    Montgomery products at L, as profiling.mont_mul_cost(L, mxu=False)
-    counts them (3 L^2 a product: a b, T_lo M' and q M as full
-    schoolbook products, one multiply-add each): the bound the integer
-    bodies are held to."""
-    from phe_tpu_torch import profiling
-
-    return products * profiling.mont_mul_cost(L, mxu=False)["vpu_u32_mul"]
-
-
-def int_pipe_least_ms(L, rows, squarings, products):
-    """The least int32 time of the integer-pipe body's work, counted as the
-    function needs it: a b as L^2 multiply-adds (L (L + 1) / 2 for a
-    squaring), q = T_lo M' mod R as the low half's L (L + 1) / 2, and q M
-    as L^2; below int_pipe_ops' bound, which counts 3 L^2 a product."""
+def int_pipe_bound(nbytes, L, rows, squarings=0, products=1):
+    """The integer-pipe REDC body's least time over rows, each running
+    `squarings` squarings and `products` general products at L, counted
+    as the function needs them: a b as L^2 int32 multiply-adds (L (L + 1)
+    / 2 for a squaring, each cross term once), q = T_lo M' mod R as its
+    low half's L (L + 1) / 2, and q M as L^2; nbytes over the memory rate.
+    (profiling.mont_mul_cost(L, mxu=False) counts 3 L^2 a product, more
+    than this work.)"""
     half = L * (L + 1) // 2
     macs = squarings * (2 * half + L * L) + products * (2 * L * L + half)
-    return 1e3 * rows * macs / INT32_OPS_PER_S
+    return bound_ms(nbytes, int32_ops=rows * macs)
 
 
 def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
@@ -386,26 +381,20 @@ def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
           "plain version" % (name, L))
     ms = cuda_ms(lambda: fn(a, b, ctx), 10)
     plain_ms = cuda_ms(plain, 1)
-    least = ""
     if mxu:
         bms, by = mont_mul_bound(rows, L, shared)
     else:
-        bms, by = bound_ms(8 * L * (rows * (2 if shared else 3) + 2),
-                           int32_ops=int_pipe_ops(L, rows))
-        least_ms = int_pipe_least_ms(L, rows, 0, 1)
-        least = ", least work %.4f ms" % least_ms
+        bms, by = int_pipe_bound(8 * L * (rows * (2 if shared else 3) + 2),
+                                 L, rows)
     tile = "E = %d, %d rows a block" % pow_tile(L, rows, mxu)
     print("%s L=%d rows=%d (%s): value-equal, bounds hold; kernel "
-          "%.4f ms, plain %.4f ms, bound %.4f ms (%s%s)"
-          % (name, L, rows, tile, ms, plain_ms, bms, by, least))
+          "%.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+          % (name, L, rows, tile, ms, plain_ms, bms, by))
     check(ms >= bms, "%s L=%d ran under its bound: its count no longer "
           "matches the kernel" % (name, L))
-    record = dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
-                  plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
-                  bound_by=by)
-    if not mxu:
-        record["least_work_ms"] = least_ms
-    return record
+    return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
+                bound_by=by)
 
 
 def sync():
@@ -2091,75 +2080,33 @@ def engine_trip(pub, priv, values, engine, dev, totals, int_pipe=False):
     return t_enc, t_dec
 
 
-def check_shared_pow_at_encrypt(pub, dev, rng, card):
-    """mont_pow_shared (the context's body) at the limb encrypt's own
-    launch: r^n over BATCH rows at n^2's L, window 5; four rows against
-    Python's pow, timed beside its bound. Its record."""
-    from phe_tpu_torch.ops import cuda_modexp
-    from phe_tpu_torch.ops import montgomery as mg
-    from phe_tpu_torch.utils import limbs as hl
-
-    dc = pub.device_context(dev)
-    ctx, L, N = dc.ctx, dc.L, pub.nsquare
-    mxu = mg.has_matrices(ctx)
-    R = 1 << (14 * L)
-    R_inv = pow(R, -1, N)
-    xs = [rng.randrange(0, 2 * N) for _ in range(BATCH)]
-    base = limbs_on(xs, L, dev)
-    nd = len(dc.n_digits)
-    run = lambda: cuda_modexp.mont_pow_shared(base, dc.n_digits, ctx,
-                                              window=5)
-    got, ms = cuda_once(run)
-    idx = [0, 1, BATCH - 2, BATCH - 1]
-    g = hl.limbs_to_ints(got[idx].cpu().numpy())
-    check([v % N for v in g] == [pow(xs[i] * R_inv, pub.n, N) * R % N
-                                 for i in idx]
-          and int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
-          "mont_pow_shared L=%d at the limb encrypt's launch: value differs "
-          "from Python pow" % L)
-    products = sum(pow_products(5, nd))
-    if mxu:
-        bms, by = mont_pow_bound(BATCH, L, 5, nd, 8 * nd)
-    else:
-        bms, by = bound_ms(8 * (2 * BATCH * L + 3 * L) + 8 * nd,
-                           int32_ops=int_pipe_ops(L, BATCH * products))
-    check(ms >= bms, "mont_pow_shared L=%d ran under its bound" % L)
-    tile = "E = %d, %d rows a block" % pow_tile(L, BATCH, mxu)
-    print("mont_pow_shared%s L=%d windows=%d at the limb encrypt's launch: "
-          "%d rows, %s, Python pow on %d; kernel %.3f ms, bound %.3f ms (%s, "
-          "%d products a row) [%s]"
-          % ("" if mxu else " (integer pipe)", L, nd, BATCH, tile, len(idx),
-             ms, bms, by, products, card))
-    return dict(L=L, rows=BATCH, tile=tile, max_abs_err=0, ms=ms,
-                plain_ms=None, plain_rows=0, bound_ms=bms, bound_by=by,
-                python_pow_rows=len(idx), products=products)
-
-
-def check_int_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
-                  exponent=None):
-    """The integer-pipe modexp (ctx has no REDC matrices) of one form over
-    rows at ctx's L: per-row `bits`-bit schedules (vec), or one shared
-    exponent (`exponent`, else `bits` random bits), window `window`;
-    value-equal to its plain version on plain_rows rows and to Python's
-    pow on four, limbs in [0, 2^14] and values below 1.01 M on every row,
-    timed beside the bound of profiling.mont_mul_cost(L, mxu=False). Its
-    record."""
+def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
+              exponent=None, digits=None, exponents=None):
+    """The limb engine's modexp of one form, in the body ctx carries (int8
+    REDC, or the integer pipe for a context without REDC matrices), over
+    rows at ctx's L: per-row `bits`-bit schedules (vec; `exponents` if
+    given, else random ones), or one shared exponent (`exponent`, else
+    `bits` random bits; its `digits` if given, at `window`). Value-equal
+    to its plain version on plain_rows rows and to Python's pow on four,
+    limbs in [0, 2^14] and values below 1.01 M on every row, timed beside
+    its bound (mont_pow_bound, or int_pipe_bound). Its record."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_modexp
     from phe_tpu_torch.ops import montgomery as mg
     from phe_tpu_torch.utils import limbs as hl
 
-    L = ctx.num_limbs
+    L, mxu = ctx.num_limbs, mg.has_matrices(ctx)
     R = 1 << (14 * L)
     R_inv = pow(R, -1, M)
     xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
     base = limbs_on(xs, L, dev)
     if vec:
-        es = ([0, (1 << bits) - 1]
-              + [rng.getrandbits(bits) for _ in range(rows - 2)])
+        es = exponents if exponents is not None else (
+            [0, (1 << bits) - 1]
+            + [rng.getrandbits(bits) for _ in range(rows - 2)])
         digits = torch.as_tensor(tbatch._digits_rows(es, bits), device=dev)
         n_windows = digits.shape[1]
-        run = lambda b, d: cuda_modexp.mont_pow(b, d, ctx)
+        run = lambda: cuda_modexp.mont_pow(base, digits, ctx)
         plain = lambda: mg.mont_pow_plain(base[:plain_rows],
                                           digits[:plain_rows], ctx)
         digit_bytes = rows * n_windows
@@ -2167,16 +2114,18 @@ def check_int_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
         e = exponent if exponent is not None else (
             rng.getrandbits(bits) | 1 << (bits - 1))
         es = [e] * rows
-        digits = torch.as_tensor(mg.exponent_digits(e, bits, window),
-                                 device=dev)
+        if digits is None:
+            digits = torch.as_tensor(mg.exponent_digits(e, bits, window),
+                                     device=dev)
         n_windows = len(digits)
-        run = lambda b, d: cuda_modexp.mont_pow_shared(b, d, ctx,
-                                                       window=window)
+        run = lambda: cuda_modexp.mont_pow_shared(base, digits, ctx,
+                                                  window=window)
         plain = lambda: mg.mont_pow_shared_plain(base[:plain_rows], digits,
                                                  ctx, window=window)
         digit_bytes = 8 * n_windows
-    name = "mont_pow_int" if vec else "mont_pow_shared_int"
-    got, ms = cuda_once(lambda: run(base, digits))
+    name = ("mont_pow" if vec else "mont_pow_shared") + ("" if mxu
+                                                         else "_int")
+    got, ms = cuda_once(run)
     sync()
     t0 = time.perf_counter()
     ref = plain()
@@ -2193,20 +2142,21 @@ def check_int_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
         check(g[i] % M == pow(xs[i] * R_inv, es[i], M) * R % M,
               "%s L=%d: value differs from Python pow" % (name, L))
     sq, mul = pow_products(window, n_windows)
-    products = sq + mul
-    bms, by = bound_ms(8 * (2 * rows * L + 3 * L) + digit_bytes,
-                       int32_ops=int_pipe_ops(L, rows * products))
-    least_ms = int_pipe_least_ms(L, rows, sq, mul)
-    tile = "E = %d, %d rows a block" % pow_tile(L, rows, False)
+    if mxu:
+        bms, by = mont_pow_bound(rows, L, window, n_windows, digit_bytes)
+    else:
+        bms, by = int_pipe_bound(8 * (2 * rows * L + 3 * L) + digit_bytes,
+                                 L, rows, sq, mul)
+    tile = "E = %d, %d rows a block" % pow_tile(L, rows, mxu)
     print("%s L=%d windows=%d: value-equal on %d rows, Python pow on 4; "
           "kernel %.3f ms at %d rows, %s, plain %.3f ms at %d, bound %.4f "
-          "ms (%s, %d products a row), least work %.4f ms"
+          "ms (%s, %d products a row)"
           % (name, L, n_windows, plain_rows, ms, rows, tile, plain_ms,
-             plain_rows, bms, by, products, least_ms))
+             plain_rows, bms, by, sq + mul))
     check(ms >= bms, "%s L=%d ran under its bound" % (name, L))
     return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, plain_rows=plain_rows, bound_ms=bms,
-                bound_by=by, products=products, least_work_ms=least_ms)
+                bound_by=by, products=sq + mul)
 
 
 def check_ragged_products(ctx, M, dev, rng):
@@ -2259,16 +2209,18 @@ def engines_phase(keys, dev, card, totals):
     pinned-r batch is equal across the engines and to raw_encrypt;
     mul_scalars over MUL_ROWS rows and an aligned add give the RNS
     engine's ciphertexts on every row and decrypt to the exact results;
-    mont_pow_shared is timed at the limb encrypt's launch. Then, under
-    PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object (its five contexts
-    built without REDC matrices) and the fixed 8192-bit key's n^2: each
-    integer-pipe body against its plain version (the product at L = 296
-    and 80, both forms, on ragged batches too; the modexp at L = 296, both
-    forms, on ragged batches, and at L = 1,176 on LIMB_POW_ROWS rows), and
-    a BATCH-row round trip and mul_scalars on the limb engine with those
-    contexts. The variables are restored as they were after each step.
+    the limb path's modexps (and the 3072-bit key's products mod p^2 and
+    p) are held against their plain versions at the path's shapes. Then,
+    under PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object (its five
+    contexts built without REDC matrices) and the fixed 8192-bit key's
+    n^2: each integer-pipe body against its plain version (the product at
+    L = 296, 152 and 80, on ragged batches too; the modexp at the path's
+    launches at L = 296 and 152, on ragged batches, and at L = 1,176 on
+    LIMB_POW_ROWS rows), and a BATCH-row round trip and mul_scalars on the
+    limb engine with those contexts. The variables are restored as they were after each step.
     Returns (record, {kernel: [its checks]})."""
     import phe_tpu_torch as pt
+    from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch import benchmarks
     from phe_tpu_torch.batch import EncryptedBatch
     from phe_tpu_torch.ops import montgomery as mg
@@ -2280,6 +2232,20 @@ def engines_phase(keys, dev, card, totals):
 
     def floats(lo, hi, rows):
         return [float(v) for v in g.uniform(lo, hi, rows)]
+
+    def shared_pows(pub, priv):
+        """mont_pow_shared at the limb path's two launches, in the body
+        the key's contexts carry: r^n at n^2's L (the encrypt) and the
+        CRT half at p^2's (the decrypt), each over BATCH rows."""
+        dc, c = pub.device_context(dev), priv.device_context(dev).consts
+        return [check_pow(dc.ctx, pub.nsquare, dev, rng, False, BATCH,
+                          dc.n_bits, SHARED_PLAIN_ROWS,
+                          window=tbatch.ENCRYPT_WINDOW, exponent=pub.n,
+                          digits=dc.n_digits),
+                check_pow(c.ctx_p, priv.psquare, dev, rng, False, BATCH,
+                          priv.p.bit_length(), SHARED_PLAIN_ROWS,
+                          window=tbatch.DECRYPT_WINDOW, exponent=priv.p - 1,
+                          digits=c.dp_digits)]
 
     for pub, priv in keys:
         bits = pub.n.bit_length()
@@ -2319,11 +2285,24 @@ def engines_phase(keys, dev, card, totals):
         print("%d-bit pinned-r batch of %d: the limb engine's ciphertexts "
               "equal the RNS engine's and raw_encrypt's" % (bits, len(few)))
 
-        checks.setdefault("mont_pow_shared", []).append(
-            check_shared_pow_at_encrypt(pub, dev, rng, card))
+        checks.setdefault("mont_pow_shared", []).extend(
+            shared_pows(pub, priv))
+        if bits != 2048:  # phase 2 holds the 2048-bit key's products
+            c = priv.device_context(dev).consts
+            for ctx, M, forms in ((c.ctx_p, priv.psquare, (True,)),
+                                  (c.ctx_hp, priv.p, (False, True))):
+                for shared in forms:
+                    name = "mont_mul_const" if shared else "mont_mul"
+                    checks.setdefault(name, []).append(
+                        check_mont_mul(ctx, M, shared, rng))
 
         xa, yb = floats(-1e6, 1e6, MUL_ROWS), floats(-1e-3, 1e-3, MUL_ROWS)
         sc = floats(-100.0, 100.0, MUL_ROWS)
+        # mul_scalars' per-row modexp at its own exponents, over MUL_ROWS.
+        ks = [int(k) for k in tbatch._signed_mantissas_fast(pub, sc)[0]]
+        checks.setdefault("mont_pow", []).append(check_pow(
+            dc.ctx, pub.nsquare, dev, rng, True, MUL_ROWS,
+            max(ks).bit_length(), VEC_PLAIN_ROWS, exponents=ks))
         a = EncryptedBatch.encrypt(pub, xa, obfuscation="none", device=dev)
         b = EncryptedBatch.encrypt(pub, yb, obfuscation="none", device=dev)
         mm, mc = inverse_launches(a.mont.shape[0], chunk)
@@ -2382,22 +2361,23 @@ def engines_phase(keys, dev, card, totals):
     print("PHE_TPU_TORCH_MXU=0: a fresh 2048-bit key's five contexts and the "
           "8192-bit n^2 built without REDC matrices [%s]" % card)
     c = pdc0.consts
-    for ctx, M in ((dc0.ctx, pub0.nsquare), (c.ctx_hp, priv0.p)):
-        for shared in (False, True):
+    # The two-operand product never runs mod p^2.
+    for ctx, M, forms in ((dc0.ctx, pub0.nsquare, (False, True)),
+                          (c.ctx_p, priv0.psquare, (True,)),
+                          (c.ctx_hp, priv0.p, (False, True))):
+        for shared in forms:
             name = "mont_mul_const_int" if shared else "mont_mul_int"
             checks.setdefault(name, []).append(
                 check_mont_mul(ctx, M, shared, rng))
         check_ragged_products(ctx, M, dev, rng)
-    nsq = pub0.nsquare
-    checks["mont_pow_int"] = [check_int_pow(
-        dc0.ctx, nsq, dev, rng, True, BATCH, SHORT_BITS, INT_PLAIN_ROWS)]
-    checks["mont_pow_shared_int"] = [check_int_pow(
-        dc0.ctx, nsq, dev, rng, False, BATCH, dc0.n_bits,
-        INT_SHARED_PLAIN_ROWS, window=5, exponent=pub0.n)]
+    checks["mont_pow_int"] = [check_pow(
+        dc0.ctx, pub0.nsquare, dev, rng, True, BATCH, SHORT_BITS,
+        VEC_PLAIN_ROWS)]
+    checks["mont_pow_shared_int"] = shared_pows(pub0, priv0)
     check_ragged_pows(pub0, dev, rng)
     for vec, name in ((True, "mont_pow_int"), (False, "mont_pow_shared_int")):
-        checks[name].append(check_int_pow(ctx8, M8, dev, rng, vec,
-                                          LIMB_POW_ROWS, 64, LIMB_POW_ROWS))
+        checks[name].append(check_pow(ctx8, M8, dev, rng, vec,
+                                      LIMB_POW_ROWS, 64, LIMB_POW_ROWS))
     xs = floats(-1e6, 1e6, BATCH)
     t_enc, t_dec = engine_trip(pub0, priv0, xs, "limb", dev, totals,
                                int_pipe=True)

@@ -22,9 +22,10 @@ and:
 
 Two modexp engines, as in phe_tpu: the RNS ladder (csrc/rns_ladder.cu)
 and the limb engine's windowed modexps (csrc/mont_pow.cu), chosen at
-phe_tpu's five sites (encrypt_mont, obfuscate_mont, rstate,
-raw_decrypt_launch, raw_decrypt_compact) as ``self.rns_state() if
-_use_rns() else None``. ``_use_rns()`` reads PHE_TPU_TORCH_ENGINE
+phe_tpu's five sites (encrypt_mont, obfuscate_mont, the per-element
+programs, raw_decrypt_launch, raw_decrypt_compact) by each context's
+``rstate()``: ``rns_state()`` if ``_use_rns()``, else None.
+``_use_rns()`` reads PHE_TPU_TORCH_ENGINE
 (config.use_rns_engine): under rns or auto (the default) the RNS ladder
 runs wherever the channel-prime supply covers the modulus (rns.fits:
 moduli up to ~8,760 bits) and ``rns_state()`` is None past it; under limb
@@ -802,7 +803,7 @@ class PublicDeviceContext:
         """Fresh encryption (n*m+1)*r^n for encoded residues -> [Bp, L]."""
         m = self.pack_messages(encodings)
         r = self.random_r_bytes(len(encodings), r_values)
-        st = self.rns_state() if _use_rns() else None
+        st = self.rstate()
         if st is None:
             return _encrypt_dev(m, r, self.nr2_limbs, self.n_digits,
                                 self.ctx, self.Ln)
@@ -812,7 +813,7 @@ class PublicDeviceContext:
     def obfuscate_mont(self, mont):
         """Fresh uniform re-obfuscation of a Montgomery ciphertext batch."""
         r = self.random_r_bytes(mont.shape[0])
-        st = self.rns_state() if _use_rns() else None
+        st = self.rstate()
         if st is None:
             return _obfuscate_dev(mont, r, self.n_digits, self.ctx)
         return _obfuscate_rns_dev(mont, r, self.n_digits, self.ctx, st)
@@ -944,6 +945,11 @@ class PrivateDeviceContext:
                                   for pp, nsq, ctx2 in squares)
         return self._rns
 
+    def rstate(self):
+        """The engine handle of the decrypt programs: rns_state() when the
+        RNS engine is selected, else None for the limb engine."""
+        return self.rns_state() if _use_rns() else None
+
     @classmethod
     def build(cls, private_key, device=None):
         """The context of private_key on ``device`` (None: the card), as
@@ -970,7 +976,7 @@ class PrivateDeviceContext:
 
     def raw_decrypt_launch(self, ct_mont):
         """Run the decrypt program: [Bp, nbytes] packed plaintext bytes."""
-        halves = self.rns_state() if _use_rns() else None
+        halves = self.rstate()
         if halves is None:
             return _decrypt_dev(ct_mont, self.pub_ctx.ctx, self.consts)
         return _decrypt_rns_dev(ct_mont, self.pub_ctx.ctx, self.consts,
@@ -982,7 +988,7 @@ class PrivateDeviceContext:
 
     def raw_decrypt_compact(self, ct_mont):
         """(compact decode rows [Bp, 3], full packed bytes) — _decode_compact."""
-        halves = self.rns_state() if _use_rns() else None
+        halves = self.rstate()
         if halves is None:
             return _decrypt_compact_dev(ct_mont, self.pub_ctx.ctx,
                                         self.consts)

@@ -160,15 +160,15 @@ def _sync(b):
 def op_costs(pub, priv, device):
     """Roofline cost models of encrypt, decrypt, add and mul on the engines
     that actually run them (phe_tpu's bench_key_size chooses them alike):
-    the RNS models where the RNS engine is selected (batch._use_rns) and
-    rns_state() exists, the limb-engine models otherwise."""
+    the RNS models where the RNS engine is selected and fits (the
+    contexts' rstate()), the limb-engine models otherwise."""
     from phe_tpu_torch import batch as bt
     from phe_tpu_torch import profiling
 
     dc = pub.device_context(device)
     pdc = priv.device_context(device)
     st = dc.rstate()
-    halves = pdc.rns_state() if bt._use_rns() else None
+    halves = pdc.rstate()
     return {
         "encrypt": profiling.rns_encrypt_cost(
             dc.n_bits, st.rsys.k, bt.ENCRYPT_WINDOW

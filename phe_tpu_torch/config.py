@@ -70,9 +70,8 @@ def current():
     return Config(
         engine=engine,
         mxu=os.environ.get("PHE_TPU_TORCH_MXU", "1") != "0",
-        cache_dir=os.environ.get("PHE_TPU_TORCH_CACHE_DIR", Config.cache_dir),
-        native_dir=os.environ.get("PHE_TPU_TORCH_NATIVE_DIR",
-                                  Config.native_dir),
+        cache_dir=build_dir(),
+        native_dir=native_dir(),
     )
 
 
@@ -123,10 +122,12 @@ def to_device(array, device):
 
 
 def build_dir():
-    """Directory the CUDA kernel libraries are compiled into."""
-    return current().cache_dir
+    """Directory the CUDA kernel libraries are compiled into
+    (PHE_TPU_TORCH_CACHE_DIR, read alone: the engine's check is not its)."""
+    return os.environ.get("PHE_TPU_TORCH_CACHE_DIR", Config.cache_dir)
 
 
 def native_dir():
-    """Directory the native host engine's library is compiled into."""
-    return current().native_dir
+    """Directory the native host engine's library is compiled into
+    (PHE_TPU_TORCH_NATIVE_DIR)."""
+    return os.environ.get("PHE_TPU_TORCH_NATIVE_DIR", Config.native_dir)

@@ -6,9 +6,11 @@ a = body(a, x) over one [256, 512] tile, one chain per element, for the
 five bodies phe_tpu measures: mul, add, muladd, shiftmul and a
 Barrett-shaped reduction step. Two K values (4,000 and 32,000) cancel the
 fixed launch cost: the time per iteration is the difference of the two
-times over the difference of the K, each time taken with CUDA events
-around n back-to-back launches. profiling.py's H100 row records the
-result.
+times over the difference of the K, each time the fastest of n
+back-to-back launches, each between its own CUDA events and all queued
+behind LEAD_CYCLES of device spin, so that the card never waits on the
+host between them (a K = 4,000 chain is shorter than the host's time to
+issue a launch). profiling.py's H100 row records the result.
 
 A fold guard refuses a result whose K = 32,000 time is not at least 4x
 the K = 4,000 time: a compiler that folded the chain would leave a time
@@ -26,20 +28,25 @@ from phe_tpu_torch.ops import cuda_microbench as cm
 R, TB = 256, 512
 K_LO, K_HI = 4000, 32000
 SEED = 20261016
+LEAD_CYCLES = 4_000_000  # device spin (~2 ms) ahead of the timed launches
 # (name, body, operations per iteration), scripts/vpu_microbench.py:71-75.
 ROWS = [(name, name, ops) for name, (_, ops) in cm.BODIES.items()]
 
 
 def _events_s(fn, n):
-    """Seconds per call of fn: CUDA events around n back-to-back calls."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
+    """Seconds of fn's fastest call of n back-to-back calls, each between
+    its own CUDA events. The calls queue behind LEAD_CYCLES of device
+    spin: a call the card reached before the host had issued it would
+    read the host's time, not the chain's."""
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(LEAD_CYCLES)
+    for start, end in events:
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n / 1e3
+    return min(start.elapsed_time(end) for start, end in events) / 1e3
 
 
 def bench(name, body, ops_per_iter, x, n=8):

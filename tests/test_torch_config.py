@@ -114,6 +114,10 @@ def test_an_unknown_engine_raises_naming_the_variable(monkeypatch):
         config.current()
     with pytest.raises(ValueError, match="PHE_TPU_TORCH_ENGINE"):
         tbatch._use_rns()
+    # The build directories read their own variables, not the engine's.
+    monkeypatch.setenv("PHE_TPU_TORCH_CACHE_DIR", "/x/kernels")
+    assert config.build_dir() == "/x/kernels"
+    assert config.native_dir() == config.Config.native_dir
 
 
 # The _dev programs of each site, RNS first.
