@@ -11,8 +11,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and the Montgomery product: every instantiation of each runs its digit
    products (the ladder's base extensions, the two REDC products of the
    modexp and the product) on the int8 tensor cores (IMMA) and none on
-   __dp4a (IDP4A); the limb kernels' integer-pipe instantiations run
-   neither.
+   __dp4a (IDP4A); the limb kernels' integer-pipe instantiations (E = 8,
+   32 and the one-row cluster tile, E = 1) run neither.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: 16,384 rows at the fixed 2048-bit key. The
    Montgomery product runs at L = 296 (n^2), 152 (p^2) and 80 (p), and at
@@ -121,10 +121,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8192-bit n^2, whose contexts have no REDC matrices: each integer-pipe
    body against its plain version (the product at L = 296, 152 and 80,
    with ragged batches; the modexp at L = 296 and 152 at the path's
-   launches, with ragged batches, and at L = 1,176 on 16 rows), each no
-   faster than its least int32 work (int_pipe_bound); and a 16,384-row
-   round trip and mul_scalars on the limb engine with those contexts,
-   exact, launching only the integer-pipe kernels.
+   launches, with ragged batches, at L = 1,176 on 16 rows, one row a
+   thread-block cluster of 8 blocks, and at the 8192-bit encrypt's r^n
+   over 512 rows on 2 rows of the plain version), each no faster than its
+   least int32 work (int_pipe_bound); the ragged batches reach every tile
+   the wrapper picks, the one-row tile's clusters of 8, 4, 2 and 1 among
+   them; each check prints its tile, grid and cluster dims; and a
+   16,384-row round trip and mul_scalars on the limb engine with those
+   contexts, exact, launching only the integer-pipe kernels.
 
 The second-to-last lines are the kernels' JSON record, the seconds the
 whole run took, and the card's name and power limit; the last line is
@@ -171,6 +175,7 @@ CLI_TIMEOUT_S = 300
 ENGINE_PINNED = 16  # the pinned-r batch held across the two engines
 VEC_PLAIN_ROWS = 128  # rows of phase 10's mont_pow checks' plain version
 SHARED_PLAIN_ROWS = 4  # and of its mont_pow_shared checks'
+INT_WIDE_PLAIN_ROWS = 2  # plain rows of the integer pipe's 512-row r^n
 # Each engine's launches a round trip, at keys whose n^2 the RNS channel
 # supply covers (the 2048- and 3072-bit keys).
 TRIP_LAUNCHES = {
@@ -386,10 +391,11 @@ def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
     else:
         bms, by = int_pipe_bound(8 * L * (rows * (2 if shared else 3) + 2),
                                  L, rows)
-    tile = "E = %d, %d rows a block" % pow_tile(L, rows, mxu)
-    print("%s L=%d rows=%d (%s): value-equal, bounds hold; kernel "
-          "%.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-          % (name, L, rows, tile, ms, plain_ms, bms, by))
+    tile = tile_text(L, rows, mxu, "mont_mul")
+    print("%s L=%d rows=%d (%s; %d launches so far): value-equal, bounds "
+          "hold; kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+          % (name, L, rows, tile, cuda_modexp.launches[name], ms, plain_ms,
+             bms, by))
     check(ms >= bms, "%s L=%d ran under its bound: its count no longer "
           "matches the kernel" % (name, L))
     return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
@@ -409,17 +415,20 @@ def block_elems(k, rows):
     return cuda_rns._elems(k, rows, cuda_rns._sms(torch.device("cuda")))
 
 
-def pow_tile(L, rows, mxu=True):
-    """(E, rows a block) of a limb-engine modexp launch of rows at L on
-    this card, as the wrappers choose them for the REDC body."""
-    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+def pow_tile(L, rows, mxu=True, kernel="mont_pow"):
+    """(E, rows a block, blocks a cluster) of a limb-kernel launch of rows
+    at L on this card, as the wrappers choose them for the REDC body (the
+    integer pipe's clusters as many as the card holds at once)."""
+    from phe_tpu_torch.ops import cuda_modexp
 
-    return cuda_modexp._pow_elems(L, rows, cuda_rns._sms(torch.device("cuda")),
-                                  mxu)
+    return cuda_modexp._tile(L, rows, torch.device("cuda"), mxu, kernel)[:3]
 
 
-def tile_text(L, rows):
-    return "E = %d, %d rows a block" % pow_tile(L, rows)
+def tile_text(L, rows, mxu=True, kernel="mont_pow"):
+    """The launch's tile, grid and cluster dims, as a phrase."""
+    E, per, C = pow_tile(L, rows, mxu, kernel)
+    return "E = %d, %d rows a block, grid %d blocks in clusters of %d" % (
+        E, per, -(-rows // per) * C, C)
 
 
 def _counters():
@@ -637,17 +646,41 @@ def check_vec_kernels(pub, dev, rng):
     return out
 
 
+def ragged_sizes(sms, mxu, L, kernel):
+    """{(E, rows a block, C): batches} of the ragged checks, for either
+    body: one row a block of E = 8 on 1, 7 and 9 rows (the integer pipe:
+    the one-row tile on 1, 7, 9, 16, 20, 40 and sms - 1 rows, whose
+    clusters, as many as the card holds at once, must take 8, 4, 2 and 1
+    blocks among them); three rows a block of E = 8; full blocks of E = 8
+    and of E = 32, each at its smallest and largest batch."""
+    if mxu:
+        sizes = {(8, 1, 1): (1, 7, 9)}
+    else:
+        sizes = {}
+        for B in (1, 7, 9, 16, 20, 40, sms - 1):
+            sizes.setdefault(pow_tile(L, B, False, kernel), []).append(B)
+        check({C for E, _, C in sizes if E == 1} == {1, 2, 4, 8},
+              "the one-row tile's ragged batches take clusters of %s, not 8, "
+              "4, 2 and 1" % sorted(C for _, _, C in sizes))
+    sizes[8, 3, 1] = (2 * sms + 1, 3 * sms - 1)
+    for E in (8, 32):
+        sizes[E, E, 1] = ((sms - 1) * E + 1, sms * E - 1)
+    return sizes
+
+
 def check_ragged_pows(pub, dev, rng):
     """Phase 2, ragged batches of both limb-engine modexp forms at the
     2048-bit n^2 (L = 296; 64-bit exponents, window 4, the per-row
     schedules' first two all-zero and all-ones), value-equal to their
-    plain versions and Python pow, at every (E, rows a block) the wrapper
-    picks on this card: one row a block (1, 7 and 9 rows) on every row;
-    three rows a block of E = 8, and full blocks of E = 8 and of E = 32,
-    each at the smallest and largest batch that takes it (a last block of
-    1 row, and of all but one), on their first rows and last two
-    blocks. The REDC body is the context's: for a key whose contexts were
-    built without matrices, the integer-pipe body's."""
+    plain versions and Python pow, at every (E, rows a block, C) the
+    wrapper picks on this card (ragged_sizes): one row a block (1, 7 and 9
+    rows; the integer pipe: one row a cluster of 8, 4, 2 and 1 blocks, as
+    many clusters as the card holds at once) on every row; three rows a
+    block of E = 8, and full blocks of E = 8 and of E = 32, each at the
+    smallest and largest batch that takes it (a last block of 1 row, and
+    of all but one), on their first rows and last two blocks. The REDC
+    body is the context's: for a key whose contexts were built without
+    matrices, the integer-pipe body's."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -660,15 +693,13 @@ def check_ragged_pows(pub, dev, rng):
     mxu = mg.has_matrices(ctx)
     body = "" if mxu else " (integer pipe)"
     sms = cuda_rns._sms(dev)
-    sizes = {(8, 1): (1, 7, 9), (8, 3): (2 * sms + 1, 3 * sms - 1)}
-    for E in (8, 32):
-        sizes[E, E] = ((sms - 1) * E + 1, sms * E - 1)
+    sizes = ragged_sizes(sms, mxu, L, "mont_pow")
     for tile, Bs in sizes.items():
         check(all(pow_tile(L, B, mxu) == tile for B in Bs),
               "ragged modexp batches %s do not take %s" % (Bs, tile))
     rows = max(max(Bs) for Bs in sizes.values())
     checked = sorted(set(range(9)).union(*(
-        range(B - 2 * r, B) for (_, r), Bs in sizes.items() for B in Bs
+        range(B - 2 * r, B) for (_, r, _), Bs in sizes.items() for B in Bs
         if B > 9)))
     xs = [rng.randrange(0, 2 * N) for _ in range(rows)]
     base = mg._tensor(hl.ints_to_limbs(xs, L), dev)
@@ -705,8 +736,9 @@ def check_ragged_pows(pub, dev, rng):
           "the plain versions and Python pow on %d checked rows, %d SMs: %s "
           "(plain %.1f s)"
           % (body, L, len(checked), sms, "; ".join(
-              "E = %d, %d rows a block: %s rows" % (E, r, ", ".join(
-                  map(str, Bs))) for (E, r), Bs in sizes.items()), plain_s))
+              "E = %d, %d rows a block, clusters of %d: %s rows" % (
+                  E, r, C, ", ".join(map(str, Bs)))
+              for (E, r, C), Bs in sizes.items()), plain_s))
 
 
 def default_key_path(dev, card, totals):
@@ -1002,7 +1034,8 @@ def tensor_core_sass(source, kernel, elems, int_pipe=False):
     instantiation <kVec, E> (<kVec, E, kMxu> with int_pipe) of `kernel` in
     cuobjdump -sass of the library built from `source` holds int8
     tensor-core MMAs (IMMA) and no __dp4a (IDP4A); with int_pipe, each
-    integer-pipe instantiation (kMxu false) holds neither.
+    integer-pipe instantiation (kMxu false, E = 8, 32 and the one-row
+    tile's cluster form, E = 1) holds neither.
     {instantiation: (IMMA count, IDP4A count)}."""
     import os
     import subprocess
@@ -1026,7 +1059,9 @@ def tensor_core_sass(source, kernel, elems, int_pipe=False):
         elif name:
             counts[name][0] += "IMMA" in line
             counts[name][1] += "IDP4A" in line
-    want = (4 if int_pipe else 2) * len(elems)
+    from phe_tpu_torch.ops import cuda_modexp
+
+    want = 2 * len(elems) + (2 * len(cuda_modexp.INT_ELEMS) if int_pipe else 0)
     check(len(counts) == want, "cuobjdump shows %d %s instantiations, not %d"
           % (len(counts), kernel, want))
     for name, (imma, dp4a) in sorted(counts.items()):
@@ -2147,12 +2182,13 @@ def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
     else:
         bms, by = int_pipe_bound(8 * (2 * rows * L + 3 * L) + digit_bytes,
                                  L, rows, sq, mul)
-    tile = "E = %d, %d rows a block" % pow_tile(L, rows, mxu)
+    tile = tile_text(L, rows, mxu)
     print("%s L=%d windows=%d: value-equal on %d rows, Python pow on 4; "
-          "kernel %.3f ms at %d rows, %s, plain %.3f ms at %d, bound %.4f "
-          "ms (%s, %d products a row)"
-          % (name, L, n_windows, plain_rows, ms, rows, tile, plain_ms,
-             plain_rows, bms, by, sq + mul))
+          "kernel %.3f ms at %d rows, %s (%d launches so far), plain %.3f "
+          "ms at %d, bound %.4f ms (%s, %d products a row)"
+          % (name, L, n_windows, plain_rows, ms, rows, tile,
+             cuda_modexp.launches[name], plain_ms, plain_rows, bms, by,
+             sq + mul))
     check(ms >= bms, "%s L=%d ran under its bound" % (name, L))
     return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, plain_rows=plain_rows, bound_ms=bms,
@@ -2161,20 +2197,19 @@ def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
 
 def check_ragged_products(ctx, M, dev, rng):
     """Both forms of the Montgomery product for ctx on ragged batches at
-    every (E, rows a block) the wrapper picks at its L on this card (one
-    and three rows a block of E = 8, full blocks of E = 8 and of E = 32,
-    each at its smallest and largest batch), value-equal to the plain
-    version on every row."""
+    every (E, rows a block, C) the wrapper picks at its L on this card
+    (ragged_sizes: one row a block, or for the integer pipe one row a
+    cluster of 8, 4, 2 and 1 blocks; three rows a block of E = 8; full
+    blocks of E = 8 and of E = 32, each at its smallest and largest
+    batch), value-equal to the plain version on every row."""
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
 
     L, mxu = ctx.num_limbs, mg.has_matrices(ctx)
     sms = cuda_rns._sms(dev)
-    sizes = {(8, 1): (1, 7, 9), (8, 3): (2 * sms + 1, 3 * sms - 1)}
-    for E in (8, 32):
-        sizes[E, E] = ((sms - 1) * E + 1, sms * E - 1)
+    sizes = ragged_sizes(sms, mxu, L, "mont_mul")
     for tile, Bs in sizes.items():
-        check(all(pow_tile(L, B, mxu) == tile for B in Bs),
+        check(all(pow_tile(L, B, mxu, "mont_mul") == tile for B in Bs),
               "ragged product batches %s do not take %s" % (Bs, tile))
     rows = max(max(Bs) for Bs in sizes.values())
     a = limbs_on([rng.randrange(0, 2 * M) for _ in range(rows)], L, dev)
@@ -2193,8 +2228,9 @@ def check_ragged_products(ctx, M, dev, rng):
     print("mont_mul, mont_mul_const%s L=%d: ragged batches value-equal to the "
           "plain version on every row, %d SMs: %s"
           % ("" if mxu else " (integer pipe)", L, sms, "; ".join(
-              "E = %d, %d rows a block: %s rows" % (E, r, ", ".join(
-                  map(str, Bs))) for (E, r), Bs in sizes.items())))
+              "E = %d, %d rows a block, clusters of %d: %s rows" % (
+                  E, r, C, ", ".join(map(str, Bs)))
+              for (E, r, C), Bs in sizes.items())))
 
 
 def engines_phase(keys, dev, card, totals):
@@ -2215,9 +2251,10 @@ def engines_phase(keys, dev, card, totals):
     contexts built without REDC matrices) and the fixed 8192-bit key's
     n^2: each integer-pipe body against its plain version (the product at
     L = 296, 152 and 80, on ragged batches too; the modexp at the path's
-    launches at L = 296 and 152, on ragged batches, and at L = 1,176 on
-    LIMB_POW_ROWS rows), and a BATCH-row round trip and mul_scalars on the
-    limb engine with those contexts. The variables are restored as they were after each step.
+    launches at L = 296 and 152, on ragged batches, at L = 1,176 on
+    LIMB_POW_ROWS rows and at the 8192-bit r^n over LIMB_ROWS), and a
+    BATCH-row round trip and mul_scalars on the limb engine with those
+    contexts. The variables are restored as they were after each step.
     Returns (record, {kernel: [its checks]})."""
     import phe_tpu_torch as pt
     from phe_tpu_torch import batch as tbatch
@@ -2351,7 +2388,8 @@ def engines_phase(keys, dev, card, totals):
     with environment(PHE_TPU_TORCH_MXU="0"):
         pub0, priv0 = benchmarks.fixed_key(2048)
         dc0, pdc0 = pub0.device_context(dev), priv0.device_context(dev)
-        M8 = benchmarks.fixed_key(8192)[0].nsquare
+        pub8 = benchmarks.fixed_key(8192)[0]
+        M8 = pub8.nsquare
         ctx8 = mg.build_context(M8, dev)
     contexts = key_contexts(dc0, pdc0) + (ctx8,)
     check(not any(mg.has_matrices(c) for c in contexts),
@@ -2378,6 +2416,11 @@ def engines_phase(keys, dev, card, totals):
     for vec, name in ((True, "mont_pow_int"), (False, "mont_pow_shared_int")):
         checks[name].append(check_pow(ctx8, M8, dev, rng, vec,
                                       LIMB_POW_ROWS, 64, LIMB_POW_ROWS))
+    # The 8192-bit encrypt's own launch, r^n over LIMB_ROWS rows: the
+    # integer pipe's E = 8 tile (phase 7 times the int8 body there).
+    checks["mont_pow_shared_int"].append(check_pow(
+        ctx8, M8, dev, rng, False, LIMB_ROWS, pub8.n.bit_length(),
+        INT_WIDE_PLAIN_ROWS, window=tbatch.ENCRYPT_WINDOW, exponent=pub8.n))
     xs = floats(-1e6, 1e6, BATCH)
     t_enc, t_dec = engine_trip(pub0, priv0, xs, "limb", dev, totals,
                                int_pipe=True)

@@ -24,7 +24,11 @@
 // the rows against phe_tpu's REDC matrices, packed once per context; two
 // carry passes), and writes the rows out as int64. There is no table.
 // The integer-pipe body runs q = T_lo M' mod R and q M as two more a * b
-// passes on the CUDA cores against M' and M in shared memory.
+// passes on the CUDA cores against M' and M in shared memory, its runs
+// taken in falling order of cost; for a batch no larger than the card's
+// SMs it runs the one-row tile (E = 1), each row on a thread-block
+// cluster of `cluster` blocks that split every phase (redc_tile.cuh), the
+// cluster's first block storing the row.
 //
 // What bounds it on an H100: per row 12 L^2 int8 multiply-adds of the
 // reduction on the tensor cores (1.05 M at L = 296), L^2 int32
@@ -57,7 +61,8 @@ mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
                 int rows, int L) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * rows;
+  const int cl = E == 1 ? cooperative_groups::this_cluster().num_blocks() : 1;
+  const size_t e0 = static_cast<size_t>(blockIdx.x / cl) * rows;
   RedcTile<E, kMxu> p;
   p.init(smem_raw, L,
          B - static_cast<int>(e0) < rows ? B - static_cast<int>(e0) : rows,
@@ -76,28 +81,40 @@ mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
 
   p.template product<false>();
 
+  if (E == 1 && p.rank != 0) {
+    cooperative_groups::this_cluster().sync();  // no block leaves early
+    return;
+  }
   for (int idx = tid; idx < live * L; idx += nt) {
     const int e = idx / L, i = idx - e * L;
     out[(e0 + e) * L + i] = static_cast<int64_t>(p.acc[e * sa + kPad + i]);
   }
+  if (E == 1) cooperative_groups::this_cluster().sync();
 }
 
 template <bool kShared, int E, bool kMxu>
 int launch(const int64_t* a, const int64_t* b, int64_t* out,
-           const RedcConsts& consts, int B, int rows, int L,
+           const RedcConsts& consts, int B, int rows, int cluster, int L,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(L, E, kMxu);
   if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < kRun ||
-      rows < 1 || rows > E) {
+      rows < 1 || rows > E ||
+      (E == 1 ? cluster < 1 || cluster > kClusterMax : cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
       mont_mul_kernel<kShared, E, kMxu>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + rows - 1) / rows;
-  mont_mul_kernel<kShared, E, kMxu><<<blocks, kThreads, smem, stream>>>(
-      a, b, out, consts, B, rows, L);
+  const int blocks = (B + rows - 1) / rows * cluster;
+  if constexpr (E == 1) {
+    err = launch_cluster(mont_mul_kernel<kShared, E, kMxu>, blocks, cluster,
+                         smem, stream, a, b, out, consts, B, rows, L);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    mont_mul_kernel<kShared, E, kMxu><<<blocks, kThreads, smem, stream>>>(
+        a, b, out, consts, B, rows, L);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -109,8 +126,10 @@ int launch(const int64_t* a, const int64_t* b, int64_t* out,
 // compensation vectors. phe_mont_mul_const_<E> takes b: [L], shared by
 // the batch. phe_mont_mul_int_<E> and phe_mont_mul_const_int_<E> reduce on
 // the integer pipe and take mp, m: M' and M, int64 [L], in place of the
-// matrices. All on the device, contiguous. Each launches on `stream`,
-// allocates nothing, and returns cudaGetLastError().
+// matrices, and `cluster`: 1 for E = 8 and 32, the blocks of each row's
+// cluster (1 ... 8) for E = 1. All on the device, contiguous. Each
+// launches on `stream`, allocates nothing, and returns cudaGetLastError()
+// (cudaErrorLaunchOutOfResources for a cluster the card cannot hold).
 #define PHE_MONT_MUL_ENTRY(NAME, SHARED, E)                                   \
   extern "C" int NAME(const int64_t* a, const int64_t* b, int64_t* out,      \
                       const int* wq, const int* wm, const int* cq,           \
@@ -119,15 +138,15 @@ int launch(const int64_t* a, const int64_t* b, int64_t* out,
     return launch<SHARED, E, true>(a, b, out,                                \
                                    RedcConsts{wq, wm, cq, cm, nullptr,       \
                                               nullptr},                      \
-                                   B, rows, L, stream);                      \
+                                   B, rows, 1, L, stream);                   \
   }
 #define PHE_MONT_MUL_INT_ENTRY(NAME, SHARED, E)                               \
   extern "C" int NAME(const int64_t* a, const int64_t* b, int64_t* out,      \
                       const int64_t* mp, const int64_t* m, int B, int rows,  \
-                      int L, cudaStream_t stream) {                          \
+                      int cluster, int L, cudaStream_t stream) {             \
     return launch<SHARED, E, false>(                                         \
         a, b, out, RedcConsts{nullptr, nullptr, nullptr, nullptr, mp, m}, B, \
-        rows, L, stream);                                                    \
+        rows, cluster, L, stream);                                           \
   }
 
 PHE_MONT_MUL_ENTRY(phe_mont_mul_8, false, 8)
@@ -138,10 +157,37 @@ PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_int_8, false, 8)
 PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_int_32, false, 32)
 PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_const_int_8, true, 8)
 PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_const_int_32, true, 32)
+PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_int_1, false, 1)
+PHE_MONT_MUL_INT_ENTRY(phe_mont_mul_const_int_1, true, 1)
 
 // Shared-memory bytes of one block of `elems` rows at L (the tile's, as
 // the modexp's) for the int8 body (mxu != 0) or the integer-pipe one: the
 // GPU tests hold the wrapper's copy against it.
 extern "C" int phe_mont_mul_smem(int L, int elems, int mxu) {
   return static_cast<int>(phe::smem_bytes(L, elems, mxu != 0));
+}
+
+// The clusters of `cluster` blocks of the one-row tile at L the card can
+// hold at once (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+extern "C" int phe_mont_mul_clusters(int L, int cluster) {
+  const size_t smem = phe::smem_bytes(L, 1, false);
+  cudaError_t err = cudaFuncSetAttribute(
+      mont_mul_kernel<false, 1, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(phe::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &fit, reinterpret_cast<const void*>(mont_mul_kernel<false, 1, false>), &cfg);
+  return err == cudaSuccess ? fit : -static_cast<int>(err);
 }

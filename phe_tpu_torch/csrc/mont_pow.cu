@@ -29,8 +29,13 @@
 // A block holds `rows` of its E row slots (1 ... E, chosen per launch by
 // the wrapper): E when the batch fills the card, fewer when ceil(B / E)
 // blocks would leave multiprocessors idle, the other slots' MMA columns
-// zero. The window table lives in device memory (a scratch of 2^w L
-// words a row over ceil(B / rows) blocks, which the wrapper allocates).
+// zero. The integer-pipe body has a third tile for a batch no larger than
+// the card's SMs: one row (E = 1) shared by a thread-block cluster of
+// `cluster` blocks (1 ... 8), each holding the whole row and doing 1/C of
+// every phase (redc_tile.cuh). The window table lives in device memory (a
+// scratch of 2^w L words a row slot for each of the grid's blocks, which
+// the wrapper allocates); the blocks of a cluster keep one copy each, and
+// the cluster's first block stores the row.
 // The shared form reads the entry its public digit names; the per-row
 // form selects in constant time, as _pow_vec_kernel's one-hot sum
 // (:503-512) does: every table entry is read and the wanted one kept by a
@@ -76,7 +81,8 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
                 int n_windows, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * rows;
+  const int cl = E == 1 ? cooperative_groups::this_cluster().num_blocks() : 1;
+  const size_t e0 = static_cast<size_t>(blockIdx.x / cl) * rows;
   RedcTile<E, kMxu> p;
   p.init(smem_raw, L,
          B - static_cast<int>(e0) < rows ? B - static_cast<int>(e0) : rows,
@@ -84,7 +90,8 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
   const int live = p.live, sa = p.sa, sh = p.sh;
   const int ntab = 1 << window;
   const size_t tstride = static_cast<size_t>(ntab) * L;  // a row's table
-  unsigned int* tab = table + e0 * tstride;
+  unsigned int* tab =
+      table + static_cast<size_t>(blockIdx.x) * rows * tstride;
 
   // Zero everything, then the rows: acc = x; tab[0] = R mod M, tab[1] = x.
   p.zero();
@@ -155,29 +162,42 @@ mont_pow_kernel(const int64_t* __restrict__ base, int64_t* __restrict__ out,
     p.template product<false>();
   }
 
+  if (E == 1 && p.rank != 0) {
+    cooperative_groups::this_cluster().sync();  // no block leaves early
+    return;
+  }
   for (int idx = tid; idx < live * L; idx += nt) {
     const int e = idx / L, i = idx - e * L;
     out[(e0 + e) * L + i] = static_cast<int64_t>(p.acc[e * sa + kPad + i]);
   }
+  if (E == 1) cooperative_groups::this_cluster().sync();
 }
 
 template <bool kVec, int E, bool kMxu>
 int launch(const int64_t* base, int64_t* out, unsigned int* table,
            const int64_t* one, const RedcConsts& consts, const void* digits,
-           int B, int rows, int L, int n_windows, int window,
+           int B, int rows, int cluster, int L, int n_windows, int window,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(L, E, kMxu);
   if (smem > static_cast<size_t>(kSmemLimit) || L % kRun || L < 16 ||
-      window < 1 || window > 8 || rows < 1 || rows > E) {
+      window < 1 || window > 8 || rows < 1 || rows > E ||
+      (E == 1 ? cluster < 1 || cluster > kClusterMax : cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
       mont_pow_kernel<kVec, E, kMxu>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + rows - 1) / rows;
-  mont_pow_kernel<kVec, E, kMxu><<<blocks, kThreads, smem, stream>>>(
-      base, out, table, one, consts, digits, B, rows, L, n_windows, window);
+  const int blocks = (B + rows - 1) / rows * cluster;
+  if constexpr (E == 1) {
+    err = launch_cluster(mont_pow_kernel<kVec, E, kMxu>, blocks, cluster,
+                         smem, stream, base, out, table, one, consts, digits,
+                         B, rows, L, n_windows, window);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    mont_pow_kernel<kVec, E, kMxu><<<blocks, kThreads, smem, stream>>>(
+        base, out, table, one, consts, digits, B, rows, L, n_windows, window);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,15 +205,17 @@ int launch(const int64_t* base, int64_t* out, unsigned int* table,
 
 // phe_mont_pow_shared_<E>: base, out: [B, L] int64 Montgomery-domain rows,
 // `rows` (1 ... E) of them a block; table: uint32 scratch of
-// ceil(B / rows) * rows * 2^window * L words; one: [L]
+// ceil(B / rows) * cluster * rows * 2^window * L words; one: [L]
 // int64 R mod M; wq, wm: w_mq and w_m in fragment order
 // (cuda_rns.pack_blocks, two row blocks), 16-byte aligned; cq, cm: [2L]
 // and [4L] int32 compensation vectors; digits: [n_windows] int64, MSB
 // first. phe_mont_pow_<E> takes digits: [B, n_windows] int8, one schedule
 // per row. phe_mont_pow_shared_int_<E> and phe_mont_pow_int_<E> reduce on
 // the integer pipe and take mp, m: M' and M, int64 [L], in place of the
-// matrices. All on the device, contiguous. Each launches on `stream`,
-// allocates nothing, and returns cudaGetLastError().
+// matrices, and `cluster`: 1 for E = 8 and 32, the blocks of each row's
+// cluster (1 ... 8) for E = 1. All on the device, contiguous. Each
+// launches on `stream`, allocates nothing, and returns cudaGetLastError()
+// (cudaErrorLaunchOutOfResources for a cluster the card cannot hold).
 #define PHE_MONT_POW_ENTRY(NAME, VEC, E, DIGIT_T)                              \
   extern "C" int NAME(const int64_t* base, int64_t* out, unsigned int* table, \
                       const int64_t* one, const int* wq, const int* wm,       \
@@ -202,19 +224,19 @@ int launch(const int64_t* base, int64_t* out, unsigned int* table,
                       cudaStream_t stream) {                                  \
     return launch<VEC, E, true>(                                              \
         base, out, table, one,                                                \
-        RedcConsts{wq, wm, cq, cm, nullptr, nullptr}, digits, B, rows, L,     \
+        RedcConsts{wq, wm, cq, cm, nullptr, nullptr}, digits, B, rows, 1, L,  \
         n_windows, window, stream);                                           \
   }
 #define PHE_MONT_POW_INT_ENTRY(NAME, VEC, E, DIGIT_T)                          \
   extern "C" int NAME(const int64_t* base, int64_t* out, unsigned int* table, \
                       const int64_t* one, const int64_t* mp,                  \
                       const int64_t* m, const DIGIT_T* digits, int B,         \
-                      int rows, int L, int n_windows, int window,             \
-                      cudaStream_t stream) {                                  \
+                      int rows, int cluster, int L, int n_windows,            \
+                      int window, cudaStream_t stream) {                      \
     return launch<VEC, E, false>(                                             \
         base, out, table, one,                                                \
         RedcConsts{nullptr, nullptr, nullptr, nullptr, mp, m}, digits, B,     \
-        rows, L, n_windows, window, stream);                                  \
+        rows, cluster, L, n_windows, window, stream);                         \
   }
 
 PHE_MONT_POW_ENTRY(phe_mont_pow_shared_8, false, 8, int64_t)
@@ -225,10 +247,38 @@ PHE_MONT_POW_INT_ENTRY(phe_mont_pow_shared_int_8, false, 8, int64_t)
 PHE_MONT_POW_INT_ENTRY(phe_mont_pow_shared_int_32, false, 32, int64_t)
 PHE_MONT_POW_INT_ENTRY(phe_mont_pow_int_8, true, 8, int8_t)
 PHE_MONT_POW_INT_ENTRY(phe_mont_pow_int_32, true, 32, int8_t)
+PHE_MONT_POW_INT_ENTRY(phe_mont_pow_shared_int_1, false, 1, int64_t)
+PHE_MONT_POW_INT_ENTRY(phe_mont_pow_int_1, true, 1, int8_t)
 
 // Shared-memory bytes of one block of `elems` rows at L for the int8 body
-// (mxu != 0) or the integer-pipe one: the wrapper chooses E with its own
-// copy of this formula, which the GPU tests hold against this one.
+// (mxu != 0) or the integer-pipe one (elems 1: the one-row tile): the
+// wrapper chooses E with its own copy of this formula, which the GPU tests
+// hold against this one.
 extern "C" int phe_mont_pow_smem(int L, int elems, int mxu) {
   return static_cast<int>(phe::smem_bytes(L, elems, mxu != 0));
+}
+
+// The clusters of `cluster` blocks of the one-row tile at L the card can
+// hold at once (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+extern "C" int phe_mont_pow_clusters(int L, int cluster) {
+  const size_t smem = phe::smem_bytes(L, 1, false);
+  cudaError_t err = cudaFuncSetAttribute(
+      mont_pow_kernel<false, 1, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(phe::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &fit, reinterpret_cast<const void*>(mont_pow_kernel<false, 1, false>), &cfg);
+  return err == cudaSuccess ? fit : -static_cast<int>(err);
 }

@@ -11,7 +11,9 @@ rows a block (``_pow_elems``), both constant products of each reduction
 on the int8 tensor cores against the context's REDC matrices, packed once
 per context and card (``_pow_columns``), or, for a context built without
 them (montgomery.has_matrices False: PHE_TPU_TORCH_MXU=0), on the CUDA
-cores' integer pipe against M' and M (the ``_int`` entry points). Each
+cores' integer pipe against M' and M (the ``_int`` entry points), whose
+batches no larger than the card's SMs run one row a thread-block cluster
+of C blocks (E = 1). Each
 launches its kernel for tensors on the card and takes its plain PyTorch
 version (montgomery.mont_mul_plain, mont_pow_shared_plain,
 mont_pow_plain: the integer-pipe formulation) for tensors on the CPU;
@@ -47,6 +49,14 @@ FORMS = ("mont_mul", "mont_mul_const", "mont_pow_shared", "mont_pow")
 launches = {name + body: 0 for body in ("", "_int") for name in FORMS}
 # Rows a modexp block holds: the kernel's instantiations, widest first.
 POW_ELEMS = (32, 8)
+# The integer-pipe body's also the one-row tile (E = 1), each row on a
+# thread-block cluster of at most CLUSTER_MAX blocks (the portable size).
+INT_ELEMS = POW_ELEMS + (1,)
+CLUSTER_MAX = 8
+# The one-row tile's skewed rows: POW_SKEW_PAD zero words either side; and
+# the least shared memory its block asks for (over half an SM's, so that
+# no two blocks share one).
+POW_SKEW_PAD, ONE_ROW_BYTES = 16, 116736
 # REDC matrix bytes (12 L^2 a block) that the blocks of one launch may
 # stream from L2 for each product before more blocks stop paying: the
 # 8192-bit encrypt's 64 blocks at L = 1,176 (1.06 GB) ran no faster
@@ -57,6 +67,9 @@ POW_STREAM = 1 << 29
 # packed REDC operands on its card, built at its first launch of either
 # kernel.
 _pow_packed = WeakIdKeyDictionary()
+# (kernel, device index, L, C) -> the clusters of C blocks of the one-row
+# tile the card holds at once (cudaOccupancyMaxActiveClusters).
+_fits = {}
 
 mont_mul_plain = mg.mont_mul_plain
 
@@ -77,10 +90,13 @@ def _lib(shared, elems, mxu=True):
         for e in POW_ELEMS:
             for form in ("phe_mont_mul_%d", "phe_mont_mul_const_%d"):
                 _entry(lib, form % e, 7, 3)
+        for e in INT_ELEMS:
             for form in ("phe_mont_mul_int_%d", "phe_mont_mul_const_int_%d"):
-                _entry(lib, form % e, 5, 3)
+                _entry(lib, form % e, 5, 4)
         lib.phe_mont_mul_smem.argtypes = [ctypes.c_int] * 3
         lib.phe_mont_mul_smem.restype = ctypes.c_int
+        lib.phe_mont_mul_clusters.argtypes = [ctypes.c_int] * 2
+        lib.phe_mont_mul_clusters.restype = ctypes.c_int
     return getattr(lib, "phe_mont_mul%s%s_%d" % (
         "_const" if shared else "", "" if mxu else "_int", elems))
 
@@ -93,10 +109,13 @@ def _pow_lib(vec, elems, mxu=True):
         for e in POW_ELEMS:
             for form in ("phe_mont_pow_%d", "phe_mont_pow_shared_%d"):
                 _entry(lib, form % e, 9, 5)
+        for e in INT_ELEMS:
             for form in ("phe_mont_pow_int_%d", "phe_mont_pow_shared_int_%d"):
-                _entry(lib, form % e, 7, 5)
+                _entry(lib, form % e, 7, 6)
         lib.phe_mont_pow_smem.argtypes = [ctypes.c_int] * 3
         lib.phe_mont_pow_smem.restype = ctypes.c_int
+        lib.phe_mont_pow_clusters.argtypes = [ctypes.c_int] * 2
+        lib.phe_mont_pow_clusters.restype = ctypes.c_int
     return getattr(lib, "phe_mont_pow%s%s_%d" % (
         "" if vec else "_shared", "" if mxu else "_int", elems))
 
@@ -115,19 +134,32 @@ def _pow_smem(L, elems, mxu=True):
     there; then per row T and the scratch H (2L + 1 words each, H at least
     the padded operand) and the flag; then, for the int8 body (mxu), the
     digit row (2L padded to 32, plus a 16-byte skew) per row, or, for the
-    integer-pipe body, the two padded constant rows M' and M."""
+    integer-pipe body, the two padded constant rows M' and M and, for its
+    one-row tile (elems 1), the cluster words: four skewed rows (L + 2
+    POW_SKEW_PAD words, 9 for every 8), 3 words to align, two receiving
+    rows (2L) and their carries (2L / kRun), the slabs' slots (3 x 384 of
+    9 words), three plans (4 + 2L / kRun + 1) and their 3 x 64
+    candidates; at least ONE_ROW_BYTES."""
     rows = 4 * elems * ((L + 2 * POW_PAD + 1) + 2 * (2 * L // POW_RUN))
     words = (2 * L + 1) + (max(2 * L, L + 2 * POW_PAD) + 1) + 1
     if not mxu:
-        return rows + 4 * elems * words + 8 * (L + 2 * POW_PAD + 1)
+        bytes_ = rows + 4 * elems * words + 8 * (L + 2 * POW_PAD + 1)
+        if elems != 1:
+            return bytes_
+        runs = 2 * L // POW_RUN
+        skewed = (L + 2 * POW_SKEW_PAD) // 8 * 9
+        plans = 3 * (4 + runs + 1) + 3 * 64
+        return max(ONE_ROW_BYTES, bytes_ + 4 * (
+            4 * skewed + 3 + 4 * L + 2 * runs + 3 * 384 * 9 + plans))
     return max(rows, POW_RING) + elems * (4 * words + -(-2 * L // 32) * 32
                                           + 16)
 
 
-def _pow_elems(L, B, sms, mxu=True):
-    """(E, rows) of a product or modexp launch of B rows at L on a card of
-    `sms` multiprocessors, for the int8 body (mxu) or the integer-pipe one:
-    the instantiation E and the rows each block holds.
+def _pow_elems(L, B, sms, mxu=True, fit=None):
+    """(E, rows, C) of a product or modexp launch of B rows at L on a card
+    of `sms` multiprocessors, for the int8 body (mxu) or the integer-pipe
+    one: the instantiation E, the rows each block holds and the blocks of
+    each cluster.
     E is the widest instantiation whose shared memory fits and whose
     ceil(B / E) blocks still cover the SMs, a block then holding E rows;
     when none does, the narrowest that fits, its blocks holding
@@ -136,18 +168,29 @@ def _pow_elems(L, B, sms, mxu=True):
     within POW_STREAM. A fuller block divides the REDC matrices' L2 reads
     by its rows. The window does not enter: the table lives in device
     memory. The stream is per product, so a launch of one product and a
-    modexp of many choose alike."""
+    modexp of many choose alike. C is 1 but for the integer-pipe body's
+    batches of at most `sms` rows: those run the one-row tile (E = 1) on
+    clusters of C blocks, C the largest power of two up to CLUSTER_MAX
+    with B C <= sms and, where fit(C) says how many clusters of C the card
+    holds at once, B <= fit(C): one wave. (An H100 holds 15 clusters of 8
+    and 30 of 4, so 16 rows take clusters of 4.)"""
     fits = [e for e in POW_ELEMS if _pow_smem(L, e, mxu) <= MAX_SMEM]
     if not fits:
         raise ValueError("no modexp block fits %d bytes of shared memory at "
                          "L = %d" % (MAX_SMEM, L))
     for e in fits:
         if -(-B // e) >= sms:
-            return e, e
+            return e, e, 1
     rows = -(-B // sms)
     if mxu:
         rows = max(rows, -(-B * 12 * L * L // POW_STREAM))
-    return fits[-1], min(fits[-1], rows)
+    elif rows == 1:
+        C = 1 << min(CLUSTER_MAX.bit_length() - 1,
+                     (sms // B).bit_length() - 1)
+        while C > 1 and fit is not None and fit(C) < B:
+            C //= 2
+        return 1, 1, C
+    return fits[-1], min(fits[-1], rows), 1
 
 
 def _pow_columns(ctx):
@@ -167,6 +210,31 @@ def _pow_columns(ctx):
                 mats.c_mq.to(torch.int32).contiguous(),
                 mats.c_m.to(torch.int32).contiguous()))
     return cols
+
+
+def _fit(kernel, dev, L):
+    """fit(C) for _pow_elems: the clusters of C blocks of `kernel`'s
+    one-row tile the card holds at once, asked once per (card, L, C)."""
+    def fit(C):
+        key = (kernel, dev.index, L, C)
+        if key not in _fits:
+            # _lib and _pow_lib set the library's argument types.
+            (_lib if kernel == "mont_mul" else _pow_lib)(False, 1, False)
+            got = getattr(_build.load(kernel), "phe_%s_clusters" % kernel)(
+                L, C)
+            if got < 0:
+                raise RuntimeError("%s: cudaOccupancyMaxActiveClusters "
+                                   "failed: CUDA error %d" % (kernel, -got))
+            _fits[key] = got
+        return _fits[key]
+    return fit
+
+
+def _tile(L, B, dev, mxu, kernel):
+    """(E, rows, C, the integer ints an entry point takes before L)."""
+    elems, rows, cluster = _pow_elems(L, B, cuda_rns._sms(dev), mxu,
+                                      None if mxu else _fit(kernel, dev, L))
+    return elems, rows, cluster, (B, rows) if mxu else (B, rows, cluster)
 
 
 def _redc_args(ctx, dev, L):
@@ -211,9 +279,9 @@ def _launch(a, b, ctx, shared):
     if B == 0:
         return out
     mxu, consts = _redc_args(ctx, dev, L)
-    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev), mxu)
+    elems, _, _, tile = _tile(L, B, dev, mxu, "mont_mul")
     rc = _lib(shared, elems, mxu)(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), *consts, B, rows, L,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), *consts, *tile, L,
         _build.stream_handle(dev),
     )
     if rc != 0:
@@ -241,10 +309,11 @@ def mont_mul_const(a, b_limbs, ctx):
     return _dispatch(a, b_limbs, ctx, shared=True)
 
 
-def _pow_table(B, rows, window, L, dev):
+def _pow_table(B, rows, window, L, dev, cluster=1):
     """The kernel's table scratch: 2^window rows of L words for each of
-    the ceil(B / rows) * rows rows its blocks hold."""
-    return torch.empty((-(-B // rows) * rows, 1 << window, L),
+    the rows slots of its ceil(B / rows) * cluster blocks (a cluster's
+    blocks keep a copy each)."""
+    return torch.empty((-(-B // rows) * cluster * rows, 1 << window, L),
                        dtype=torch.int32, device=dev)
 
 
@@ -272,11 +341,11 @@ def _pow_launch(base, digits, ctx, window, vec):
     if B == 0:
         return out
     mxu, consts = _redc_args(ctx, dev, L)
-    elems, rows = _pow_elems(L, B, cuda_rns._sms(dev), mxu)
-    table = _pow_table(B, rows, window, L, dev)
+    elems, rows, cluster, tile = _tile(L, B, dev, mxu, "mont_pow")
+    table = _pow_table(B, rows, window, L, dev, cluster)
     rc = _pow_lib(vec, elems, mxu)(
         base.data_ptr(), out.data_ptr(), table.data_ptr(),
-        ctx.one.data_ptr(), *consts, digits.data_ptr(), B, rows, L,
+        ctx.one.data_ptr(), *consts, digits.data_ptr(), *tile, L,
         digits.shape[-1], window, _build.stream_handle(dev),
     )
     name = ("mont_pow" if vec else "mont_pow_shared") + ("" if mxu else "_int")

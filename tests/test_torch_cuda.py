@@ -21,8 +21,9 @@ crt_powers equals Python's pow at 2048 bits through mont_pow_shared, the
 CLI's vector commands run on the card through click's CliRunner, and a
 world of one on NCCL sums as batch.sum() does. The integer-pipe REDC
 bodies (contexts built with mxu=False) run every block width on ragged
-batches at L = 80 and 296, both layouts' shared-memory formulas match
-the kernels', and PHE_TPU_TORCH_ENGINE=limb gives the RNS engine's
+batches at L = 80 and 296, and the one-row tile on thread-block clusters
+at L = 1,176 on 16 and ragged rows; both layouts' shared-memory formulas
+match the kernels', and PHE_TPU_TORCH_ENGINE=limb gives the RNS engine's
 pinned-r ciphertexts at 2048 bits. Tolerance zero throughout:
 all exact integer arithmetic.
 """
@@ -160,8 +161,8 @@ def test_mont_mul_every_width_and_ragged_batch_value_equal(dev, which,
     R_inv = pow(1 << (14 * L), -1, M)
     name = "mont_mul_const" if shared else "mont_mul"
     fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
-    for B, (E, per) in widths:
-        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per)
+    for B, (E, per, C) in widths:
+        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per, C)
         bb = b[0] if shared else b[:B].contiguous()
         before = cuda_modexp.launches[name]
         got = fn(a[:B].contiguous(), bb, ctx)
@@ -187,8 +188,8 @@ def test_mont_mul_smem_formula_matches_the_kernel(dev):
     lib = cuda_modexp._build.load("mont_mul")
     for L in (8, 16, 24, 40, 80, 152, 296, 440, 592, 1176,
               cuda_modexp.MAX_MUL_LIMBS):
-        for E in cuda_modexp.POW_ELEMS:
-            for mxu in (True, False):
+        for E in cuda_modexp.INT_ELEMS:
+            for mxu in (True, False)[E == 1:]:
                 assert (lib.phe_mont_mul_smem(L, E, int(mxu))
                         == cuda_modexp._pow_smem(L, E, mxu))
 
@@ -207,7 +208,7 @@ def test_3072_bit_default_key_on_the_card(dev):
     assert dc.L == 440 and dc.rns_state().rsys.k == 456
     sms = cuda_rns._sms(dev)
     assert cuda_rns._elems(456, 16384, sms) == 8
-    assert cuda_modexp._pow_elems(440, 16384, sms) == (8, 8)
+    assert cuda_modexp._pow_elems(440, 16384, sms) == (8, 8, 1)
     values = [0, 1, -1, 3.5, -2.5e-3, 1 << 60, -(1 << 100), 1e6, 17, -0.125]
     for counts in (cuda_modexp.launches, cuda_rns.launches):
         for key in counts:
@@ -493,19 +494,27 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
 
 
 def _pow_widths(dev, L, mxu=True):
-    """(B, (E, rows a block)): batches of 1, 7, 8 and 9 rows at one row a
-    block of E = 8; at three rows a block of E = 8 (where, with mxu, their
-    matrix stream allows it), at full blocks of E = 8 and, where a block
-    of 32 rows fits the body's layout, of E = 32, the smallest and largest
-    batches that take it on this card, their last block holding 1 row and
-    all but one."""
+    """(B, (E, rows a block, C)): batches of 1, 7, 8 and 9 rows at one row
+    a block of E = 8 (the integer pipe: the one-row tile on 1, 7, 8, 9,
+    16, 20, 40 and sms - 1 rows, its clusters of 8, 4, 2 and 1 blocks, as
+    many as the card holds at once, among them);
+    at three rows a block of E = 8 (where, with mxu, their matrix stream
+    allows it), at full blocks of E = 8 and, where a block of 32 rows fits
+    the body's layout, of E = 32, the smallest and largest batches that
+    take it on this card, their last block holding 1 row and all but
+    one."""
     sms = cuda_rns._sms(dev)
-    out = [(B, (8, 1)) for B in (1, 7, 8, 9)]
+    if mxu:
+        out = [(B, (8, 1, 1)) for B in (1, 7, 8, 9)]
+    else:
+        out = [(B, cuda_modexp._tile(L, B, dev, False, "mont_pow")[:3])
+               for B in (1, 7, 8, 9, 16, 20, 40, sms - 1)]
+        assert {C for _, (E, _, C) in out} == {1, 2, 4, 8}
     if not mxu or (3 * sms - 1) * 12 * L * L <= 3 * cuda_modexp.POW_STREAM:
-        out += [(2 * sms + 1, (8, 3)), (3 * sms - 1, (8, 3))]
+        out += [(2 * sms + 1, (8, 3, 1)), (3 * sms - 1, (8, 3, 1))]
     for E in (8, 32):
         if cuda_modexp._pow_smem(L, E, mxu) <= cuda_modexp.MAX_SMEM:
-            out += [((sms - 1) * E + 1, (E, E)), (sms * E - 1, (E, E))]
+            out += [((sms - 1) * E + 1, (E, E, 1)), (sms * E - 1, (E, E, 1))]
     return out
 
 
@@ -541,8 +550,8 @@ def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
     name = "mont_pow" if vec else "mont_pow_shared"
     fn = cuda_modexp.mont_pow if vec else cuda_modexp.mont_pow_shared
     plain = mg.mont_pow_plain if vec else mg.mont_pow_shared_plain
-    for B, (E, per) in widths:
-        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per)
+    for B, (E, per, C) in widths:
+        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per, C)
         before = cuda_modexp.launches[name]
         db = digits[:B].contiguous() if vec else digits
         got = fn(base[:B].contiguous(), db, ctx)
@@ -565,8 +574,8 @@ def test_pow_smem_formula_matches_the_kernel(dev):
     cuda_modexp._pow_lib(False, 8)
     lib = cuda_modexp._build.load("mont_pow")
     for L in (16, 24, 40, 152, 296, 304, 592, 1176):
-        for E in cuda_modexp.POW_ELEMS:
-            for mxu in (True, False):
+        for E in cuda_modexp.INT_ELEMS:
+            for mxu in (True, False)[E == 1:]:
                 assert (lib.phe_mont_pow_smem(L, E, int(mxu))
                         == cuda_modexp._pow_smem(L, E, mxu))
 
@@ -601,9 +610,9 @@ def test_integer_pipe_bodies_value_equal_on_ragged_batches(dev, which, form):
     digits = torch.as_tensor(tbatch._digits_rows(es, 64) if form == "pow"
                              else mg.exponent_digits(e, 64), device=dev)
     name = "mont_" + form + "_int"
-    for B, (E, per) in widths:
-        assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev),
-                                      False) == (E, per)
+    for B, (E, per, C) in widths:
+        assert cuda_modexp._tile(L, B, dev, False,
+                                 "mont_pow")[:3] == (E, per, C)
         x, y = a[:B].contiguous(), b[:B].contiguous()
         before = cuda_modexp.launches[name]
         if form.startswith("mul"):
@@ -627,6 +636,65 @@ def test_integer_pipe_bodies_value_equal_on_ragged_batches(dev, which, form):
         torch.cuda.synchronize()
         g = hl.limbs_to_ints(got.cpu().numpy())
         assert [g[i] % M for i in idx] == want, (B, E, per)
+        assert [v % M for v in hl.limbs_to_ints(ref.cpu().numpy())] == want
+        assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+        assert all(100 * v < 101 * M for v in g)
+
+
+@pytest.mark.parametrize("form", ["mul", "mul_const", "pow_shared", "pow"])
+def test_cluster_tile_value_equal_at_1176_on_16_and_ragged_rows(dev, form):
+    """The integer-pipe body's one-row tile at the 8192-bit key's n^2 (L =
+    1,176, a context without REDC matrices) on 16 rows (one row a cluster
+    of 4 blocks on an H100, which holds 15 clusters of 8 at once) and on
+    ragged batches of 1, 7 and 131 rows (clusters of 8, 8 and 1), each
+    batch in one wave of clusters: every row value-equal to the plain version
+    (a modexp's first and last two rows, 64-bit exponents, window 4) and
+    to Python's pow, limbs in [0, 2^14], value < 1.01 M, one launch
+    counted under the body's name."""
+    M = benchmarks.fixed_key(8192)[0].nsquare
+    ctx = mg.build_context(M, dev, mxu=False)
+    assert not mg.has_matrices(ctx) and ctx.num_limbs == 1176
+    L = ctx.num_limbs
+    sms = cuda_rns._sms(dev)
+    rng = random.Random(1176 + len(form))
+    xs = [rng.randrange(0, 2 * M) for _ in range(131)]
+    ys = [rng.randrange(0, 2 * M) for _ in range(131)]
+    a, b = _limbs(xs, L, dev), _limbs(ys, L, dev)
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    e = rng.getrandbits(64) | 1 << 63
+    es = ([(0, (1 << 64) - 1)[i % 2] if i < 4 else rng.getrandbits(64)
+           for i in range(131)] if form == "pow" else [e] * 131)
+    digits = torch.as_tensor(tbatch._digits_rows(es, 64) if form == "pow"
+                             else mg.exponent_digits(e, 64), device=dev)
+    name = "mont_" + form + "_int"
+    fit = cuda_modexp._fit("mont_pow", dev, L)
+    for B in (16, 1, 7, 131):
+        _, _, C = cuda_modexp._pow_elems(L, B, sms, False, fit)
+        assert B <= fit(C) and B * C <= sms and (B < 16 or C < 8 or
+                                                 fit(8) >= 16)
+        x, y = a[:B].contiguous(), b[:B].contiguous()
+        before = cuda_modexp.launches[name]
+        if form.startswith("mul"):
+            shared = form == "mul_const"
+            got = (cuda_modexp.mont_mul_const(x, y[0], ctx) if shared
+                   else cuda_modexp.mont_mul(x, y, ctx))
+            idx = list(range(B))
+            ref = cuda_modexp.mont_mul_plain(x, y[0] if shared else y, ctx)
+            want = [xs[i] * ys[0 if shared else i] * Rinv % M for i in idx]
+        else:
+            d = digits[:B].contiguous() if form == "pow" else digits
+            fn = (cuda_modexp.mont_pow if form == "pow"
+                  else cuda_modexp.mont_pow_shared)
+            got = fn(x, d, ctx)
+            idx = sorted({0, B - 2, B - 1} - {-1})
+            ref = (mg.mont_pow_plain(x[idx], digits[idx], ctx) if form == "pow"
+                   else mg.mont_pow_shared_plain(x[idx], digits, ctx))
+            want = [pow(xs[i] * Rinv, es[i], M) * R % M for i in idx]
+        assert cuda_modexp.launches[name] == before + 1
+        torch.cuda.synchronize()
+        g = hl.limbs_to_ints(got.cpu().numpy())
+        assert [g[i] % M for i in idx] == want, (form, B, C)
         assert [v % M for v in hl.limbs_to_ints(ref.cpu().numpy())] == want
         assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
         assert all(100 * v < 101 * M for v in g)

@@ -44,6 +44,9 @@ from phe_tpu_torch.utils import limbs as hl
 
 CPU = torch.device("cpu")
 H100_SMS = 132  # multiprocessors of an H100 SXM
+# The one-row tile's clusters of C blocks an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters at L = 1,176; compare_redc_int.py).
+H100_FIT = {1: 132, 2: 66, 4: 30, 8: 15}
 MASK = (1 << 14) - 1
 
 
@@ -51,13 +54,17 @@ MASK = (1 << 14) - 1
 def _modulus(which):
     """n^2 of a 256-bit test key, of the fixed 2048-bit key (L = 296), or
     of the fixed 8192-bit key (L = 1,176); or p of a 128-bit key ("p128",
-    L = 8: the half-width contexts of the smallest keys)."""
+    L = 8: the half-width contexts of the smallest keys); or the fixed
+    2048-bit key's p ("p2048", L = 80) and p^2 ("pp2048", L = 152)."""
     if which == "256":
         pub, _ = phe_tpu.generate_paillier_keypair(n_length=256)
         return pub.nsquare
     if which == "p128":
         _, priv = phe_tpu.generate_paillier_keypair(n_length=128)
         return priv.p
+    if which in ("p2048", "pp2048"):
+        p = benchmarks.fixed_key(2048)[1].p
+        return p if which == "p2048" else p * p
     return benchmarks.fixed_key(int(which))[0].nsquare
 
 
@@ -277,11 +284,44 @@ def _put_run(out, s, c1, k):
     c1[:, k] = carry
 
 
-def _emulate_product(a, b, ctx, square, slots=None):
+THREADS = 384  # csrc/redc_tile.cuh's kThreads
+
+
+def _run_at(p, runs, tent):
+    """The tile's run_at: position p of `runs` runs in falling order of
+    cost (a tent's two middle runs first, then outwards in pairs; a
+    rising triangle's top run first)."""
+    if not tent:
+        return runs - 1 - p
+    v, h = p >> 1, runs >> 1
+    return h + v if p & 1 else h - 1 - v
+
+
+def _balanced(runs, tent, live):
+    """The tile's balanced(): [(thread, run, row)] in the order its
+    threads take them, threads in snake order round by round."""
+    out, n = [], runs * live
+    for r in range(-(-n // THREADS)):
+        for t in range(THREADS):
+            idx = r * THREADS + (THREADS - 1 - t if r & 1 else t)
+            if idx < n:
+                p = idx // live
+                out.append((t, _run_at(p, runs, tent), idx - p * live))
+    assert sorted((k, e) for _, k, e in out) == [
+        (k, e) for k in range(runs) for e in range(live)]
+    return out
+
+
+def _emulate_product(a, b, ctx, square, slots=None, cluster=None):
     """One Montgomery product of the tile's live rows a (and b) as
     csrc/redc_tile.cuh runs it for ctx: the int8 body against its packed
     REDC matrices, the MMAs over `slots` row slots (default: one a live
-    row), or, for a context without matrices, the integer-pipe body."""
+    row), or, for a context without matrices, the integer-pipe body, its
+    runs in the balanced order, or with `cluster` = C the one-row tile on
+    a cluster of C blocks, row by row."""
+    if cluster is not None:
+        return np.stack([_emulate_cluster_product(x, y, ctx, square, cluster)
+                         for x, y in zip(a, b)])
     E = len(a)
     L = ctx.num_limbs
     slots = slots or E
@@ -296,11 +336,15 @@ def _emulate_product(a, b, ctx, square, slots=None):
     T = np.zeros((E, 2 * L), np.int64)
     c1 = np.zeros((E, nr), np.int64)
     c2 = np.zeros((E, nr), np.int64)
-    for k in range(nr):
+    cols = cm._pow_columns(ctx)
+    # The integer pipe takes its runs in the balanced order (a permutation
+    # of every run and row; the values do not depend on it).
+    order = (range(nr) if cols is not None else
+             [k for _, k, e in _balanced(nr, True, E) if e == 0])
+    for k in order:
         _put_run(T, _run_columns(A, Bf, L, k * r, square), c1, k)
     _ripple(T, c1, c2, nr)
     T = np.stack([_limb(T, c2, c) for c in range(2 * L)], axis=1)
-    cols = cm._pow_columns(ctx)
     flag = np.zeros(E, bool)
     if cols is None:
         # The integer pipe: T_lo, then q, as the accumulator rows' operand;
@@ -309,9 +353,10 @@ def _emulate_product(a, b, ctx, square, slots=None):
             np.pad(t.numpy(), (P, P + 1)), (E, L + 2 * P + 1))
         A[:, P: P + L] = T[:, :L]
         H = np.zeros((E, 2 * L), np.int64)
-        for k in range(L // r):
-            _put_run(H, _run_columns(A, const(ctx.m_prime), L, k * r, False),
-                     c1, k)
+        for _, k, e in _balanced(L // r, False, E):
+            if e == 0:
+                _put_run(H, _run_columns(A, const(ctx.m_prime), L, k * r,
+                                         False), c1, k)
         _ripple(H, c1, c2, L // r)
         A[:, P: P + L] = np.stack([_limb(H, c2, c) for c in range(L)], axis=1)
         for k in range(nr):
@@ -336,6 +381,167 @@ def _emulate_product(a, b, ctx, square, slots=None):
     _ripple(T, c1, c2, nr, flag, L)
     out = np.stack([_limb(T, c2, L + i) for i in range(L)], axis=1)
     out[:, 0] += flag
+    return out
+
+
+def _span(kind, k, L):
+    """The tile's span(): (lo, n), run k's i-blocks of a phase of `kind`
+    (0 a b or q M, 1 a a, 2 q)."""
+    nl = L // cm.POW_RUN
+    hi = min(k, nl - 1)
+    if kind == 1:
+        hi = min(hi, k >> 1)
+    lo = 0 if k < nl else k - nl
+    return lo, hi - lo + 1
+
+
+def _skewed(row):
+    """A limb row as the one-row tile skews it: POW_SKEW_PAD zeros either
+    side, word y at y + y // 8 (the skipped words zero)."""
+    S = cm.POW_SKEW_PAD
+    y = np.arange(len(row) + 2 * S)
+    out = np.zeros((len(row) + 2 * S) // 8 * 9, np.int64)
+    out[y + y // 8] = np.pad(row, (S, S))
+    return out
+
+
+def _piece(As, Bs, c0, b0, nb, square):
+    """The tile's piece(): columns c0 ... c0 + kRun - 1 of A * B over the
+    nb i-blocks from b0, read from the skewed rows as sblock() reads them
+    (A's words from skew(S + i0); B's window word d from c0 - i0 at
+    skew(S + c0 - i0) + d, or + d - 1 for d < 0), a squaring's cross terms
+    i < c - i doubled; every block's kRun products of a column fit 32
+    bits."""
+    r, S = cm.POW_RUN, cm.POW_SKEW_PAD
+    skew = lambda y: y + (y >> 3)
+    i0 = r * np.arange(b0, b0 + nb)[:, None, None]      # [nb, 1, 1]
+    ii = np.arange(r)[None, :, None]                    # [1, kRun, 1]
+    j = np.arange(r)[None, None, :]                     # [1, 1, kRun]
+    d = j - ii                                          # c - i - (c0 - i0)
+    a_at = skew(S + i0) + ii
+    b_at = skew(S + c0 - i0) + d - (d < 0)
+    assert b_at.min() >= 0 and b_at.max() < len(Bs) and a_at.max() < len(As)
+    i = i0 + ii                                          # [nb, kRun, 1]
+    c = c0 + j
+    prod = As[a_at] * Bs[b_at]                           # [nb, kRun, kRun]
+    if square:
+        prod = prod * (2 * i < c)
+    assert prod.sum(axis=1).max() < 1 << 32
+    return prod.sum(axis=(0, 1)) << (1 if square else 0)
+
+
+PLAN_WIDTHS, SLOTS = 64, 3 * 384  # csrc/redc_tile.cuh's kCand, kSlots
+
+
+def _plan(kind, rank, C, L):
+    """The tile's plans(): (g, [(k, lo, n)] own runs) for block rank's own
+    runs of a kind (k = rank + C m), g the odd slab width in 1 ... 127 of
+    fewest block-steps a thread (at most SLOTS slabs; the widest of
+    equals)."""
+    runs = L // cm.POW_RUN if kind == 2 else 2 * L // cm.POW_RUN
+    own = [(k,) + _span(kind, k, L) for k in range(rank, runs, C)]
+    slabs = lambda g: sum(-(-n // g) for _, _, n in own)
+    cost = {g: -(-slabs(g) // THREADS) * g
+            for g in range(1, 2 * PLAN_WIDTHS, 2) if slabs(g) <= SLOTS}
+    return max(g for g in cost if cost[g] == min(cost.values())), own
+
+
+def _cluster_phase(kind, A, Bf, L, C, square=False, diag=None, addend=None):
+    """One phase of the one-row tile over a cluster of C blocks, A and Bf
+    skewed rows: block `rank` cuts each own run (k = rank + C m) into
+    slabs of g i-blocks, slab q to thread q mod THREADS; each slab's
+    partial run normalised into its slot; the owner sums its runs' slots
+    (the diagonal, T for q M), normalises them and sends them to every
+    block, which ripples each with the carry below it. Every (run,
+    i-block) the kind needs is walked exactly once. Returns (x, c2, flag,
+    block-steps of the busiest thread)."""
+    r = cm.POW_RUN
+    nl = L // r
+    runs = nl if kind == 2 else 2 * L // r
+    row = np.zeros(2 * L, np.int64)
+    c1 = np.zeros(runs, np.int64)
+    walked = np.zeros((runs, nl), np.int64)
+    steps = 0
+    for rank in range(C):
+        g, own = _plan(kind, rank, C, L)
+        slots = []
+        for k, lo, n in own:
+            for j in range(-(-n // g)):
+                b0, nb = lo + j * g, min(g, n - j * g)
+                walked[k, b0: b0 + nb] += 1
+                s = _piece(A, Bf, k * r, b0, nb, square)
+                limbs, carry = [], 0
+                for c in range(r):
+                    v = int(s[c]) + carry
+                    limbs.append(v & MASK)
+                    carry = v >> 14
+                assert carry < 1 << 25
+                slots.append((k, nb, limbs + [carry]))
+        assert len(slots) <= SLOTS
+        work = np.zeros(THREADS, np.int64)
+        for q, (_, nb, _) in enumerate(slots):
+            work[q % THREADS] += nb
+        steps = max(steps, int(work.max()))
+        for k, _, _ in own:
+            total = np.sum([sl for kk, _, sl in slots if kk == k], axis=0)
+            assert total.max() < 1 << 32
+            carry = 0
+            for j in range(r):
+                c = k * r + j
+                v = int(total[j]) + carry
+                if diag is not None and c % 2 == 0:
+                    v += int(diag[c >> 1]) ** 2
+                if addend is not None:
+                    v += int(addend[c])
+                row[c] = v & MASK
+                carry = v >> 14
+            c1[k] = carry + int(total[r])
+    need = np.zeros_like(walked)
+    for k in range(runs):
+        v0, n = _span(kind, k, L)
+        need[k, v0: v0 + n] = 1
+    np.testing.assert_array_equal(walked, need)
+    assert c1.max() < 1 << 27
+    x = np.zeros(2 * L, np.int64)
+    c2 = np.zeros(runs, np.int64)
+    flag = False
+    for k in range(runs):
+        carry = int(c1[k - 1]) if k else 0
+        anyv = 0
+        for j in range(r):
+            v = int(row[k * r + j]) + carry
+            x[k * r + j] = v & MASK
+            carry = v >> 14
+            anyv |= x[k * r + j]
+        assert carry <= 1
+        c2[k] = carry
+        if k < L // r and (anyv or (k + 1 < L // r and carry)):
+            flag = True
+    return x, c2, flag, steps
+
+
+def _emulate_cluster_product(a, b, ctx, square, C):
+    """The one-row tile's product of row a and b (a a when square) for a
+    context without REDC matrices, on a cluster of C blocks: a b, q =
+    T_lo M' mod R and U = T + q M as cluster phases, the folds and / R as
+    the integer-pipe body's."""
+    L = ctx.num_limbs
+    r = cm.POW_RUN
+    pad = lambda t: _skewed(np.asarray(t, np.int64))
+    A = pad(a)
+    Bf = A if square else pad(b)
+    T, c2, _, _ = _cluster_phase(1 if square else 0, A, Bf, L, C,
+                                    square, diag=a if square else None)
+    limb = lambda x, c: x[c] + (c2[c // r - 1] if c % r == 0 and c else 0)
+    T = np.array([limb(T, c) for c in range(2 * L)])
+    assert T.max() <= 1 << 14
+    q, c2, _, _ = _cluster_phase(2, pad(T[:L]), pad(ctx.m_prime.numpy()), L,
+                                 C)
+    q = np.array([limb(q, c) for c in range(L)])  # mod R: top carry dropped
+    U, c2, flag, _ = _cluster_phase(0, pad(q), pad(ctx.m.numpy()), L, C,
+                                    addend=T)
+    out = np.array([limb(U, L + i) for i in range(L)])
+    out[0] += flag
     return out
 
 
@@ -370,18 +576,19 @@ def test_kernel_product_walk_equals_plain_redc(which, mxu):
             assert [v % M for v in hl.limbs_to_ints(plain.numpy())] == want
 
 
-def _emulate_mont_mul(a, b, ctx, E, rows, shared):
+def _emulate_mont_mul(a, b, ctx, E, rows, shared, cluster=None):
     """csrc/mont_mul.cu over a batch: block i holds rows i rows ... of a in
     its first live = min(rows, B - i rows) of E row slots, b's matching
     rows (or, shared, b itself in every live slot) as the factor, and runs
-    one product."""
+    one product; with `cluster` = C (E = 1, one row a cluster), each row's
+    cluster of C blocks runs it."""
     B, L = a.shape
     out = np.zeros_like(a)
     for e0 in range(0, B, rows):
         live = min(rows, B - e0)
         factor = np.broadcast_to(b, (live, L)) if shared else b[e0: e0 + live]
         out[e0: e0 + live] = _emulate_product(a[e0: e0 + live], factor, ctx,
-                                              False, slots=E)
+                                              False, slots=E, cluster=cluster)
     return out
 
 
@@ -446,6 +653,114 @@ def test_mont_mul_block_walk_equals_phe_tpu(which, E, rows, B, shared, mxu):
     assert all(100 * v < 101 * M for v in vals)
 
 
+# (which, C, B): batches of the one-row tile, each row on a cluster of C.
+_CLUSTER_BLOCKS = [("256", 8, 3), ("256", 2, 5), ("256", 1, 2),
+                   ("p128", 8, 4), ("p128", 1, 3)]
+
+
+@pytest.mark.parametrize("which,C,B", _CLUSTER_BLOCKS)
+@pytest.mark.parametrize("shared", [False, True], ids=["two", "shared"])
+def test_mont_mul_cluster_walk_equals_phe_tpu(which, C, B, shared):
+    """The product kernel's one-row tile (integer pipe), each row on a
+    cluster of C blocks, walked in numpy against phe_tpu's Pallas
+    integer-pipe mont_mul / mont_mul_const (interpret mode), the plain
+    product and Python ints, in value mod M with the contract's bounds."""
+    M, a, b, want_limbs = _phe_tpu_products(which, shared, 33, False)
+    a, want_limbs = a[:B], want_limbs[:B]
+    if not shared:
+        b = b[:B]
+    ctx = mg.build_context(M, CPU, mxu=False)
+    L = ctx.num_limbs
+    got = _emulate_mont_mul(a, b, ctx, 1, 1, shared, cluster=C)
+    Rinv = pow(1 << (14 * L), -1, M)
+    ys = hl.limbs_to_ints(np.broadcast_to(b, a.shape))
+    want = [x * y * Rinv % M for x, y in zip(hl.limbs_to_ints(a), ys)]
+    vals = hl.limbs_to_ints(got)
+    assert [v % M for v in vals] == want
+    assert [v % M for v in hl.limbs_to_ints(want_limbs)] == want
+    plain = mg.mont_mul_plain(torch.as_tensor(a), torch.as_tensor(b), ctx)
+    assert [v % M for v in hl.limbs_to_ints(plain.numpy())] == want
+    assert got.min() >= 0 and got.max() <= 1 << 14
+    assert all(100 * v < 101 * M for v in vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _phe_tpu_int_products(which):
+    """(M, a, b, phe_tpu's integer-pipe mont_mul of a, b and of a, a):
+    three rows below 2.01 M (zero, limbs of 2^14, redundant limbs),
+    phe_tpu's Pallas kernel in interpret mode on a context without REDC
+    matrices."""
+    M = _modulus(which)
+    jctx = jmg.build_context(M, mxu=False)
+    assert jctx.w_mq is None
+    L = jctx.num_limbs
+    rng = np.random.default_rng(L)
+    a = _operands(rng, M, L, 3)
+    b = _operands(rng, M, L, 3)[::-1].copy()
+    outs = [np.asarray(jpmx.mont_mul(jnp.asarray(a.astype(np.uint32)),
+                                     jnp.asarray(y.astype(np.uint32)), jctx,
+                                     tb=8)).astype(np.int64) for y in (b, a)]
+    return M, a, b, outs
+
+
+# The limb engine's widths: a 128-bit key's p (L = 8), the fixed 2048-bit
+# key's p, p^2 and n^2 (80, 152, 296) and the 8192-bit key's n^2 (1,176).
+_CLUSTER_WIDTHS = [("p128", 8), ("p2048", 80), ("pp2048", 152),
+                   ("2048", 296), ("8192", 1176)]
+
+
+@pytest.mark.parametrize("which,L", _CLUSTER_WIDTHS)
+@pytest.mark.parametrize("C", [1, 2, 8])
+def test_cluster_product_walk_equals_plain_redc_and_phe_tpu(which, L, C):
+    """The one-row integer tile's product on a cluster of C blocks, walked
+    in numpy as csrc/redc_tile.cuh runs it (each block's chunks of its own
+    runs' i-blocks, the pieces' normalised limbs and carries added by
+    atomics, the owners' settle, the gather through distributed shared
+    memory, the integer pipe's folds and / R), for a plain product and a
+    squaring: value-equal mod M to Python ints, to the plain REDC and to
+    phe_tpu's Pallas integer-pipe product (interpret mode, a matrix-less
+    context), limbs in [0, 2^14], value < 1.01 M."""
+    M, a, b, theirs = _phe_tpu_int_products(which)
+    ctx = mg.build_context(M, CPU, mxu=False)
+    assert ctx.num_limbs == L and not mg.has_matrices(ctx)
+    Rinv = pow(1 << (14 * L), -1, M)
+    for square, y, their in ((False, b, theirs[0]), (True, a, theirs[1])):
+        got = _emulate_product(a, y, ctx, square, cluster=C)
+        want = [u * v * Rinv % M for u, v in zip(hl.limbs_to_ints(a),
+                                                 hl.limbs_to_ints(y))]
+        plain = mg.mont_mul_plain(torch.as_tensor(a), torch.as_tensor(y), ctx)
+        for out in (got, their, plain.numpy()):
+            assert [v % M for v in hl.limbs_to_ints(out)] == want
+        vals = hl.limbs_to_ints(got)
+        assert got.min() >= 0 and got.max() <= 1 << 14
+        assert all(100 * v < 101 * M for v in vals)
+
+
+@pytest.mark.parametrize("L,live", [(80, 32), (152, 32), (296, 32), (296, 8),
+                                    (440, 8), (1176, 4), (1176, 8)])
+def test_balanced_order_covers_every_job_and_evens_the_threads(L, live):
+    """The integer pipe's balanced() over E = 8 or 32 row slots: every
+    (run, row) of a phase exactly once (a b and q M's tent of 2L / kRun
+    runs, q's triangle of L / kRun), and the busiest thread's i-blocks
+    (its runs' column heights) no more than under the plain order (job
+    idx to run idx / live, thread idx mod 384) and within one run of an
+    equal share; the paths' q phases strictly fewer at E = 32."""
+    nl = L // cm.POW_RUN
+    for runs, tent in ((2 * nl, True), (nl, False)):
+        cost = [_span(0 if tent else 2, k, L)[1] for k in range(runs)]
+        new = np.zeros(THREADS, np.int64)
+        for t, k, _ in _balanced(runs, tent, live):
+            new[t] += cost[k]
+        old = np.zeros(THREADS, np.int64)
+        for idx in range(runs * live):
+            old[idx % THREADS] += cost[idx // live]
+        share = -(-sum(cost) * live // THREADS)
+        assert new.max() <= old.max()
+        assert new.max() <= share + max(cost)
+        if not tent and live == 32 and L >= 152:
+            assert new.max() < old.max()
+
+
 @pytest.mark.parametrize("which", ["256", "2048"])
 def test_pack_blocks_round_trips_the_redc_matrices(which):
     ctx = mg.build_context(_modulus(which), CPU)
@@ -469,9 +784,9 @@ def test_pow_elems_and_smem_fit_the_path_shapes():
     # Every L the limb engine runs (multiples of 8 up to the 8192-bit n^2)
     for L in range(16, 1177, 8):
         for B in (1, 7, 9, 512, 16384):
-            e, rows = cm._pow_elems(L, B, H100_SMS)
+            e, rows, cluster = cm._pow_elems(L, B, H100_SMS)
             assert e in cm.POW_ELEMS and cm._pow_smem(L, e) <= cm.MAX_SMEM
-            assert 1 <= rows <= e
+            assert 1 <= rows <= e and cluster == 1
             if rows < e:
                 # Spread: the fewest rows a block whose blocks take one
                 # wave and stream no more than POW_STREAM a product.
@@ -483,19 +798,19 @@ def test_pow_elems_and_smem_fit_the_path_shapes():
     assert cm._pow_smem(1176, 8) == 227072
     assert cm._pow_smem(1176, 32) > cm.MAX_SMEM
     assert cm._pow_smem(304, 32) > cm.MAX_SMEM
-    assert cm._pow_elems(296, 16384, H100_SMS) == (32, 32)
-    assert cm._pow_elems(296, 1, H100_SMS) == (8, 1)
-    assert cm._pow_elems(1176, 512, H100_SMS) == (8, 8)  # the stream
-    assert cm._pow_elems(296, 512, H100_SMS) == (8, 4)
-    assert cm._pow_elems(1176, 16, H100_SMS) == (8, 1)
-    assert cm._pow_elems(592, 64, H100_SMS) == (8, 1)
+    assert cm._pow_elems(296, 16384, H100_SMS) == (32, 32, 1)
+    assert cm._pow_elems(296, 1, H100_SMS) == (8, 1, 1)
+    assert cm._pow_elems(1176, 512, H100_SMS) == (8, 8, 1)  # the stream
+    assert cm._pow_elems(296, 512, H100_SMS) == (8, 4, 1)
+    assert cm._pow_elems(1176, 16, H100_SMS) == (8, 1, 1)
+    assert cm._pow_elems(592, 64, H100_SMS) == (8, 1, 1)
     for sms in (H100_SMS, 114):
         assert [cm._pow_elems(40, B, sms)
                 for B in (1, 2 * sms + 1, (sms - 1) * 8 + 1, (sms - 1) * 32,
                           (sms - 1) * 32 + 1)] == [
-            (8, 1), (8, 3), (8, 8), (8, 8), (32, 32)]
+            (8, 1, 1), (8, 3, 1), (8, 8, 1), (8, 8, 1), (32, 32, 1)]
     for B in (1, 8, 9, 265, 4225):
-        e, rows = cm._pow_elems(296, B, H100_SMS)
+        e, rows, _ = cm._pow_elems(296, B, H100_SMS)
         tab = cm._pow_table(B, rows, 4, 296, "meta")
         assert tab.shape[0] % rows == 0 and B <= tab.shape[0] < B + rows
         assert tuple(tab.shape[1:]) == (16, 296)
@@ -511,15 +826,56 @@ _PATH_LIMBS = (8, 16, 24, 40, 80, 152, 296, 440, 592, 1176)
 @pytest.mark.parametrize("L", _PATH_LIMBS)
 def test_tile_chooser_and_smem_fit_every_path_width(L):
     for B in (1, 7, 9, 33, 512, 1024, 16384):
-        e, rows = cm._pow_elems(L, B, H100_SMS)
+        e, rows, cluster = cm._pow_elems(L, B, H100_SMS)
         assert e in cm.POW_ELEMS and cm._pow_smem(L, e) <= cm.MAX_SMEM
-        assert 1 <= rows <= e
+        assert 1 <= rows <= e and cluster == 1
         # E = 32 wherever it fits and its blocks cover the card.
         wide = cm._pow_smem(L, 32) <= cm.MAX_SMEM
         assert (e == 32) == (wide and -(-B // 32) >= H100_SMS)
     assert L <= cm.MAX_MUL_LIMBS
-    assert cm._pow_elems(L, 16384, H100_SMS) == ((32, 32) if L <= 296
-                                                 else (8, 8))
+    assert cm._pow_elems(L, 16384, H100_SMS) == ((32, 32, 1) if L <= 296
+                                                 else (8, 8, 1))
+
+
+@pytest.mark.parametrize("L", _PATH_LIMBS)
+def test_int_tile_chooser_and_smem_fit_every_path_width(L):
+    """The integer-pipe body's (E, rows, C): a batch of more rows than SMs
+    as the int8 body's blocks (without the matrix stream's floor); one of
+    at most `sms` rows on the one-row tile (E = 1), C the largest power of
+    two up to 8 with B C <= sms, so 16 rows take 8 SMs a row (128 of 132);
+    every layout fits."""
+    assert cm._pow_smem(L, 1, False) <= cm.MAX_SMEM
+    for B in (1, 7, 9, 16, 17, 33, 66, 67, 131, 132, 133, 264, 512, 1024,
+              16384):
+        e, rows, C = cm._pow_elems(L, B, H100_SMS, False)
+        assert e in cm.INT_ELEMS and cm._pow_smem(L, e, False) <= cm.MAX_SMEM
+        if B <= H100_SMS:
+            assert (e, rows) == (1, 1) and C & (C - 1) == 0
+            assert B * C <= H100_SMS
+            assert C == cm.CLUSTER_MAX or 2 * B * C > H100_SMS
+        else:
+            assert C == 1 and 1 <= rows <= e
+            assert -(-B // rows) <= H100_SMS or rows == e
+            wide = cm._pow_smem(L, 32, False) <= cm.MAX_SMEM
+            assert (e == 32) == (wide and -(-B // 32) >= H100_SMS)
+    assert cm._pow_elems(L, 16, H100_SMS, False) == (1, 1, 8)
+    tab = cm._pow_table(16, 1, 4, L, "meta", cluster=8)
+    assert tuple(tab.shape) == (128, 16, L)  # a table a block
+    # What the card holds at once: 15 clusters of 8, so 16 rows take
+    # clusters of 4 (one wave); 15 rows and fewer, clusters of 8.
+    fit = H100_FIT.get
+    assert [cm._pow_elems(L, B, H100_SMS, False, fit)[2]
+            for B in (1, 15, 16, 30, 31, 66, 67)] == [8, 8, 4, 4, 2, 2, 1]
+    for B in range(1, H100_SMS + 1):
+        C = cm._pow_elems(L, B, H100_SMS, False, fit)[2]
+        assert B <= fit(C) and B * C <= H100_SMS
+        assert C == 8 or not (B <= fit(2 * C) and 2 * B * C <= H100_SMS)
+    if L == 1176:
+        assert cm._pow_elems(L, 512, H100_SMS, False) == (8, 4, 1)
+        assert cm._pow_smem(L, 1, False) == 124392 > cm.ONE_ROW_BYTES
+        assert cm._pow_smem(L, 8, False) == 217640
+    if L == 296:
+        assert cm._pow_smem(L, 32, False) == 215080
 
 
 @pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
@@ -533,11 +889,14 @@ def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
         assert cm._pow_smem(cm.MAX_MUL_LIMBS, 8, body) <= cm.MAX_SMEM
         assert cm._pow_smem(cm.MAX_MUL_LIMBS + 8, 8, True) > cm.MAX_SMEM
     calls = []
+    # (shared, E, B, rows[, C], L): the ints before the stream.
     monkeypatch.setattr(cm, "_lib", lambda shared, elems, body: (
-        lambda *args: calls.append((shared, elems) + args[-4:-1]) or 0
-        if body == mxu and len(args) == (11 if mxu else 9) else 1))
+        lambda *args: calls.append((shared, elems) + args[7 if mxu else 5:-1])
+        or 0 if body == mxu and len(args) == (11 if mxu else 10) else 1))
     monkeypatch.setattr(cm._build, "stream_handle", lambda device: None)
     monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
+    # The clusters an H100 holds at once (cudaOccupancyMaxActiveClusters).
+    monkeypatch.setattr(cm, "_fit", lambda kernel, dev, L: H100_FIT.get)
     suffix = "" if mxu else "_int"
     monkeypatch.setitem(cm.launches, "mont_mul" + suffix, 0)
     monkeypatch.setitem(cm.launches, "mont_mul_const" + suffix, 0)
@@ -546,12 +905,14 @@ def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
         a = torch.zeros((B, 40), dtype=torch.int64)
         cm._launch(a, a, ctx, shared=False)
         cm._launch(a, a[0], ctx, shared=True)
-    assert calls == [
-        (False, 8, 1, 1, 40), (True, 8, 1, 1, 40),
-        (False, 8, 9, 1, 40), (True, 8, 9, 1, 40),
-        (False, 8, 2 * H100_SMS + 1, 3, 40), (True, 8, 2 * H100_SMS + 1, 3, 40),
-        (False, 32, 32 * H100_SMS + 1, 32, 40),
-        (True, 32, 32 * H100_SMS + 1, 32, 40)]
+    # The integer pipe runs batches of at most 132 rows on the one-row
+    # tile, in clusters of 8 blocks a row (1 and 9 rows).
+    one = ((1, 1, 1, 8, 40), (1, 9, 1, 8, 40)) if not mxu else (
+        (8, 1, 1, 40), (8, 9, 1, 40))
+    rest = [(8, 2 * H100_SMS + 1, 3), (32, 32 * H100_SMS + 1, 32)]
+    rest = [t + ((1, 40) if not mxu else (40,)) for t in rest]
+    assert calls == [(shared,) + t for t in list(one) + rest
+                     for shared in (False, True)]
     assert (cm.launches["mont_mul" + suffix]
             == cm.launches["mont_mul_const" + suffix] == 4)
     a = torch.zeros((2, 40), dtype=torch.int64)
