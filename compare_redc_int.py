@@ -144,6 +144,87 @@ VARIANTS = {
                   ("      *cl.map_shared_rank(c1r(p) + k, to) = c1r(p)[k];\n",
                    "")],
 }
+# Variants of the i-block loops (--unroll), timed at three probes.
+UNROLL = {
+    "as built": [],
+    "carries by add.cc": [
+        ("      s[j] += p;\n",
+         "      unsigned int lo = static_cast<unsigned int>(s[j]);\n"
+         "      unsigned int hi = static_cast<unsigned int>(s[j] >> 32);\n"
+         "      asm(\"add.cc.u32 %0, %0, %2;\\n\\taddc.u32 %1, %1, 0;\"\n"
+         "          : \"+r\"(lo), \"+r\"(hi) : \"r\"(p));\n"
+         "      s[j] = (static_cast<unsigned long long>(hi) << 32) | lo;\n")],
+}
+
+
+def time_unroll(card):
+    """The i-block loops unrolled by 2 or not, in turns, at three probes:
+    the integer pipe's E = 32 mont_pow (16,384 rows, L = 296, 320-bit),
+    the int8 body's, and the one-row tile's 16-row mont_pow_shared at
+    L = 1,176 (64-bit exponent)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import random
+
+    pub, _ = benchmarks.fixed_key(2048)
+    pub8 = benchmarks.fixed_key(8192)[0]
+    rng = random.Random(11)
+    probes = []
+    for M, B, mxu, vec, bits in ((pub.nsquare, 16384, False, True, 320),
+                                 (pub.nsquare, 16384, True, True, 320),
+                                 (pub8.nsquare, 16, False, False, 64)):
+        ctx = mg.build_context(M, DEV, mxu=mxu)
+        L = ctx.num_limbs
+        x = cs.limbs_on([rng.randrange(0, 2 * M) for _ in range(B)], L, DEV)
+        if vec:
+            d = torch.as_tensor(tbatch._digits_rows(
+                [rng.getrandbits(bits) for _ in range(B)], bits), device=DEV)
+        else:
+            d = torch.as_tensor(mg.exponent_digits(
+                rng.getrandbits(bits) | 1 << (bits - 1), bits, 4), device=DEV)
+        probes.append((("int" if not mxu else "int8")
+                       + (" mont_pow L=%d" % L if vec
+                          else " mont_pow_shared L=%d, %d rows" % (L, B)),
+                       ctx, x, d, vec))
+    with ThreadPoolExecutor(4) as pool:
+        libs = {name: pool.submit(
+            build, variant_sources("scratch/unr_%d" % i, edits),
+            "scratch/unr_%d_build" % i, "mont_pow")
+            for i, (name, edits) in enumerate(UNROLL.items())}
+        libs = {k: f.result() for k, f in libs.items()}
+    saved = _build.load
+    out = {}
+    try:
+        for label, ctx, x, d, vec in probes:
+            runs = {}
+            for name, lib in libs.items():
+                for e in cm.INT_ELEMS:
+                    for f in ("phe_mont_pow_int_%d",
+                              "phe_mont_pow_shared_int_%d"):
+                        cm._entry(lib, f % e, 7, 6)
+                for e in cm.POW_ELEMS:
+                    for f in ("phe_mont_pow_%d", "phe_mont_pow_shared_%d"):
+                        cm._entry(lib, f % e, 9, 5)
+                lib.phe_mont_pow_clusters.argtypes = [ctypes.c_int] * 2
+                lib.phe_mont_pow_smem.argtypes = [ctypes.c_int] * 3
+
+                def run(lib=lib):
+                    _build.load = lambda name: lib
+                    fn = cm.mont_pow if vec else cm.mont_pow_shared
+                    return fn(x, d, ctx, window=4)
+                runs[name] = run
+            order = list(UNROLL)
+            turns = [(n, timed(runs[n], 1 if vec else 3))
+                     for n in order + order[::-1]]
+            ref = runs["as built"]()
+            same = all(torch.equal(mg.export_canonical(runs[n](), ctx),
+                                   mg.export_canonical(ref, ctx))
+                       for n in order)
+            out[label] = dict(turns=turns, equal=same)
+            print("%s: %s; equal %s [%s]" % (label, ", ".join(
+                "%s %.4f ms" % t for t in turns), same, card), flush=True)
+    finally:
+        _build.load = saved
+    return out
 
 
 def variant_sources(out_dir, edits):
@@ -379,6 +460,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     card = card.strip()
     print("card: " + card)
+    if "--unroll" in sys.argv:
+        _build.build_all()
+        time_unroll(card)
+        return
     if "--variants" in sys.argv:
         _build.build_all()
         time_variants(card)

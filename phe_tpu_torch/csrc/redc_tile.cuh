@@ -526,10 +526,21 @@ struct RedcTile {
     // Squares: blocks wholly below the diagonal (every i < c - i) run
     // unmasked; the one or two that straddle it keep i < c - i only.
     const int i_full = kSquare ? (c0 - 2 * kRun + 2) / 2 : i_hi + 1;
-    for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
-      block<false>(A, B, c0, i0, bb, s);
+    if constexpr (kMxu) {
+      for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
+        block<false>(A, B, c0, i0, bb, s);
+      }
+      for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
+    } else {
+      // Unrolled by two, the window's slide becomes register renaming:
+      // 3 % off the integer pipe's modexp; the int8 body lost 4 % so.
+#pragma unroll 2
+      for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
+        block<false>(A, B, c0, i0, bb, s);
+      }
+#pragma unroll 2
+      for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
     }
-    for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
     if (kSquare) {
 #pragma unroll
       for (int j = 0; j < kRun; ++j) {
@@ -581,14 +592,17 @@ struct RedcTile {
   // cleared.
   __device__ void fold_low() {
     const int n = 2 * L;
-    for (int idx = threadIdx.x; idx < live * n; idx += blockDim.x) {
-      const int e = idx / n, c = idx - e * n;
+    // Element (e, c) of the flat index, stepped by kThreads without a
+    // division.
+    int e = threadIdx.x / n, c = threadIdx.x - e * n;
+    while (e < live) {
       const unsigned int v = limb(T + e * st, e, c);
       T[e * st + c] = v;
       if (c < L) {
         acc[e * sa + kPad + c] = v;
         if constexpr (E == 1) As[skew(kSkewPad + c)] = v;
       }
+      for (c += kThreads; c >= n; c -= n) ++e;
     }
     if (threadIdx.x < E) flag[threadIdx.x] = 0;
     __syncthreads();
@@ -608,11 +622,12 @@ struct RedcTile {
   // Integer pipe: q into the accumulator rows, its carry bits folded (the
   // top one dropped: q mod R).
   __device__ void fold_q() {
-    for (int idx = threadIdx.x; idx < live * L; idx += blockDim.x) {
-      const int e = idx / L, c = idx - e * L;
+    int e = threadIdx.x / L, c = threadIdx.x - e * L;
+    while (e < live) {
       const unsigned int v = limb(H + e * sh, e, c);
       acc[e * sa + kPad + c] = v;
       if constexpr (E == 1) As[skew(kSkewPad + c)] = v;
+      for (c += kThreads; c >= L; c -= L) ++e;
     }
     __syncthreads();
   }
@@ -843,9 +858,11 @@ struct RedcTile {
 #pragma unroll
     for (int m = 0; m < kRun - 1; ++m) bb[kRun + m] = bp[1 + m];
     const int i_full = kSquare ? (c0 - 2 * kRun + 2) / 2 : end;
+#pragma unroll 2
     for (; i0 < end && i0 < i_full; i0 += kRun) {
       sblock<false>(As, Bs, c0, i0, bb, s);
     }
+#pragma unroll 2
     for (; i0 < end; i0 += kRun) sblock<kSquare>(As, Bs, c0, i0, bb, s);
     if (kSquare) {
 #pragma unroll
