@@ -81,15 +81,14 @@ mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
 
   p.template product<false>();
 
-  if (E == 1 && p.rank != 0) {
-    cooperative_groups::this_cluster().sync();  // no block leaves early
-    return;
-  }
+  // A cluster's blocks hold the same row; its first one stores it. (No
+  // block touches another's shared memory after the last cluster barrier
+  // of the last product.)
+  if (E == 1 && p.rank != 0) return;
   for (int idx = tid; idx < live * L; idx += nt) {
     const int e = idx / L, i = idx - e * L;
     out[(e0 + e) * L + i] = static_cast<int64_t>(p.acc[e * sa + kPad + i]);
   }
-  if (E == 1) cooperative_groups::this_cluster().sync();
 }
 
 template <bool kShared, int E, bool kMxu>
@@ -171,23 +170,10 @@ extern "C" int phe_mont_mul_smem(int L, int elems, int mxu) {
 // hold at once (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
 extern "C" int phe_mont_mul_clusters(int L, int cluster) {
   const size_t smem = phe::smem_bytes(L, 1, false);
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       mont_mul_kernel<false, 1, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(phe::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  err = cudaOccupancyMaxActiveClusters(
-      &fit, reinterpret_cast<const void*>(mont_mul_kernel<false, 1, false>), &cfg);
-  return err == cudaSuccess ? fit : -static_cast<int>(err);
+  return phe::clusters_fit(reinterpret_cast<const void*>(mont_mul_kernel<false, 1, false>), cluster,
+                           smem);
 }

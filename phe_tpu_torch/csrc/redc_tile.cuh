@@ -187,32 +187,49 @@ struct RedcConsts {
   const int64_t *mp, *m;
 };
 
+// A launch of `blocks` blocks of kThreads in clusters of `cluster`.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr = {};
+  ClusterLaunch(int blocks, int cluster, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The clusters of `cluster` blocks of `kernel` (its shared memory
+// attribute set for smem) the card holds at once
+// (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+inline int clusters_fit(const void* kernel, int cluster, size_t smem) {
+  const ClusterLaunch launch(cluster, cluster, smem, nullptr);
+  int fit = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&fit, kernel, &launch.cfg);
+  return err == cudaSuccess ? fit : -static_cast<int>(err);
+}
+
 // Launch a one-row tile's kernel over `blocks` blocks in clusters of
 // `cluster` (cudaLaunchKernelEx). A cluster the card cannot hold at all
-// (cudaOccupancyMaxActiveClusters gives 0) is refused with
-// cudaErrorLaunchOutOfResources: nothing falls back to another shape.
+// (clusters_fit 0) is refused with cudaErrorLaunchOutOfResources:
+// nothing falls back to another shape.
 template <typename... Exp, typename... Act>
 inline cudaError_t launch_cluster(void (*kernel)(Exp...), int blocks,
                                   int cluster, size_t smem,
                                   cudaStream_t stream, Act... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  cudaError_t err = cudaOccupancyMaxActiveClusters(
-      &fit, reinterpret_cast<const void*>(kernel), &cfg);
-  if (err != cudaSuccess) return err;
-  if (fit < 1) return cudaErrorLaunchOutOfResources;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  const int fit =
+      clusters_fit(reinterpret_cast<const void*>(kernel), cluster, smem);
+  if (fit < 0) return static_cast<cudaError_t>(-fit);
+  if (fit == 0) return cudaErrorLaunchOutOfResources;
+  const ClusterLaunch launch(blocks, cluster, smem, stream);
+  return cudaLaunchKernelEx(&launch.cfg, kernel, args...);
 }
 
 // c += A B for one m16n8k32 tile: A's four registers, B's two.
