@@ -549,8 +549,9 @@ struct RedcTile {
       }
       for (; i0 <= i_hi; i0 += kRun) block<kSquare>(A, B, c0, i0, bb, s);
     } else {
-      // Unrolled by two, the window's slide becomes register renaming:
-      // 3 % off the integer pipe's modexp; the int8 body lost 4 % so.
+      // Unrolled by two, the window's slide becomes register renaming
+      // (faster here in turns; the int8 body ran slower so, and keeps
+      // its loops).
 #pragma unroll 2
       for (; i0 <= i_hi && i0 < i_full; i0 += kRun) {
         block<false>(A, B, c0, i0, bb, s);
