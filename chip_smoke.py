@@ -1257,7 +1257,9 @@ def profiled(what, fn, card):
     share, the CUDA runtime calls that launch work or wait (kernel and
     graph launches, copies, synchronisations) with their counts, the top
     ten kernels by device time and every kernel of the port's own are
-    printed and kept in PROFILES; fn's result is returned."""
+    printed and kept in PROFILES; fn's result is returned. The copies of
+    the program's spans on the card's timeline are no work of the card's
+    and are left out."""
     from phe_tpu_torch import profiling
 
     with profiling.trace() as prof:
@@ -1266,7 +1268,8 @@ def profiled(what, fn, card):
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in profiling.SPANS]
     api = {a.key: a.count for a in prof.key_averages()
            if a.device_type == torch.autograd.DeviceType.CPU
            and re.match(r"cu(da)?(Launch|GraphLaunch|Memcpy|Stream"
@@ -1286,7 +1289,8 @@ def profiled(what, fn, card):
           % (what, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us,
              len(kernels), card))
     rows = [a for a in prof.key_averages()
-            if a.device_type == torch.autograd.DeviceType.CUDA]
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and a.key not in profiling.SPANS]
     rows.sort(key=lambda a: a.self_device_time_total, reverse=True)
     print("profiler top ten by device time (ms, calls, name):")
     for a in rows[:10]:

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from phe_tpu_torch import config
+from phe_tpu_torch import config, profiling
 from phe_tpu_torch.encoding import EncodedNumber
 from phe_tpu_torch.ops import cuda_rns
 from phe_tpu_torch.ops import limb_math as lm
@@ -199,7 +199,11 @@ def _as_list(value, length):
 
 def _bytes_to_ints(rows):
     """[B, nbytes] uint8 (tensor or array) -> Python ints, one per row."""
-    rows = rows.cpu().numpy() if torch.is_tensor(rows) else np.asarray(rows)
+    if torch.is_tensor(rows):
+        with profiling.span("batch.readback"):
+            rows = rows.cpu().numpy()
+    else:
+        rows = np.asarray(rows)
     return [
         int.from_bytes(rows[i].tobytes(), "little")
         for i in range(rows.shape[0])
@@ -744,10 +748,11 @@ class PublicDeviceContext:
 
     def pack_mod_nsquare(self, values):
         """Canonical residues mod n^2 -> Montgomery-domain [Bp, L]."""
-        values = _pad_list(values, bucket_rows(len(values)), 1)
-        x = config.to_device(
-            np.asarray(hl.ints_to_limbs(values, self.L), dtype=np.int64),
-            self.device)
+        with profiling.span("batch.pack"):
+            values = _pad_list(values, bucket_rows(len(values)), 1)
+            x = config.to_device(
+                np.asarray(hl.ints_to_limbs(values, self.L), dtype=np.int64),
+                self.device)
         return _pack_mont_dev(x, self.ctx)
 
     def export_ints(self, mont):
@@ -762,9 +767,10 @@ class PublicDeviceContext:
         """
         if pad_rows is None:
             pad_rows = bucket_rows(len(encodings))
-        encodings = _pad_list(encodings, pad_rows, 0)
-        buf = hl.ints_to_bytes(encodings, (self.n_bits + 7) // 8)
-        return config.to_device(buf, self.device)
+        with profiling.span("batch.pack"):
+            encodings = _pad_list(encodings, pad_rows, 0)
+            buf = hl.ints_to_bytes(encodings, (self.n_bits + 7) // 8)
+            return config.to_device(buf, self.device)
 
     def nude_encrypt(self, encodings):
         """(n*m + 1) mod n^2 in Montgomery form, for residues m < n.
@@ -787,17 +793,19 @@ class PublicDeviceContext:
         """
         bucket = bucket_rows(count)
         nbytes = (self.n_bits + 64 + 7) // 8
-        if r_values is not None:
-            r_values = _pad_list(r_values, bucket, 1)
-            need = max(
-                nbytes, max((v.bit_length() + 7) // 8 for v in r_values)
-            )
-            buf = hl.ints_to_bytes(r_values, need)
-        else:
-            buf = np.frombuffer(
-                bytearray(secrets.token_bytes(bucket * nbytes)), dtype=np.uint8
-            ).reshape(bucket, nbytes)
-        return config.to_device(buf, self.device)
+        with profiling.span("batch.draw_r"):
+            if r_values is not None:
+                r_values = _pad_list(r_values, bucket, 1)
+                need = max(
+                    nbytes, max((v.bit_length() + 7) // 8 for v in r_values)
+                )
+                buf = hl.ints_to_bytes(r_values, need)
+            else:
+                buf = np.frombuffer(
+                    bytearray(secrets.token_bytes(bucket * nbytes)),
+                    dtype=np.uint8,
+                ).reshape(bucket, nbytes)
+            return config.to_device(buf, self.device)
 
     def encrypt_mont(self, encodings, r_values=None):
         """Fresh encryption (n*m+1)*r^n for encoded residues -> [Bp, L]."""
@@ -836,8 +844,10 @@ class PublicDeviceContext:
                 np.asarray(hl.ints_to_limbs([x], self.L), dtype=np.int64),
                 self.device), self.ctx)
             self._h_mont = _short_base_dev(xm, self.n_digits, self.ctx)
-        a = [secrets.randbits(exponent_bits) for _ in range(mont.shape[0])]
-        digits = _digits_on(_digits_rows(a, exponent_bits), self.device)
+        with profiling.span("batch.schedule"):
+            a = [secrets.randbits(exponent_bits)
+                 for _ in range(mont.shape[0])]
+            digits = _digits_on(_digits_rows(a, exponent_bits), self.device)
         return _obfuscate_short_dev(mont, self._h_mont, digits, self.ctx)
 
     def mul_mont(self, a, b):
@@ -849,10 +859,11 @@ class PublicDeviceContext:
         Pads the exponent list to the (bucketed) row count of ct_mont with
         e = 1, under which padded rows stay encryptions of 0.
         """
-        digits = _digits_rows(exponents, exponent_bits,
-                              pad_rows=ct_mont.shape[0])
-        return _pow_elems_dev(ct_mont, _digits_on(digits, self.device),
-                              self.ctx, self.rstate())
+        with profiling.span("batch.schedule"):
+            digits = _digits_on(_digits_rows(exponents, exponent_bits,
+                                             pad_rows=ct_mont.shape[0]),
+                                self.device)
+        return _pow_elems_dev(ct_mont, digits, self.ctx, self.rstate())
 
 
 class PrivateDeviceConstants(NamedTuple):
@@ -1045,16 +1056,17 @@ class EncryptedBatch:
         device: None for CUDA, "cpu" for the plain PyTorch versions.
         """
         dc = public_key.device_context(device)
-        if precision is None:
-            encodings = EncodedNumber.encode_many(public_key, values)
-        else:
-            encodings = [
-                v if isinstance(v, EncodedNumber)
-                else EncodedNumber.encode(public_key, v, precision)
-                for v in values
-            ]
-        exponents = [e.exponent for e in encodings]
-        residues = [e.encoding for e in encodings]
+        with profiling.span("batch.encode"):
+            if precision is None:
+                encodings = EncodedNumber.encode_many(public_key, values)
+            else:
+                encodings = [
+                    v if isinstance(v, EncodedNumber)
+                    else EncodedNumber.encode(public_key, v, precision)
+                    for v in values
+                ]
+            exponents = [e.exponent for e in encodings]
+            residues = [e.encoding for e in encodings]
         if r_values is not None:
             mont = dc.encrypt_mont(residues, r_values)
             return cls(public_key, mont, exponents, is_obfuscated=False)
@@ -1141,11 +1153,12 @@ class EncryptedBatch:
         packed = pdc.raw_decrypt_launch(self.mont)
 
         def finish():
-            residues = _bytes_to_ints(packed)
-            return [
-                Encoding(self.public_key, m, int(e)).decode()
-                for m, e in zip(residues, self.exponents)
-            ]
+            with profiling.span("batch.decode"):
+                residues = _bytes_to_ints(packed)
+                return [
+                    Encoding(self.public_key, m, int(e)).decode()
+                    for m, e in zip(residues, self.exponents)
+                ]
 
         return finish
 
@@ -1159,38 +1172,41 @@ class EncryptedBatch:
         corner (mantissa > 2^53 and a subnormal result), overflow-window
         rows and mantissas >= 2^64 take the exact bigint decode.
         """
-        B = len(self)
-        c = compact[:B].cpu().numpy()
-        flags = c[:, 2]
-        mant = c[:, 0].astype(np.uint64) | (c[:, 1].astype(np.uint64) << 32)
-        exps = self.exponents
-        ok = (flags & 1) != 0
-        neg = (flags & 2) != 0
-        fits = (flags & 4) != 0
-        easy = ok & fits & (
-            (mant <= np.uint64(1 << 53)) | (4 * exps + 64 >= -960)
-        )
-        out = [None] * B
-        fl = easy & (exps < 0)
-        if fl.any():
-            idx = np.nonzero(fl)[0]
-            signed = np.where(neg[idx], -1.0, 1.0) * mant[idx].astype(
-                np.float64
+        with profiling.span("batch.decode"):
+            B = len(self)
+            with profiling.span("batch.readback"):
+                c = compact[:B].cpu().numpy()
+            flags = c[:, 2]
+            mant = (c[:, 0].astype(np.uint64)
+                    | (c[:, 1].astype(np.uint64) << 32))
+            exps = self.exponents
+            ok = (flags & 1) != 0
+            neg = (flags & 2) != 0
+            fits = (flags & 4) != 0
+            easy = ok & fits & (
+                (mant <= np.uint64(1 << 53)) | (4 * exps + 64 >= -960)
             )
-            vals = np.ldexp(signed, (4 * exps[idx]).astype(np.int32))
-            for i, v in zip(idx, vals):
-                out[i] = float(v)
-        for i in np.nonzero(easy & (exps >= 0))[0]:
-            v = int(mant[i]) * 16 ** int(exps[i])
-            out[i] = -v if neg[i] else v
-        hard = ~easy
-        if hard.any():
-            ints = _bytes_to_ints(full[:B])
-            for i in np.nonzero(hard)[0]:
-                out[i] = Encoding(
-                    self.public_key, ints[i], int(exps[i])
-                ).decode()
-        return out
+            out = [None] * B
+            fl = easy & (exps < 0)
+            if fl.any():
+                idx = np.nonzero(fl)[0]
+                signed = np.where(neg[idx], -1.0, 1.0) * mant[idx].astype(
+                    np.float64
+                )
+                vals = np.ldexp(signed, (4 * exps[idx]).astype(np.int32))
+                for i, v in zip(idx, vals):
+                    out[i] = float(v)
+            for i in np.nonzero(easy & (exps >= 0))[0]:
+                v = int(mant[i]) * 16 ** int(exps[i])
+                out[i] = -v if neg[i] else v
+            hard = ~easy
+            if hard.any():
+                ints = _bytes_to_ints(full[:B])
+                for i in np.nonzero(hard)[0]:
+                    out[i] = Encoding(
+                        self.public_key, ints[i], int(exps[i])
+                    ).decode()
+            return out
 
     # -- homomorphic algebra ------------------------------------------------
 
@@ -1222,8 +1238,9 @@ class EncryptedBatch:
             raise ValueError("New exponent should be more negative")
         if not diffs.any():
             return self
-        factors = [EncodedNumber.BASE ** int(d) for d in diffs]
-        bits = max(f.bit_length() for f in factors)
+        with profiling.span("batch.schedule"):
+            factors = [EncodedNumber.BASE ** int(d) for d in diffs]
+            bits = max(f.bit_length() for f in factors)
         mont = self._dc.pow_scalars(self.mont, factors, bits)
         return EncryptedBatch(self.public_key, mont, new_exps, False)
 
@@ -1235,12 +1252,13 @@ class EncryptedBatch:
     def _align_digits(self, target):
         """[Bp, W] BASE**diff digit schedules aligning self to target, on
         the batch's device."""
-        diffs = self.exponents - np.asarray(target, dtype=np.int64)
-        factors = [EncodedNumber.BASE ** int(d) for d in diffs]
-        bits = max(f.bit_length() for f in factors)
-        return _digits_on(_digits_rows(factors, bits,
-                                       pad_rows=self.mont.shape[0]),
-                          self.mont.device)
+        with profiling.span("batch.schedule"):
+            diffs = self.exponents - np.asarray(target, dtype=np.int64)
+            factors = [EncodedNumber.BASE ** int(d) for d in diffs]
+            bits = max(f.bit_length() for f in factors)
+            return _digits_on(_digits_rows(factors, bits,
+                                           pad_rows=self.mont.shape[0]),
+                              self.mont.device)
 
     def __add__(self, other):
         if isinstance(other, EncryptedBatch):
@@ -1386,8 +1404,10 @@ class EncryptedBatch:
             any_neg = any(neg)
             bits = max(max(k.bit_length() for k in ks), 1)
         dc = self._dc
-        digits = _digits_on(
-            _digits_rows(ks, bits, pad_rows=self.mont.shape[0]), dc.device)
+        with profiling.span("batch.schedule"):
+            digits = _digits_on(
+                _digits_rows(ks, bits, pad_rows=self.mont.shape[0]),
+                dc.device)
         if any_neg:
             mask = np.pad(np.asarray(neg, dtype=bool),
                           (0, self.mont.shape[0] - len(neg)))
@@ -1454,8 +1474,9 @@ class EncryptedBatch:
         diffs = (exp_grid - row_min[:, None]).reshape(-1)
         exps = [k * EncodedNumber.BASE ** int(d) for k, d in zip(ks, diffs)]
         bits = max(max(e.bit_length() for e in exps), 1)
-        digits = _digits_on(_digits_rows(exps, bits).reshape(B, D, -1),
-                            dc.device)
+        with profiling.span("batch.schedule"):
+            digits = _digits_on(_digits_rows(exps, bits).reshape(B, D, -1),
+                                dc.device)
         inv_mont = self.inverse_mont()[:D] if any(neg) else w_mont
         mask = config.to_device(np.array(neg, dtype=bool).reshape(B, D),
                                 dc.device)

@@ -1,9 +1,31 @@
 """Profiling and roofline accounting for the port on an NVIDIA GPU.
 
 The port of phe_tpu/profiling.py: (a) a torch.profiler trace context for
-capturing the card's timeline, and (b) an analytic roofline, per-unit work
-counts against per-unit peaks, so benchmark numbers are judged against
-speed of light rather than only against the CPython baseline.
+capturing the card's timeline, and the program's spans on it; (b) an
+analytic roofline, per-unit work counts against per-unit peaks, so
+benchmark numbers are judged against speed of light rather than only
+against the CPython baseline.
+
+The spans: ``span(name)`` marks a stretch of the program's own work as a
+``torch.profiler.record_function`` range while a profiler session records
+(``trace()``, or any ``torch.profiler.profile``), so it lies on the
+profiler's clock beside the card's kernels and copies; with no session it
+is a shared null context and records nothing. Every name the program
+emits is in ``SPANS``:
+
+* host encode and decode work, ``HOST_SPANS``: ``batch.encode`` (the
+  values' encodings), ``batch.pack`` (packing residues into rows and their
+  upload), ``batch.draw_r`` (the CSPRNG draw of r and its upload),
+  ``batch.schedule`` (per-element digit schedules and their upload),
+  ``batch.decode`` (the decode of decrypted rows);
+* ``batch.readback``: a device-to-host copy that waits on the card, inside
+  ``batch.decode`` on the decrypt path;
+* ``program.<fn>``: one call of a device program (programs.py), its
+  key, copies and graph replay, warm-up or capture, or its eager body.
+
+A host span holds no program call, so its self time is host work, and the
+innermost span open over an idle stretch of the card names what the host
+was doing.
 
 The unit keys keep phe_tpu's names, so the JSON rows have its schema. On
 Hopper they mean:
@@ -35,7 +57,6 @@ perfect), so speed_of_light_fraction <= 1 when the peaks are right.
 import contextlib
 import os
 import subprocess
-import time
 
 import torch
 
@@ -54,6 +75,20 @@ _H100_INT32_OP = 20.2965e12
 _H100_INT8_MAC = 1979e12 / 2
 _CHIP_PEAKS = {"h100": (_H100_INT32_MUL, _H100_INT32_OP, _H100_INT8_MAC)}
 _DEFAULT_PEAKS = _CHIP_PEAKS["h100"]
+
+HOST_SPANS = frozenset(("batch.encode", "batch.pack", "batch.draw_r",
+                        "batch.schedule", "batch.decode"))
+# Every name span() is given; device_program adds its program.<fn> names.
+SPANS = set(HOST_SPANS | {"batch.readback"})
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A record_function range named name while a torch.profiler session
+    records, else a shared null context (one check, nothing allocated)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def chip_peaks(device_kind=None):
@@ -227,8 +262,9 @@ def report(op, ops_per_s, cost):
 @contextlib.contextmanager
 def trace(log_dir=None):
     """Profile a block with torch.profiler (CPU and, with a card, CUDA
-    activity); yields the profiler and writes its chrome trace to
-    log_dir/trace.json on exit (default: build/trace in the checkout)."""
+    activity); yields the profiler and writes its chrome trace, the
+    program's spans among its events, to log_dir/trace.json on exit
+    (default: build/trace in the checkout)."""
     from torch.profiler import ProfilerActivity, profile
 
     if log_dir is None:
@@ -240,13 +276,3 @@ def trace(log_dir=None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def timed(label, sink=None):
-    """Wall-clock a block; append (label, seconds) to sink if given."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if sink is not None:
-        sink.append((label, dt))

@@ -46,9 +46,12 @@ failure, or any other, raises. Nothing falls back to eager work.
 The kernel wrappers count their launches in Python, which a replay does
 not run. A capture records how far each count moved and puts the counts
 back (nothing ran); each replay adds what its capture recorded. So a call
-counts the same launches whether it ran eagerly or replayed.
+counts the same launches whether it ran eagerly or replayed. ``calls``
+counts the cache's own work: warm-ups (a key's first call, or its first
+after an eviction), captures and replays.
 
-On the CPU ``fn`` runs as it is, and nothing captures.
+On the CPU ``fn`` runs as it is, and nothing captures. Each call, on
+either device, is the span ``program.<fn>`` (profiling.span).
 """
 
 import functools
@@ -59,6 +62,7 @@ import weakref
 import numpy as np
 import torch
 
+from phe_tpu_torch import profiling
 from phe_tpu_torch.ops import cuda_modexp, cuda_rns
 
 # The kernel wrappers' launch counters.
@@ -144,6 +148,8 @@ GRAPHS = CudaGraphs()
 # Every DeviceProgram, for evict(); and how many times it has run.
 _PROGRAMS = weakref.WeakSet()
 evictions = 0
+# DeviceProgram.run's warm-ups, captures and replays, all programs.
+calls = {"warm_up": 0, "capture": 0, "replay": 0}
 
 
 def evict(dev):
@@ -215,6 +221,8 @@ class DeviceProgram:
             raise ValueError("%s has no argument %s"
                              % (fn.__name__, ", ".join(sorted(unknown))))
         self.graphs = {}
+        self.span = "program." + fn.__name__
+        profiling.SPANS.add(self.span)
         # Keys whose constants died (weakref callbacks), dropped at the
         # next call rather than inside a callback that may run mid-capture.
         self._dead = []
@@ -222,17 +230,18 @@ class DeviceProgram:
         _PROGRAMS.add(self)
 
     def __call__(self, *args, **kwargs):
-        bound = self.signature.bind(*args, **kwargs)
-        bound.apply_defaults()
-        devices = {v.device for v in bound.arguments.values()
-                   if isinstance(v, torch.Tensor)}
-        if len(devices) != 1:
-            raise ValueError("%s takes its tensors on one device, got %s"
-                             % (self.__name__, sorted(map(str, devices))))
-        dev = devices.pop()
-        if dev.type != "cuda":
-            return self.fn(*args, **kwargs)
-        return self.run(dev, bound.arguments, GRAPHS)
+        with profiling.span(self.span):
+            bound = self.signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            devices = {v.device for v in bound.arguments.values()
+                       if isinstance(v, torch.Tensor)}
+            if len(devices) != 1:
+                raise ValueError("%s takes its tensors on one device, got %s"
+                                 % (self.__name__, sorted(map(str, devices))))
+            dev = devices.pop()
+            if dev.type != "cuda":
+                return self.fn(*args, **kwargs)
+            return self.run(dev, bound.arguments, GRAPHS)
 
     def _key(self, dev, arguments):
         """(key, the constants' tensors). A context enters by the identity
@@ -267,6 +276,7 @@ class DeviceProgram:
         if entry is None:
             out = _with_room(dev, lambda: graphs.warm_up(
                 dev, lambda: self.fn(**arguments)))
+            calls["warm_up"] += 1
             dead = self._dead
             refs = [weakref.ref(t, lambda _, k=key: dead.append(k))
                     for t in tensors]
@@ -292,10 +302,12 @@ class DeviceProgram:
 
             (entry.graph, entry.inputs, entry.outputs,
              entry.counts) = _with_room(dev, capture)
+            calls["capture"] += 1
             self.graphs[key] = entry  # again, if the capture evicted it
         for buf, n in zip(entry.inputs, names):
             buf.copy_(arguments[n])
         graphs.replay(entry.graph)
+        calls["replay"] += 1
         _add(entry.counts)
         outputs = entry.outputs
         try:

@@ -14,8 +14,9 @@ PHE_TPU_RNS_KERNEL=xla, as tests/test_engine_rns.py sets them).
 Capture and replay need the card; their bookkeeping does not. A stub
 graph backend stands in for CudaGraphs and shows the key, a warm-up at
 a key's first call and one capture for three calls, the launch counts
-added per replay, the outputs cloned, and a graph dropped when its
-constants die.
+added per replay, the outputs cloned, a graph dropped when its
+constants die, and programs.calls counting each warm-up, capture and
+replay, an eviction's re-warm included.
 """
 
 import ast
@@ -458,3 +459,27 @@ def test_out_of_memory_evicts_every_graph_and_runs_once_more():
     with pytest.raises(torch.OutOfMemoryError):
         programs._with_room(CPU, never)
     assert len(tries) == 2
+
+
+def test_calls_count_warm_ups_captures_and_replays(monkeypatch):
+    """programs.calls counts what DeviceProgram.run did, as the stub saw
+    it; after an eviction the key warms up and captures again."""
+    for k in programs.calls:
+        monkeypatch.setitem(programs.calls, k, 0)
+    monkeypatch.setattr(programs, "evictions", programs.evictions)
+    stub = _StubGraphs()
+    prog = programs.device_program(_body, static_argnames=("k",))
+    x, ctx = torch.ones((2, 3), dtype=torch.int64), _Ctx(torch.tensor([1]))
+
+    def call():
+        prog.run(CPU, {"x": x, "ctx": ctx, "k": 1}, stub)
+        return dict(programs.calls)
+
+    assert call() == {"warm_up": 1, "capture": 0, "replay": 0}
+    assert call() == {"warm_up": 1, "capture": 1, "replay": 1}
+    assert call() == {"warm_up": 1, "capture": 1, "replay": 2}
+    programs.evict(CPU)
+    assert call() == {"warm_up": 2, "capture": 1, "replay": 2}
+    assert call() == {"warm_up": 2, "capture": 2, "replay": 3}
+    assert call() == {"warm_up": 2, "capture": 2, "replay": 4}
+    assert (stub.warmups, stub.captures, stub.replays) == (2, 2, 4)
