@@ -22,19 +22,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bound. The RNS ladder runs at k = 304 (exponent n, exit
    R) and k = 152 (exponent p-1, exit R^(1-p)); its first 128 rows are
    checked bit-equal against the plain version, which is too slow for the
-   whole batch, and four rows against Python pow; and at k = 624 (the
-   8192-bit key's p^2, exponent p-1) over 512 rows, 8 of them against the
-   plain version. Each prints the elements a block held (E) and fails if
-   it ran under its bound. Ragged batches of both ladder modes are
-   bit-equal: at E = 8 (1, 7 and 9 rows) on every row, and at E = 32 (a
-   last block of 1 and of 31 elements) on their first rows and last two
-   blocks. One product's time at every E (k = 304 over 16,384 rows,
-   k = 624 over 512) and torch._int_mm over the extension GEMMs (a
-   yardstick the port never calls) split the ladder's time. The
-   tolerance is zero everywhere: this is exact integer arithmetic.
+   whole batch, and four rows against Python pow; at k = 456 (the
+   3072-bit key's n^2, exponent n) over 16,384 rows, 32 of them against
+   the plain version; and at k = 624 (the 8192-bit key's p^2, exponent
+   p-1) over 512 rows, 8 of them against the plain version. Each prints
+   the elements a block held (E) and fails if it ran under its bound.
+   Ragged batches of both ladder modes are bit-equal: at E = 8 (1, 7 and
+   9 rows) on every row, and at E = 32 (a last block of 1 and of 31
+   elements) on their first rows and last two blocks. One product's time
+   at every E (k = 304 and 456 over 16,384 rows, k = 624 over 512; at
+   k = 456 the whole r^n ladder at every E too) and torch._int_mm over
+   the extension GEMMs (a yardstick the port never calls) split the
+   ladder's time. The tolerance is zero everywhere: this is exact integer
+   arithmetic.
    The per-element-exponent kernels run at their path's shapes too: the
-   RNS ladder at k = 304, window 4, over 65,536 rows of 64-bit schedules
-   (bit-equal to its plain version on the first 1,024 rows, four rows
+   RNS ladder at window 4 on 64-bit schedules, at k = 304 over 65,536
+   rows and at k = 456 (the 3072-bit key's alignment) over 16,384 (each
+   bit-equal to its plain version on the first 1,024 rows, seven rows
    against Python pow, its E printed, no faster than its bound); the
    limb-engine modexp at L = 296 over 16,384
    rows of 320-bit schedules (value-equal on 1,024 rows, six against
@@ -48,9 +52,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    read around it; a pinned-r batch against the host's raw_encrypt; one
    secure export round trip; encrypt and decrypt ops/s. Then the same
    round trip and pinned-r check at the 3072-bit default key size
-   (default_key_path: n^2 on the ladder at k = 456, the products at
-   L = 440, both in blocks of E = 8), its key constants and REDC matrices
-   timed apart.
+   (default_key_path: n^2 on the ladder at k = 456 in blocks of E = 32,
+   the products at L = 440 in blocks of E = 8), its key constants and
+   REDC matrices timed apart.
 4. The arithmetic path, each step with the counts zeroed just before it
    and read just after, checked exactly against the host and timed on the
    host clock: add at equal exponents over 524,288 rows (and once more
@@ -155,6 +159,7 @@ SEED = 20261016
 PLAIN_CHUNK = 2048  # rows per plain Montgomery product at L = 296 (its
 # memory grows with rows x L^2: wider contexts take proportionally fewer)
 PLAIN_LADDER_ROWS = 128  # rows of the plain ladder check (>= 64)
+PLAIN_LADDER_ROWS_456 = 32  # rows of the plain ladder check at k = 456
 PLAIN_LADDER_ROWS_624 = 8  # rows of the plain ladder check at k = 624
 PLAIN_VEC_ROWS = 1024  # rows of the plain per-element modexp checks
 SHARED_POW_ROWS = 128  # rows of the shared-exponent modexp's second check
@@ -407,7 +412,7 @@ def sync():
     torch.cuda.synchronize()
 
 
-def block_elems(k, rows):
+def ladder_elems(k, rows):
     """The elements a ladder block holds for rows at k on this card, as
     the wrappers choose them."""
     from phe_tpu_torch.ops import cuda_rns
@@ -488,38 +493,33 @@ def inverse_launches(rows, chunk):
     return mm, mc
 
 
-def check_vec_kernels(pub, dev, rng):
-    """Phase 2, the per-element-exponent kernels against their plain
-    versions at the arithmetic path's shapes; {kernel name: record}."""
+def host_timed(fn):
+    """(fn's result, its ms on the host clock, the card synchronised)."""
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def check_ladder_vec(pub, dev, rng, rows):
+    """Phase 2, the per-element RNS ladder at n^2 of pub's key over rows
+    of 64-bit schedules at window 4 (mul_scalars' shape, and an
+    alignment's) on Montgomery-domain operands, entry M_A^2 R^-1, exit R:
+    bit-equal to its plain version on the first PLAIN_VEC_ROWS rows,
+    seven rows against Python pow, no faster than its bound; its record."""
     from phe_tpu_torch import batch as tbatch
-    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+    from phe_tpu_torch.ops import cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
     from phe_tpu_torch.ops import rns
     from phe_tpu_torch.utils import limbs as hl
 
     dc = pub.device_context(dev)
-    st, ctx, L, N = dc.rns_state(), dc.ctx, dc.L, pub.nsquare
+    st, L, N = dc.rns_state(), dc.L, pub.nsquare
+    k = st.rsys.k
     R = 1 << (14 * L)
     R_inv = pow(R, -1, N)
     few = PLAIN_VEC_ROWS
-    out = {}
-
-    def host_timed(fn):
-        sync()
-        t0 = time.perf_counter()
-        res = fn()
-        sync()
-        return res, 1e3 * (time.perf_counter() - t0)
-
-    def canonical_err(got, ref):
-        """max |canonical(got) - canonical(ref)| over the limbs, on the card:
-        both are < 1.01 M, so their canonical forms are the values mod M."""
-        return int((mg.export_canonical(got, ctx)
-                    - mg.export_canonical(ref, ctx)).abs().max())
-
-    # rns_ladder_vec: mul_scalars' shape (65,536 rows of 64-bit schedules,
-    # window 4) on Montgomery-domain operands, entry M_A^2 R^-1, exit R.
-    rows = MUL_ROWS
     xs = [rng.randrange(0, N) for _ in range(rows)]
     es = [rng.getrandbits(64) for _ in range(rows - 3)] + [0, 1, (1 << 64) - 1]
     digits = torch.as_tensor(tbatch._digits_rows(es, 64), device=dev)
@@ -533,34 +533,55 @@ def check_vec_kernels(pub, dev, rng):
     head, dhead = x_res[:few].contiguous(), digits[:few].contiguous()
     ref, plain_ms = host_timed(lambda: rns.ladder_vec_plain(
         head, dhead, st.rsys, entry_res=st.entry_mont, exit_res=st.exit_r))
-    check(torch.equal(got[:few], ref), "rns_ladder_vec: kernel residues "
-          "differ from the plain version")
+    check(torch.equal(got[:few], ref), "rns_ladder_vec k=%d: kernel residues "
+          "differ from the plain version" % k)
     tail = list(range(4)) + [rows - 3, rows - 2, rows - 1]
     vals = hl.limbs_to_ints(rns.from_rns(got[tail], st.rsys).cpu().numpy())
     for i, v in zip(tail, vals):
         check(v % N == pow(xs[i] * R_inv, es[i], N) * R % N,
-              "rns_ladder_vec: value differs from Python pow")
+              "rns_ladder_vec k=%d: value differs from Python pow" % k)
     ms = cuda_ms(lambda: run(x_res, digits), 1, warm=False)
     ms_few = cuda_ms(lambda: run(head, dhead), 1)
-    bms, by = ladder_bound(rows, st.rsys.k, n_windows, 4, vec=True)
+    bms, by = ladder_bound(rows, k, n_windows, 4, vec=True)
     select_ms = 1e3 * (rows * n_windows * 16 * st.rsys.cpad * 4
                        / HBM_BYTES_PER_S)
-    elems = block_elems(st.rsys.k, rows)
+    elems = ladder_elems(k, rows)
     print("rns_ladder_vec k=%d windows=%d: bit-equal on %d rows, Python pow "
           "on %d; kernel %.3f ms at %d rows, E = %d (%.3f ms at %d, E = %d), "
           "plain %.3f ms at %d, bound %.3f ms at %d (%s); the table select's "
           "reads alone %.3f ms at HBM rate"
-          % (st.rsys.k, n_windows, few, len(tail), ms, rows, elems, ms_few,
-             few, block_elems(st.rsys.k, few), plain_ms, few, bms, rows,
-             by, select_ms))
-    check(ms >= bms, "rns_ladder_vec ran under its bound: ladder_bound's "
-          "count no longer matches the kernel")
-    out["rns_ladder_vec"] = dict(
-        k=st.rsys.k, rows=rows, elems=elems,
-        max_abs_err=int((got[:few] - ref).abs().max()),
-        ms=ms, plain_ms=plain_ms, plain_rows=few, ms_at_plain_rows=ms_few,
-        bound_ms=bms, bound_by=by)
-    del x_res, got, ref
+          % (k, n_windows, few, len(tail), ms, rows, elems, ms_few, few,
+             ladder_elems(k, few), plain_ms, few, bms, rows, by, select_ms))
+    check(ms >= bms, "rns_ladder_vec k=%d ran under its bound: "
+          "ladder_bound's count no longer matches the kernel" % k)
+    return dict(k=k, rows=rows, elems=elems,
+                max_abs_err=int((got[:few] - ref).abs().max()),
+                ms=ms, plain_ms=plain_ms, plain_rows=few,
+                ms_at_plain_rows=ms_few, bound_ms=bms, bound_by=by)
+
+
+def check_vec_kernels(pub, dev, rng):
+    """Phase 2, the per-element-exponent kernels against their plain
+    versions at the arithmetic path's shapes; {kernel name: record}."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.ops import cuda_modexp
+    from phe_tpu_torch.ops import montgomery as mg
+    from phe_tpu_torch.utils import limbs as hl
+
+    dc = pub.device_context(dev)
+    ctx, L, N = dc.ctx, dc.L, pub.nsquare
+    R = 1 << (14 * L)
+    R_inv = pow(R, -1, N)
+    few = PLAIN_VEC_ROWS
+    out = {}
+
+    def canonical_err(got, ref):
+        """max |canonical(got) - canonical(ref)| over the limbs, on the card:
+        both are < 1.01 M, so their canonical forms are the values mod M."""
+        return int((mg.export_canonical(got, ctx)
+                    - mg.export_canonical(ref, ctx)).abs().max())
+
+    out["rns_ladder_vec"] = check_ladder_vec(pub, dev, rng, MUL_ROWS)
 
     # mont_pow: short obfuscation's h^a, 320-bit exponents, window 4.
     rows = BATCH
@@ -790,7 +811,7 @@ def default_key_path(dev, card, totals):
           "contexts %.3f s; B=%d: decrypt(encrypt(x)) == x for every row, "
           "pinned-r batch of %d equals raw_encrypt; encrypt %.1f ops/s "
           "(%.3f s), decrypt %.1f ops/s (%.3f s); launches %s, %s [%s]"
-          % (DEFAULT_KEYSIZE, k, block_elems(k, BATCH), dc.L,
+          % (DEFAULT_KEYSIZE, k, ladder_elems(k, BATCH), dc.L,
              tile_text(dc.L, BATCH), t_keys, t_redc, BATCH, len(few),
              BATCH / t_enc, t_enc, BATCH / t_dec, t_dec, json.dumps(enc),
              json.dumps(dec), card))
@@ -992,7 +1013,7 @@ def check_ragged_ladders(pub, dev, rng):
     sms = cuda_rns._sms(dev)
     sizes = {8: (1, 7, 9), 32: ((sms - 1) * 32 + 1, sms * 32 - 1)}
     for E, Bs in sizes.items():
-        check(all(block_elems(rsys.k, B) == E for B in Bs),
+        check(all(ladder_elems(rsys.k, B) == E for B in Bs),
               "ragged ladder batches %s do not take E = %d" % (Bs, E))
     rows = max(sizes[32])
     # The rows each batch is checked on: all of an E = 8 batch; the head
@@ -1075,16 +1096,18 @@ def tensor_core_sass(source, kernel, elems, int_pipe=False):
     return counts
 
 
-def one_product_split(rsys, rows, dev, card, yardstick=False):
+def one_product_split(rsys, rows, dev, card, yardstick=False, digits=None):
     """Phase 2, what one ladder product's time follows. Window 1 runs two
     products a row (entry and exit) and two more for each digit, so the
     difference between 31 zero digits (64 products) and none (2) is 62
     products without the launch's fixed costs. Each width E whose block
     fits runs both on the same rows, with the same MMA and int32 work and
     the extension matrices read from L2 once per block-product, so their
-    L2 bytes fall as 1 / E. With yardstick, torch._int_mm over both
-    extensions' GEMMs alone ([B, 2k] x [2k, 3(k+8)] twice) beside it: no
-    one PyTorch call computes the ladder, and the port never calls it."""
+    L2 bytes fall as 1 / E. With digits (a window-5 schedule), the whole
+    ladder at each width too, beside ladder_bound. With yardstick,
+    torch._int_mm over both extensions' GEMMs alone ([B, 2k] x
+    [2k, 3(k+8)] twice) beside it: no one PyTorch call computes the
+    ladder, and the port never calls it."""
     from phe_tpu_torch.ops import cuda_rns
     from phe_tpu_torch.ops import limb_math as lm
 
@@ -1095,11 +1118,12 @@ def one_product_split(rsys, rows, dev, card, yardstick=False):
                          device=dev) % rsys.m).contiguous()
     none = torch.zeros(0, dtype=torch.int64, device=dev)
     zeros = torch.zeros(31, dtype=torch.int64, device=dev)
-    outs, split = [], {}
+    outs, fulls, split = [], [], {}
     for E in cuda_rns.ELEMS:
         if cuda_rns._smem(k, E) > cuda_rns.SMEM_LIMIT:
             continue
-        run = lambda d: cuda_rns._launch(x, d, rsys, 1, None, None, False, E)
+        run = lambda d, w=1: cuda_rns._launch(x, d, rsys, w, None, None,
+                                              False, E)
         outs.append(run(zeros))
         ms2, ms64 = cuda_ms(lambda: run(none), 5), cuda_ms(lambda: run(zeros), 3)
         ns = 1e6 * (ms64 - ms2) / (62 * rows)
@@ -1112,14 +1136,23 @@ def one_product_split(rsys, rows, dev, card, yardstick=False):
               "element-product; extension matrices from L2 at %.3f TB/s [%s]"
               % (k, E, ms2, ms64, rows, -(-rows // E), ns,
                  split[E]["l2_tb_per_s"], card))
-    check(all(torch.equal(o, outs[0]) for o in outs),
+        if digits is not None:
+            fulls.append(run(digits, 5))
+            ms = split[E]["ms_ladder"] = cuda_ms(lambda: run(digits, 5), 1)
+            bms, by = ladder_bound(rows, k, len(digits), 5)
+            split[E]["bound_ms_ladder"] = bms
+            print("ladder, k=%d, E=%d, %d windows of 5: %.3f ms over %d rows, "
+                  "bound %.3f ms (%s) [%s]"
+                  % (k, E, len(digits), ms, rows, bms, by, card))
+    check(all(torch.equal(o, outs[0]) for o in outs)
+          and all(torch.equal(o, fulls[0]) for o in fulls),
           "the ladder's widths disagree on the same rows")
     bms, by = ladder_bound(rows, k, 31, 1)
     bms2, _ = ladder_bound(rows, k, 0, 1)
     print("one product bound, k=%d, %d rows: %.3f ns an element-product (%s); "
           "the wrapper picks E = %d"
           % (k, rows, 1e6 * (bms - bms2) / (62 * rows), by,
-             block_elems(k, rows)))
+             ladder_elems(k, rows)))
     if not yardstick:
         return split
     dig = torch.as_tensor(g.integers(0, 128, (rows, 2 * k)), dtype=torch.int8,
@@ -2548,12 +2581,12 @@ def main():
         ms_few = cuda_ms(lambda: run(head), 1)
         bms, by = ladder_bound(rows, rsys.k, len(digits), 5)
         bms_few, _ = ladder_bound(few, rsys.k, len(digits), 5)
-        elems = block_elems(rsys.k, rows)
+        elems = ladder_elems(rsys.k, rows)
         print("rns_ladder k=%d cpad=%d windows=%d: bit-equal on %d rows, "
               "Python pow on 4; kernel %.3f ms at %d rows, E = %d (%.3f ms "
               "at %d, E = %d), plain %.3f ms at %d, bound %.3f ms at %d (%s)"
               % (rsys.k, rsys.cpad, len(digits), few, ms, rows, elems,
-                 ms_few, few, block_elems(rsys.k, few), plain_ms, few,
+                 ms_few, few, ladder_elems(rsys.k, few), plain_ms, few,
                  bms, rows, by))
         check(ms >= bms, "rns_ladder k=%d ran under its bound: ladder_bound's "
               "count no longer matches the kernel" % rsys.k)
@@ -2581,11 +2614,22 @@ def main():
     ladder_checks.append(check_ladder(
         rsys8, conv8, L8, pdc8.consts.dp_digits, E_p8, priv8.psquare,
         rows=LIMB_ROWS, few=PLAIN_LADDER_ROWS_624))
+    # The 3072-bit key's n^2 (k = 456) at the encrypt batch.
+    dc3 = pub3.device_context(dev)
+    st3 = dc3.rns_state()
+    ladder_checks.append(check_ladder(
+        st3.rsys, st3.conv, dc3.L, dc3.n_digits,
+        (1 << (14 * dc3.L)) % pub3.nsquare, pub3.nsquare,
+        few=PLAIN_LADDER_ROWS_456))
     check_ragged_ladders(pub, dev, rng)
     check_ragged_pows(pub, dev, rng)
     split = one_product_split(st.rsys, BATCH, dev, card, yardstick=True)
     split_624 = one_product_split(rsys8, LIMB_ROWS, dev, card)
+    split_456 = one_product_split(st3.rsys, BATCH, dev, card,
+                                  digits=dc3.n_digits)
     vec_checks = check_vec_kernels(pub, dev, rng)
+    # The 3072-bit key's alignment ladder (k = 456) at its 16,384 rows.
+    vec_456 = check_ladder_vec(pub3, dev, rng, BATCH)
 
     # -- 3. the main path --------------------------------------------------
     vals_rng = np.random.default_rng(SEED)
@@ -2701,6 +2745,7 @@ def main():
             replaces[name] = replaces[name[:-4]]
     ladder_checks[0]["one_product_split"] = split
     ladder_checks[2]["one_product_split"] = split_624
+    ladder_checks[3]["one_product_split"] = split_456
     ladder_checks[0]["sass_imma_idp4a"] = sass
     vec_checks["mont_pow"]["sass_imma_idp4a"] = pow_sass
     mul_checks["mont_mul"][0]["sass_imma_idp4a"] = mul_sass
@@ -2711,6 +2756,7 @@ def main():
     checks["vpu_microbench"] = chain_checks
     for name, c in wide_checks.items():
         checks[name].append(c)
+    checks["rns_ladder_vec"].append(vec_456)
     checks["mont_pow_shared"].append(crt_check)
     for name, c in engine_checks.items():
         checks.setdefault(name, []).extend(c)

@@ -21,19 +21,27 @@
 //
 // Design. One block runs E batch elements (E in {8, 32}, a template
 // parameter that ops/cuda_rns.py's _elems picks per launch from (k, B))
-// through the whole ladder. Per element, shared memory holds the
-// accumulator and the raw channel products (cpad + 4 uint32 each, the
-// skew putting the MMA epilogue's accesses in 32 distinct banks) and one
-// digit row (Kp bytes plus a 16-byte skew that spreads the fragment reads
-// of the eight elements of an n-tile over all 32 banks), with beta:
-// E (8 (cpad + 4) + Kp + 20) bytes, 178,816 at k = 304 and E = 32, 90,784
-// at k = 624 and E = 8. The channel phases between the MMAs run
-// channel-major: a thread loads a channel's constants once and walks the
-// E elements as E independent chains, all E loads issued before the first
-// store. Blocks of 32 elements run one to an SM (168 registers a thread
-// at most); blocks of 8 two (80). The table lives in a
-// device-memory scratch the wrapper allocates ([ceil(B/E) E, 2^w, cpad]
-// uint32).
+// through the whole ladder. Per element, shared memory holds one residue
+// row (cpad + 4 uint32, the skew putting the MMA epilogue's accesses in 32
+// distinct banks), one digit row (Kp bytes plus a 16-byte skew that
+// spreads the fragment reads of the eight elements of an n-tile over all
+// 32 banks) and one word, S row k and then beta: E (4 (cpad + 4) + Kp +
+// 20) bytes. At E = 32 that is 99,456 at k = 304, 148,608 at k = 456 (the
+// 3072-bit key's n^2) and 201,856 at k = 624, so 32 elements fit at every
+// k the channel supply allows (up to 664). Every phase of a product works
+// in place on the row: the channel products overwrite the accumulator;
+// sigma reads the A channels' products into the digit row; extension 1
+// reads each B channel's product and writes u~ over it in the same
+// thread; extension 2 writes S row j < k over channel j, whose product
+// sigma has consumed, and row k to the word (its rows past k would land on
+// u~, which the tau digits, beta and the next product read, and nothing
+// reads them); the last reduction rewrites the A channels. The channel
+// phases between the MMAs run channel-major: a thread loads a channel's
+// constants once and walks the E elements as E independent chains, all E
+// loads issued before the first store. Blocks of 32 elements run one to an
+// SM (168 registers a thread at most); blocks of 8 two (80). The table
+// lives in a device-memory scratch the wrapper allocates
+// ([ceil(B/E) E, 2^w, cpad] uint32).
 //
 // Each base extension is C[3 K1p, E] = W[3 K1p, Kp] D[Kp, E], with K1 padded
 // to K1p (16-row slabs) and 2k to Kp (32-digit K-steps) by zero rows and
@@ -56,8 +64,12 @@
 // factor is selected in constant time, as _ladder_vec_kernel's select
 // tree (:366-385) is: every one of the 2^w rows is read and the wanted
 // one kept by a mask, with no address or branch that depends on the
-// digit, so the factor is exactly tab[d]. Neighbouring threads read
-// neighbouring channels of one row: the reads are coalesced.
+// digit, so the factor is exactly tab[d]. The select is the table
+// product's first phase, element-major: neighbouring threads read
+// neighbouring channels of one row (the reads are coalesced), and the
+// thread that selects (element, channel) multiplies it into the row.
+// Channel-major, holding the E factors of a channel, it spilled at E = 32
+// and ran the k = 304 ladder_vec of 16,384 rows in 25.3 ms against 15.9.
 //
 // What bounds it on an H100, at k = 304 per element-product: 1.14 M int8
 // multiply-adds (1.15 ns at the published 1,979 TOP/s), about
@@ -65,18 +77,22 @@
 // 1.98 GHz), and the two packed matrices (2 x 3 K1p Kp = 1.17 MB) streamed
 // from L2 once per block-product: 36 KB an element-product at E = 32. The
 // int32 channel work is the floor (chip_smoke.ladder_bound). Measured
-// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 6.75 ns an
-// element-product at E = 32 and 10.9 at E = 8 (one_product_split), the
-// stream at 5.4 and 13.4 TB/s; 270.8 ms for the k = 304 ladder of 16,384
-// rows, 3.7 times its bound. SM clock stamps around each phase of one
-// product put 81 % of its cycles at E = 32 in the two extensions: per
-// K-step a warp's three 16-byte fragment loads, eight B-fragment loads
-// and twelve MMAs, about 420 cycles with one block on the SM. The channel
-// phases take the other 19 %. A 16-element block measured no faster than
-// an 8-element one, so there is none. The design
-// before this one ran the extensions as __dp4a on the integer pipes, 8
-// elements a block: 1,954.510 ms for the same ladder (NVIDIA H100 80GB
-// HBM3, 700.00 W).
+// (NVIDIA H100 80GB HBM3, 700.00 W): 6.7 ns an element-product at E = 32
+// and 11.0 at E = 8 (one_product_split), the stream at 5.4 and 13.4
+// TB/s; 264 ms for the k = 304 ladder of 16,384 rows. At k = 456 an
+// element-product streams 81 KB at E = 32 and 323 KB at E = 8: 13.1 ns
+// at E = 32 (6.2 TB/s) against 22.9 at E = 8 (14.1 TB/s), and the r^n
+// ladder of 16,384 rows (exponent n, window 5) takes 797 ms at E = 32
+// and 1,395 ms at E = 8. The layout before this one kept two residue rows
+// an element, so k = 456 fitted only E = 8 (24.0 ns, 1,519-1,576 ms).
+// SM clock stamps around each phase of one product put 81 % of its
+// cycles at E = 32 and k = 304 in the two extensions: per K-step a warp's
+// three 16-byte fragment loads, eight B-fragment loads and twelve MMAs,
+// about 420 cycles with one block on the SM. The channel phases take the
+// other 19 %. A 16-element block measured no faster than an 8-element
+// one, so there is none. The design before the tensor cores ran the
+// extensions as __dp4a on the integer pipes, 8 elements a block:
+// 1,954.510 ms for the k = 304 ladder (NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,7 +103,7 @@ constexpr int kMaxWarps = 12;  // warps a block; 168 registers a thread
 constexpr int kStages = 3;     // K-steps of A fragments held in registers
 constexpr int kSmemLimit = 232448;
 
-enum YSource { kYSelf, kYTable, kYConst };
+enum YSource { kYSelf, kYTable, kYPick, kYConst };
 
 // Padded geometry; ops/cuda_rns.py's _geometry and _smem mirror these.
 __host__ __device__ inline int k1_pad(int k) { return (k + 8 + 15) / 16 * 16; }
@@ -98,7 +114,7 @@ __host__ __device__ inline int dig_stride(int k) { return k_pad(k) + 16; }
 __host__ __device__ inline int row_stride(int k) { return 2 * k + 12; }
 inline size_t smem_bytes(int k, int elems) {
   return static_cast<size_t>(elems) *
-         (8 * row_stride(k) + dig_stride(k) + sizeof(unsigned int));
+         (4 * row_stride(k) + dig_stride(k) + sizeof(unsigned int));
 }
 // Warps a block: the slabs spread evenly over at most kMaxWarps warps.
 inline int warps_for(int k) {
@@ -160,34 +176,59 @@ struct Ladder {
   unsigned int mbinv;
   const int4* w1p;  // [slabs, ksteps, 3, 32] fragment-ordered int8 tiles
   const int4* w2p;
-  unsigned int* acc;    // shared [E, rs]
-  unsigned int* raw;    // shared [E, rs]
+  unsigned int* row;    // shared [E, rs]: each element's residues
   unsigned char* dig;   // shared [E, ds]; columns [2k, ds) stay zero
-  unsigned int* beta;   // shared [E]
+  unsigned int* beta;   // shared [E]: S row k, then beta
+  // kYPick: element e's table row is pick[e * pstride] mod prows (the
+  // table's 2^w rows); elements at or past `live` take row 0.
+  const uint8_t* pick;
+  int pstride, live, prows;
 
-  // acc <- acc * y (one RNS Montgomery product per element), where y is
-  // acc itself, the table row `trow` of each element, or a constant. The
-  // channel phases run channel-major: a thread loads a channel's
+  // row <- row * y (one RNS Montgomery product per element), where y is
+  // the row itself, the table row `trow` of each element, the row each
+  // element's digit picks from its table, or a constant. Every phase
+  // works in place on the one row, as set out at the head of this file.
+  // The channel phases run channel-major: a thread loads a channel's
   // constants once and walks the E elements. Each loads all E of its
-  // values before it stores any: the compiler cannot tell acc, raw and dig
-  // apart, so a store between two loads would chain the E elements one
-  // after another, each waiting out the load latency.
+  // values before it stores any: the compiler cannot tell row, dig and
+  // beta apart, so a store between two loads would chain the E elements
+  // one after another, each waiting out the load latency.
   __device__ void montmul(YSource src, const unsigned int* tab, size_t tstride,
                           int trow, const int64_t* yconst) {
     const int tid = threadIdx.x, nt = blockDim.x;
     unsigned int v[E];
-    for (int c = tid; c < cpad; c += nt) {
-      const unsigned int yc = src == kYConst ? ld(yconst, c) : 0u;
-      const unsigned int* tc = tab + static_cast<size_t>(trow) * cpad + c;
-      unsigned int y[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        v[e] = acc[e * rs + c];
-        y[e] = src == kYTable ? tc[e * tstride] : yc;
+    if (src == kYPick) {
+      // Element-major, as a warp's lanes walk one element's channels, and
+      // in constant time: every one of the 2^w rows is read and the wanted
+      // one kept by a mask, with no address or branch that depends on the
+      // digit. Each (element, channel) is read and written by one thread.
+      // The row loop is signed and bounded by prows, so the compiler can
+      // count its trips: an unsigned `j <= mask` ran ladder_vec 25 % slower.
+      for (int idx = tid; idx < E * cpad; idx += nt) {
+        const int e = idx / cpad, c = idx - e * cpad;
+        const int d = e < live ? pick[e * pstride] & (prows - 1) : 0;
+        const unsigned int* col = tab + e * tstride + c;
+        unsigned int f = 0;
+        for (int j = 0; j < prows; ++j) {
+          f |= col[static_cast<size_t>(j) * cpad] &
+               (0u - static_cast<unsigned int>(j == d));
+        }
+        row[e * rs + c] *= f;  // < 2^28
       }
+    } else {
+      for (int c = tid; c < cpad; c += nt) {
+        const unsigned int yc = src == kYConst ? ld(yconst, c) : 0u;
+        const unsigned int* tc = tab + static_cast<size_t>(trow) * cpad + c;
+        unsigned int y[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        raw[e * rs + c] = v[e] * (src == kYSelf ? v[e] : y[e]);  // < 2^28
+        for (int e = 0; e < E; ++e) {
+          v[e] = row[e * rs + c];
+          y[e] = src == kYTable ? tc[e * tstride] : yc;
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          row[e * rs + c] = v[e] * (src == kYSelf ? v[e] : y[e]);  // < 2^28
+        }
       }
     }
     __syncthreads();
@@ -197,7 +238,7 @@ struct Ladder {
       const unsigned int s1 = ld(sig1, i), s2 = ld(sig2, i);
       const unsigned int mi = ld(m, i), mui = ld(mu, i);
 #pragma unroll
-      for (int e = 0; e < E; ++e) v[e] = raw[e * rs + i];
+      for (int e = 0; e < E; ++e) v[e] = row[e * rs + i];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const unsigned int s = barrett(
@@ -208,13 +249,13 @@ struct Ladder {
     }
     __syncthreads();
 
-    extension<true>(w1p);  // q^, then u~ on B u r u pads (channels k + j)
+    extension<true>(w1p);  // q^, then u~ over B u r u pads (channels k + j)
     __syncthreads();
 
     // The stored B residues are tau: their digits feed extension 2.
     for (int j = tid; j < k; j += nt) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) v[e] = acc[e * rs + k + j];
+      for (int e = 0; e < E; ++e) v[e] = row[e * rs + k + j];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         dig[e * ds + j] = static_cast<unsigned char>(v[e] & 0x7F);
@@ -223,15 +264,15 @@ struct Ladder {
     }
     __syncthreads();
 
-    extension<false>(w2p);  // S on A u r u pads (row i < k: channel i)
+    extension<false>(w2p);  // S over A (row i < k: channel i), row k to beta
     __syncthreads();
 
     // beta from the redundant channel (S row k, u~ channel 2k): row k lies
     // in another warp's slab, hence the barrier above.
     if (tid < E) {
       const unsigned int mr = ld(m, 2 * k), mur = ld(mu, 2 * k);
-      const unsigned int sr = barrett(raw[tid * rs + k], mr, mur);
-      const unsigned int ur = acc[tid * rs + 2 * k];
+      const unsigned int sr = barrett(beta[tid], mr, mur);
+      const unsigned int ur = row[tid * rs + 2 * k];
       beta[tid] = barrett((sr + (mr - ur)) * mbinv, mr, mur);
     }
     __syncthreads();
@@ -242,10 +283,10 @@ struct Ladder {
     for (int i = tid; i < k; i += nt) {
       const unsigned int mi = ld(m, i), mui = ld(mu, i), nb = ld(negmb, i);
 #pragma unroll
-      for (int e = 0; e < E; ++e) v[e] = raw[e * rs + i];
+      for (int e = 0; e < E; ++e) v[e] = row[e * rs + i];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        acc[e * rs + i] = barrett(v[e] + bt[e] * nb, mi, mui);
+        row[e * rs + i] = barrett(v[e] + bt[e] * nb, mi, mui);
       }
     }
     __syncthreads();
@@ -311,7 +352,8 @@ struct Ladder {
       int c[3][kTiles][4];
       slab(wp, s, c);
       // Extension 1 reads the channel products of its outputs' channels,
-      // all of them before its first store (see montmul).
+      // all of them before its first store (see montmul), and writes u~
+      // over them: each (channel, element) is this thread's alone.
       unsigned int rin[2][kTiles][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -321,13 +363,15 @@ struct Ladder {
 #pragma unroll
           for (int x = 0; x < 2; ++x)
             rin[h][n][x] = kFirst && j < K1
-                               ? raw[(n * 8 + 2 * t + x) * rs + k + j]
+                               ? row[(n * 8 + 2 * t + x) * rs + k + j]
                                : 0u;
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = s * 16 + g + 8 * h;
-        if (j >= K1) continue;  // a zero padding row
+        // Past K1 a zero padding row; past row k of S nothing reads it
+        // (S row j < k lands on channel j, whose product sigma has read).
+        if (j >= (kFirst ? K1 : k + 1)) continue;
         const int ch = kFirst ? k + j : (j < k ? j : k + j);
         const unsigned int mj = ld(m, ch), muj = ld(mu, ch);
         const unsigned int t14j = ld(t14, ch);
@@ -344,10 +388,12 @@ struct Ladder {
             if (kFirst) {
               const unsigned int qh = barrett(v, mj, muj);
               const unsigned int r = rin[h][n][x];
-              acc[e * rs + ch] = barrett(
+              row[e * rs + ch] = barrett(
                   (r >> 14) * d2j + (r & 0x3FFF) * d1j + qh * e1j, mj, muj);
+            } else if (j < k) {
+              row[e * rs + j] = v;
             } else {
-              raw[e * rs + j] = v;
+              beta[e] = v;
             }
           }
         }
@@ -392,25 +438,27 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   ld_.w2p = w2p;
   ld_.rs = row_stride(k);
   const int rs = ld_.rs;
-  ld_.acc = reinterpret_cast<unsigned int*>(smem_raw);
-  ld_.raw = ld_.acc + E * rs;
-  ld_.dig = reinterpret_cast<unsigned char*>(ld_.raw + E * rs);
+  ld_.row = reinterpret_cast<unsigned int*>(smem_raw);
+  ld_.dig = reinterpret_cast<unsigned char*>(ld_.row + E * rs);
   ld_.beta = reinterpret_cast<unsigned int*>(ld_.dig + E * ld_.ds);
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t e0 = static_cast<size_t>(blockIdx.x) * E;
   const size_t tstride = static_cast<size_t>(cpad) << window;  // 2^w rows
   unsigned int* tab = table + e0 * tstride;  // this block's elements
-  unsigned int* acc = ld_.acc;
+  unsigned int* row = ld_.row;
   // Elements of this block past the batch compute on zero residues and
   // are never stored.
   const int live = B - static_cast<int>(e0) < E ? B - static_cast<int>(e0) : E;
+  ld_.live = live;
+  ld_.pstride = n_windows;
+  ld_.prows = 1 << window;
 
   for (int idx = tid; idx < E * ld_.ds; idx += nt) ld_.dig[idx] = 0;
   for (int c = tid; c < cpad; c += nt) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      acc[e * rs + c] =
+      row[e * rs + c] =
           e < live ? static_cast<unsigned int>(x[(e0 + e) * cpad + c]) : 0u;
     }
   }
@@ -423,7 +471,7 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       tab[e * tstride + c] = one;
-      tab[e * tstride + cpad + c] = acc[e * rs + c];
+      tab[e * tstride + cpad + c] = row[e * rs + c];
     }
   }
   __syncthreads();
@@ -432,7 +480,7 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
     for (int c = tid; c < cpad; c += nt) {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        tab[e * tstride + static_cast<size_t>(j) * cpad + c] = acc[e * rs + c];
+        tab[e * tstride + static_cast<size_t>(j) * cpad + c] = row[e * rs + c];
       }
     }
     __syncthreads();
@@ -441,41 +489,22 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   for (int c = tid; c < cpad; c += nt) {
     const unsigned int one = ld(one_dom, c);
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e * rs + c] = one;
+    for (int e = 0; e < E; ++e) row[e * rs + c] = one;
   }
   __syncthreads();
   for (int wi = 0; wi < n_windows; ++wi) {
+    for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
     if (!kVec) {
       // Digits come from the host schedule, in [0, 2^window); the mask keeps
       // any other value inside this element's table.
       const int d = static_cast<int>(static_cast<const int64_t*>(digits)[wi]) &
                     ((1 << window) - 1);
-      for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
       ld_.montmul(kYTable, tab, tstride, d, nullptr);
     } else {
-      for (int s = 0; s < window; ++s) ld_.montmul(kYSelf, nullptr, 0, 0, nullptr);
-      // Each element's own digit, masked to the window, selects its factor
-      // in constant time: every table row is read and the wanted one kept
-      // by a mask, with no address or branch that depends on the digit.
-      // The factor goes to raw, which the product reads as a one-row table
-      // of row stride rs.
-      const uint8_t* dg = static_cast<const uint8_t*>(digits);
-      const unsigned int mask = (1u << window) - 1;
-      // Element-major, as a warp's lanes walk one element's channels.
-      for (int idx = tid; idx < E * cpad; idx += nt) {
-        const int e = idx / cpad, c = idx - e * cpad;
-        const unsigned int d =
-            e < live ? dg[(e0 + e) * n_windows + wi] & mask : 0u;
-        const unsigned int* col = tab + e * tstride + c;
-        unsigned int y = 0;
-        for (int j = 0; j < (1 << window); ++j) {
-          y |= col[static_cast<size_t>(j) * cpad] &
-               (0u - static_cast<unsigned int>(static_cast<unsigned int>(j) == d));
-        }
-        ld_.raw[e * rs + c] = y;
-      }
-      __syncthreads();
-      ld_.montmul(kYTable, ld_.raw, rs, 0, nullptr);
+      // Each element's own digit, masked to the window, picks its factor
+      // inside the product, in constant time.
+      ld_.pick = static_cast<const uint8_t*>(digits) + e0 * n_windows + wi;
+      ld_.montmul(kYPick, tab, tstride, 0, nullptr);
     }
   }
   // Leave the domain through the exit constant.
@@ -484,7 +513,7 @@ rns_ladder_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
   for (int c = tid; c < cpad; c += nt) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      if (e < live) out[(e0 + e) * cpad + c] = static_cast<int64_t>(acc[e * rs + c]);
+      if (e < live) out[(e0 + e) * cpad + c] = static_cast<int64_t>(row[e * rs + c]);
     }
   }
 }

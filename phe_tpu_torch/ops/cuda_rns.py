@@ -17,7 +17,8 @@ shared memory (``_smem``) and the elements a block holds (``_elems``),
 chosen per launch from (k, B) among the kernel's instantiations.
 
 ``launches`` counts the kernel launches of each form; nothing else changes
-it.
+it. ``block_elems`` counts the same launches by the elements a block
+holds, apart from ``launches``, whose sum a benchmark reads.
 """
 
 import ctypes
@@ -40,6 +41,7 @@ _packed = WeakIdKeyDictionary()
 
 # Elements a block holds: the kernel's instantiations, widest first.
 ELEMS = (32, 8)
+block_elems = {e: 0 for e in ELEMS}
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
 
 
@@ -70,11 +72,11 @@ def _geometry(k):
 
 def _smem(k, elems):
     """Shared-memory bytes of one block (csrc/rns_ladder.cu's smem_bytes):
-    per element the accumulator and the raw products (cpad + 4 uint32
-    each: a 4-word skew), the digit row (Kp bytes and a 16-byte skew) and
+    per element one residue row (cpad + 4 uint32: a 4-word skew), the
+    digit row (Kp bytes and a 16-byte skew) and one word for S row k, then
     beta."""
     _, Kp = _geometry(k)
-    return elems * (8 * (2 * k + 12) + Kp + 16 + 4)
+    return elems * (4 * (2 * k + 12) + Kp + 16 + 4)
 
 
 def _elems(k, B, sms):
@@ -242,6 +244,7 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec, elems):
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, rc))
     launches[name] += 1
+    block_elems[elems] += 1
     return out
 
 

@@ -30,6 +30,7 @@ all exact integer arithmetic.
 
 import functools
 import random
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -197,8 +198,8 @@ def test_mont_mul_smem_formula_matches_the_kernel(dev):
 def test_3072_bit_default_key_on_the_card(dev):
     """The default key size (keys.DEFAULT_KEYSIZE): a round trip through
     the kernels, pinned-r ciphertexts equal to the host's raw_encrypt,
-    and one add. n^2 runs on the ladder at k = 456 and the products at
-    L = 440, both only in blocks of E = 8."""
+    and one add. n^2 runs on the ladder at k = 456 (E = 32 at a full
+    16,384-row call) and the products at L = 440 in blocks of E = 8."""
     from phe_tpu_torch.keys import DEFAULT_KEYSIZE
 
     pub = pt.PaillierPublicKey(P3072 * Q3072)
@@ -207,7 +208,7 @@ def test_3072_bit_default_key_on_the_card(dev):
     dc = pub.device_context(dev)
     assert dc.L == 440 and dc.rns_state().rsys.k == 456
     sms = cuda_rns._sms(dev)
-    assert cuda_rns._elems(456, 16384, sms) == 8
+    assert cuda_rns._elems(456, 16384, sms) == 32
     assert cuda_modexp._pow_elems(440, 16384, sms) == (8, 8, 1)
     values = [0, 1, -1, 3.5, -2.5e-3, 1 << 60, -(1 << 100), 1e6, 17, -0.125]
     for counts in (cuda_modexp.launches, cuda_rns.launches):
@@ -237,6 +238,22 @@ def test_3072_bit_default_key_on_the_card(dev):
             for k, v in c.items() if v} == {"rns_ladder_vec": 2,
                                              "mont_mul": 1}
     assert total.decrypt(priv) == [x + y for x, y in zip(vals, other)]
+
+
+def test_3072_bit_full_call_takes_32_element_blocks(dev):
+    """A 16,384-row encrypt at the fixed 3072-bit key runs its r^n ladder
+    (k = 456) in blocks of 32 elements, one launch that
+    cuda_rns.block_elems counts at E = 32; the decrypt's two CRT halves
+    take E = 32 too, and the batch decrypts to its values."""
+    pub, priv = benchmarks.fixed_key(3072)
+    g = np.random.default_rng(3072)
+    values = [float(v) for v in g.uniform(-1e6, 1e6, 16384)]
+    for key in cuda_rns.block_elems:
+        cuda_rns.block_elems[key] = 0
+    batch = pt.EncryptedBatch.encrypt(pub, values, device=dev)
+    assert cuda_rns.block_elems == {8: 0, 32: 1}
+    assert batch.decrypt(priv) == values
+    assert cuda_rns.block_elems == {8: 0, 32: 3}
 
 
 @pytest.mark.parametrize("window", [4, 5])
@@ -731,13 +748,15 @@ def test_limb_engine_at_2048_bits_equals_the_rns_engine(dev, monkeypatch):
 def _rns_geometry(which):
     """(M, RNSSystem on the card, input limbs, conversion) of the 256-bit
     test key's n^2, or the fixed 2048-bit key's p^2 (k = 152) or n^2
-    (k = 304), or the fixed 8192-bit key's p^2 (k = 624)."""
+    (k = 304), the fixed 3072-bit key's n^2 (k = 456), or the fixed
+    8192-bit key's p^2 (k = 624)."""
     dev = torch.device("cuda")
     if which == "256":
         M = pt.generate_paillier_keypair(n_length=256)[0].nsquare
     else:
-        pub, priv = benchmarks.fixed_key(8192 if which == "p2_8192" else 2048)
-        M = pub.nsquare if which == "n2" else priv.psquare
+        bits = {"p2_8192": 8192, "n2_3072": 3072}.get(which, 2048)
+        pub, priv = benchmarks.fixed_key(bits)
+        M = pub.nsquare if which.startswith("n2") else priv.psquare
     sys_ = rns.build_rns(M, dev)
     Lin = mg.num_limbs_for_modulus(M.bit_length())
     return M, sys_, Lin, rns.build_conversion(sys_, Lin)
@@ -775,12 +794,15 @@ def _ladder_check(sys_, x, digits, vec, B, E):
     name = "rns_ladder_vec" if vec else "rns_ladder"
     xb = x[:B].contiguous()
     before = cuda_rns.launches[name]
+    widths = dict(cuda_rns.block_elems)
     if vec:
         db = digits[:B].contiguous()
         got = cuda_rns.ladder_vec(xb, db, sys_)
     else:
         got = cuda_rns.ladder(xb, digits, sys_, window=4)
     assert cuda_rns.launches[name] == before + 1
+    widths[E] += 1
+    assert cuda_rns.block_elems == widths
     rows = sorted(set(range(min(B, 4))) | set(range(max(0, B - E - 1), B)))
     if vec:
         plain = rns.ladder_vec_plain(xb[rows], db[rows], sys_)
@@ -790,7 +812,7 @@ def _ladder_check(sys_, x, digits, vec, B, E):
     assert torch.equal(got[rows], plain), (B, E)
 
 
-@pytest.mark.parametrize("which", ["256", "p2", "n2"])
+@pytest.mark.parametrize("which", ["256", "p2", "n2", "n2_3072"])
 @pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
 def test_ladder_every_width_and_ragged_batch_bit_equal(dev, which, vec):
     widths = _widths(dev)
@@ -802,19 +824,35 @@ def test_ladder_every_width_and_ragged_batch_bit_equal(dev, which, vec):
 
 @pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
 def test_ladder_at_k_624(dev, vec):
-    """The 8192-bit key's p^2 (k = 624): 90,784 bytes a block at E = 8,
-    and a width that would not fit raises before any launch."""
-    sys_, x, digits = _ladder_inputs("p2_8192", vec, 9, dev)
+    """The 8192-bit key's p^2 (k = 624): 50,464 bytes a block at E = 8 and
+    201,856 at E = 32, bit-equal at both on ragged batches; and at k = 720,
+    past the channel supply, where 32 elements would take 232,576 bytes,
+    that width raises before any launch."""
+    sms = cuda_rns._sms(dev)
+    sys_, x, digits = _ladder_inputs("p2_8192", vec, sms * 32, dev)
     assert sys_.k == 624
-    _ladder_check(sys_, x, digits, vec, 9, 8)
+    for B, E in ((9, 8), ((sms - 1) * 32 + 1, 32), (sms * 32, 32)):
+        _ladder_check(sys_, x, digits, vec, B, E)
+    k = 720
+    C = 2 * k + 8
+    zero = torch.zeros(C, dtype=torch.int64, device=dev)
+    wide = SimpleNamespace(
+        k=k, cpad=C, mbinv_r=zero[:1], w_ext1=zero, w_ext2=zero,
+        r2_dom=zero, scale=zero, **{f: zero for f in cuda_rns._ROWS})
+    xw = torch.zeros((1, C), dtype=torch.int64, device=dev)
+    dw = (torch.zeros((1, 16), dtype=torch.int8, device=dev) if vec
+          else torch.zeros(16, dtype=torch.int64, device=dev))
+    counts = dict(cuda_rns.launches), dict(cuda_rns.block_elems)
+    assert cuda_rns._smem(k, 32) == 232576 > cuda_rns.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_rns._launch(x, digits, sys_, 4, None, None, vec, 32)
+        cuda_rns._launch(xw, dw, wide, 4, None, None, vec, 32)
+    assert (dict(cuda_rns.launches), dict(cuda_rns.block_elems)) == counts
 
 
 def test_ladder_smem_formula_matches_the_kernel(dev):
     cuda_rns._lib(False, 8)
     lib = cuda_rns._build.load("rns_ladder")
-    for k in (8, 40, 152, 304, 392, 624, 664):
+    for k in (8, 40, 152, 304, 392, 456, 624, 664, 720):
         for E in cuda_rns.ELEMS:
             assert lib.phe_rns_ladder_smem(k, E) == cuda_rns._smem(k, E)
 

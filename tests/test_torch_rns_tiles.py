@@ -115,9 +115,18 @@ def test_elems_fit_and_pick_the_path_shapes():
     assert cuda_rns._elems(304, 65536, H100_SMS) == 32
     assert cuda_rns._elems(152, 16384, H100_SMS) == 32
     assert cuda_rns._elems(624, 512, H100_SMS) == 8
-    assert cuda_rns._smem(304, 32) == 178816
-    assert cuda_rns._smem(624, 8) == 90784
-    assert cuda_rns._smem(624, 32) > cuda_rns.SMEM_LIMIT
+    assert cuda_rns._smem(304, 32) == 99456
+    assert cuda_rns._smem(624, 8) == 50464
+    # One residue row an element: 32 elements fit at every k of the
+    # channel supply (k <= 664), and first overflow at k = 720.
+    assert cuda_rns._smem(624, 32) == 201856
+    assert cuda_rns._smem(664, 32) <= cuda_rns.SMEM_LIMIT
+    assert cuda_rns._smem(720, 32) > cuda_rns.SMEM_LIMIT
+    assert cuda_rns._elems(624, H100_SMS * 32, H100_SMS) == 32
+    # The 3072-bit key's n^2: E = 32 at a full call, E = 8 at a short one.
+    assert cuda_rns._smem(456, 32) == 148608 <= cuda_rns.SMEM_LIMIT
+    assert cuda_rns._elems(456, 16384, H100_SMS) == 32
+    assert cuda_rns._elems(456, 4096, H100_SMS) == 8
     # Small batches take the narrowest block; E = 32 from the first batch
     # whose blocks cover every SM, on whatever count the card reports.
     for sms in (H100_SMS, 114):
@@ -129,3 +138,72 @@ def test_elems_fit_and_pick_the_path_shapes():
         tab = cuda_rns._table(B, e, 5, 616, "meta")
         assert tab.shape[0] % e == 0 and B <= tab.shape[0] < B + e
         assert tuple(tab.shape[1:]) == (32, 616)
+
+
+def _montmul_one_row(row, beta, y, sys_):
+    """The phase order of Ladder::montmul's in-place layout, written out
+    in PyTorch: row [E, cpad + 4] holds each element's residues and beta
+    [E] one word, and each phase reads and overwrites just the channels
+    the kernel's does, so a phase order that read a channel after an
+    earlier phase had overwritten it would show. y is [E, cpad] (the row
+    itself for a squaring). This runs no kernel code, and each phase is
+    one vectorised step, so it cannot show a race between the threads of
+    one phase: the GPU tests' bit-equality checks hold the kernel."""
+    k, C, K1 = sys_.k, sys_.cpad, sys_.k + 8
+    m, mu, t14 = sys_.m, sys_.mu, sys_.t14
+    # 1. The channel products, in place.
+    row[:, :C] = row[:, :C] * y
+    # 2. sigma reads the A products into the digit row.
+    v = row[:, :k]
+    sigma = rns._mod((v >> 14) * sys_.sig2[:k] + (v & 0x3FFF) * sys_.sig1[:k],
+                     m[:k], mu[:k])
+    dig = rns._digits_i8(sigma)
+    # 3. Extension 1: each (channel k + j, element) reads its product, then
+    # writes u~ over it.
+    ch = slice(k, k + K1)
+    c0, c1, c2 = rns._block_matmul(sys_.w_ext1, dig)
+    qh = rns._combine_mod(c0, c1, c2, m[ch], mu[ch], t14[ch])
+    r = row[:, ch].clone()
+    row[:, ch] = rns._mod((r >> 14) * sys_.d2[ch] + (r & 0x3FFF) * sys_.d1[ch]
+                          + qh * sys_.e1[ch], m[ch], mu[ch])
+    # 4. The tau digits from B's u~.
+    dig = rns._digits_i8(row[:, k:2 * k])
+    # 5. Extension 2: S row j < k over the A products, row k to beta; the
+    # rows past k go nowhere (the row holds u~ there).
+    c0, c1, c2 = rns._block_matmul(sys_.w_ext2, dig)
+    S_k = slice(k, k + 1)
+    row[:, :k] = rns._combine_raw(c0[:, :k], c1[:, :k], c2[:, :k], m[:k],
+                                  mu[:k], t14[:k])
+    beta[:] = rns._combine_raw(c0[:, S_k], c1[:, S_k], c2[:, S_k],
+                               m[2 * k:2 * k + 1], mu[2 * k:2 * k + 1],
+                               t14[2 * k:2 * k + 1])[:, 0]
+    # 6. beta from S row k and u~ on the redundant channel 2k.
+    sr = rns._mod(beta, sys_.m_r, sys_.mu_r)
+    beta[:] = rns._mod((sr + (sys_.m_r - row[:, 2 * k])) * sys_.mbinv_r,
+                       sys_.m_r, sys_.mu_r)
+    # 7. The last reduction writes the A channels back in place.
+    row[:, :k] = rns._mod(row[:, :k] + beta[:, None] * sys_.neg_mb[:k],
+                          m[:k], mu[:k])
+
+
+@pytest.mark.parametrize("which", ["256", "p2", "n2"])
+@pytest.mark.parametrize("square", [False, True], ids=["product", "square"])
+def test_one_row_in_place_product_equals_rns_mont_mul(which, square):
+    """Eight chained products on one residue row an element, with the
+    skew columns and beta poisoned, bit-equal to rns.rns_mont_mul: the
+    in-place layout's data flow is sound. It documents the kernel's
+    design and does not test the kernel (see _montmul_one_row)."""
+    sys_ = _system(which)
+    C, E = sys_.cpad, 8
+    g = np.random.default_rng(sys_.k + square)
+    x = torch.as_tensor(g.integers(0, 1 << 14, (E, C))) % sys_.m
+    y = torch.as_tensor(g.integers(0, 1 << 14, (E, C))) % sys_.m
+    row = torch.full((E, C + 4), -(1 << 40), dtype=torch.int64)
+    row[:, :C] = x
+    beta = torch.full((E,), -(1 << 40), dtype=torch.int64)
+    want = x
+    for _ in range(8):
+        _montmul_one_row(row, beta, row[:, :C].clone() if square else y, sys_)
+        want = rns.rns_mont_mul(want, want if square else y, sys_)
+        assert torch.equal(row[:, :C], want)
+    assert (row[:, C:] == -(1 << 40)).all()
