@@ -80,7 +80,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. The limb engine at the fixed 8192-bit key, whose n^2 is past the RNS
    channel supply (see limb_engine_path), with one of its decrypts under
    profiling.trace, and its modexp kernel timed at the encrypt's own
-   launch (r^n over 512 rows at L = 1,176) and on 2 rows.
+   launch (r^n over 512 rows at L = 1,176) and on 2 rows. Then the
+   two-body sweep (body_sweep): both products and both modexps at every
+   (L, B) of SWEEP_KEYS' moduli and SWEEP_ROWS (SWEEP_POW_ROWS for the
+   modexps), and the 8192-bit r^n, each in both REDC bodies in turns
+   (int8, int, int, int8) beside the body cuda_modexp._body picks, the
+   two bodies' outputs equal mod M; it fails where the rule's body ran
+   a modexp more than 5 % slower than the other in both turns.
 8. Wire formats, CLI, CRT powers, mesh (wire_path), at the fixed 2048-bit
    key over 16,384 rows, each step timed with its launches: encrypt,
    dump_encrypted_batch (secure), json.dumps, json.loads,
@@ -181,6 +187,18 @@ ENGINE_PINNED = 16  # the pinned-r batch held across the two engines
 VEC_PLAIN_ROWS = 128  # rows of phase 10's mont_pow checks' plain version
 SHARED_PLAIN_ROWS = 4  # and of its mont_pow_shared checks'
 INT_WIDE_PLAIN_ROWS = 2  # plain rows of the integer pipe's 512-row r^n
+# The two-body sweep (body_sweep): the moduli of the fixed 2048-, 3072- and
+# 8192-bit keys (n^2, p^2, p: L = 296, 152, 80; 440, 224, 112; 1,176,
+# 592, 296), the products at every batch a FedAvg step launches there
+# (a client call of 16,384, 4,096, 512 or 64 rows and the product tree's
+# 5-, 2- and 1-call widths over 10 clients) and past them, and both
+# modexp forms on SWEEP_BITS-bit exponents at the calls' widths.
+SWEEP_KEYS = (2048, 3072, 8192)
+SWEEP_ROWS = (64, 128, 320, 512, 1024, 2560, 4096, 8192, 16384, 20480,
+              32768, 81920)
+SWEEP_POW_ROWS = (64, 512, 4096, 16384)
+SWEEP_BITS = 64
+SWEEP_MS = 30.0  # the least CUDA-event milliseconds of one timed turn
 # Each engine's launches a round trip, at keys whose n^2 the RNS channel
 # supply covers (the 2048- and 3072-bit keys).
 TRIP_LAUNCHES = {
@@ -322,6 +340,16 @@ def mont_pow_bound(rows, L, window, n_windows, digit_bytes):
                     int32_ops=rows * (sq * L * (L + 1) // 2 + mul * L * L))
 
 
+def body_pow_bound(mxu, rows, L, window, n_windows, digit_bytes):
+    """A modexp launch's bound in its REDC body: mont_pow_bound for the
+    int8 one (mxu), else int_pipe_bound over its squarings and products."""
+    if mxu:
+        return mont_pow_bound(rows, L, window, n_windows, digit_bytes)
+    sq, mul = pow_products(window, n_windows)
+    return int_pipe_bound(8 * (2 * rows * L + 3 * L) + digit_bytes, L, rows,
+                          sq, mul)
+
+
 def limbs_on(values, L, dev):
     from phe_tpu_torch.ops import montgomery as mg
     from phe_tpu_torch.utils import limbs as hl
@@ -343,17 +371,18 @@ def int_pipe_bound(nbytes, L, rows, squarings=0, products=1):
 
 
 def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
-    """The Montgomery product's kernel for ctx (its int8 body, or the
-    integer-pipe one for a context without REDC matrices) against its
-    plain version and Python ints over rows at L, value mod M with the
-    contract's bounds, timed beside its bound; its record."""
+    """The Montgomery product's kernel for ctx (the REDC body
+    launch_body picks at its shape, or the integer pipe for a context
+    without REDC matrices) against its plain version and Python ints over
+    rows at L, value mod M with the contract's bounds, timed beside its
+    bound; its record."""
     from phe_tpu_torch.ops import cuda_modexp
     from phe_tpu_torch.ops import montgomery as mg
     from phe_tpu_torch.utils import limbs as hl
 
     dev = ctx.m.device
-    mxu = mg.has_matrices(ctx)
     L = ctx.num_limbs
+    mxu = mg.has_matrices(ctx) and launch_body(L, rows)
     R_inv = pow(1 << (14 * L), -1, M)
     xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
     ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
@@ -403,8 +432,8 @@ def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
              bms, by))
     check(ms >= bms, "%s L=%d ran under its bound: its count no longer "
           "matches the kernel" % (name, L))
-    return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
+    return dict(L=L, rows=rows, body=name, tile=tile, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, plain_rows=rows, bound_ms=bms,
                 bound_by=by)
 
 
@@ -420,6 +449,14 @@ def ladder_elems(k, rows):
     return cuda_rns._elems(k, rows, cuda_rns._sms(torch.device("cuda")))
 
 
+def launch_body(L, rows):
+    """The REDC body of a limb-kernel launch of rows at L on this card for
+    a context with REDC matrices (cuda_modexp._body): True for int8."""
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+
+    return cuda_modexp._body(L, rows, cuda_rns._sms(torch.device("cuda")))
+
+
 def pow_tile(L, rows, mxu=True, kernel="mont_pow"):
     """(E, rows a block, blocks a cluster) of a limb-kernel launch of rows
     at L on this card, as the wrappers choose them for the REDC body (the
@@ -429,11 +466,15 @@ def pow_tile(L, rows, mxu=True, kernel="mont_pow"):
     return cuda_modexp._tile(L, rows, torch.device("cuda"), mxu, kernel)[:3]
 
 
-def tile_text(L, rows, mxu=True, kernel="mont_pow"):
-    """The launch's tile, grid and cluster dims, as a phrase."""
+def tile_text(L, rows, mxu=None, kernel="mont_pow"):
+    """The launch's body (None: the one launch_body picks), tile, grid and
+    cluster dims, as a phrase."""
+    if mxu is None:
+        mxu = launch_body(L, rows)
     E, per, C = pow_tile(L, rows, mxu, kernel)
-    return "E = %d, %d rows a block, grid %d blocks in clusters of %d" % (
-        E, per, -(-rows // per) * C, C)
+    return "%s body, E = %d, %d rows a block, grid %d blocks in clusters " \
+        "of %d" % ("int8" if mxu else "integer-pipe", E, per,
+                   -(-rows // per) * C, C)
 
 
 def _counters():
@@ -471,7 +512,23 @@ def run_step(fn, totals):
     return out, seconds, counts
 
 
+def by_form(counts):
+    """Launch counts by form: a limb kernel's launches in either REDC body
+    (the integer pipe's counted under <form>_int) under the form's name."""
+    out = {}
+    for k, v in counts.items():
+        form = k[:-4] if k.endswith("_int") else k
+        out[form] = out.get(form, 0) + v
+    return out
+
+
 def expect_launches(step, counts, want):
+    """counts == want, by form (by_form) unless want names an
+    integer-pipe form: a context with REDC matrices takes the body
+    cuda_modexp._body picks at each launch's shape, a context without
+    them the integer pipe at every one."""
+    if not any(k.endswith("_int") for k in want):
+        counts = by_form(counts)
     check(counts == want, "%s launched %s, expected %s"
           % (step, json.dumps(counts), json.dumps(want)))
 
@@ -648,9 +705,10 @@ def check_vec_kernels(pub, dev, rng):
     ms = cuda_ms(lambda: run(base[:1].contiguous()), 3)
     ms_rows = cuda_ms(lambda: run(base), 1, warm=False)
     products = sum(pow_products(5, len(ndig)))
-    bms, by = mont_pow_bound(1, L, 5, len(ndig), 8 * len(ndig))
-    check(ms >= bms and ms_rows >= mont_pow_bound(rows, L, 5, len(ndig),
-                                                  8 * len(ndig))[0],
+    bms, by = body_pow_bound(launch_body(L, 1), 1, L, 5, len(ndig),
+                             8 * len(ndig))
+    check(ms >= bms and ms_rows >= body_pow_bound(
+              launch_body(L, rows), rows, L, 5, len(ndig), 8 * len(ndig))[0],
           "mont_pow_shared ran under its bound")
     print("mont_pow_shared L=%d windows=%d: value-equal on 1 and %d rows, "
           "Python pow on 4; kernel %.3f ms at 1 row, %s (%.3f ms at %d, "
@@ -700,8 +758,9 @@ def check_ragged_pows(pub, dev, rng):
     block of E = 8, and full blocks of E = 8 and of E = 32, each at the
     smallest and largest batch that takes it (a last block of 1 row, and
     of all but one), on their first rows and last two blocks. The REDC
-    body is the context's: for a key whose contexts were built without
-    matrices, the integer-pipe body's."""
+    body is the context's: int8 with REDC matrices (held by the launch's
+    private body argument), the integer pipe for a key whose contexts
+    were built without them."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -743,8 +802,10 @@ def check_ragged_pows(pub, dev, rng):
           "the plain modexps differ from Python pow")
     for B in sorted(B for Bs in sizes.values() for B in Bs):
         b = base[:B].contiguous()
-        got = cuda_modexp.mont_pow_shared(b, sdig, ctx)
-        got_vec = cuda_modexp.mont_pow(b, digits[:B].contiguous(), ctx)
+        got = cuda_modexp._pow_launch(b, sdig, ctx, mg.DEFAULT_WINDOW, False,
+                                      mxu)
+        got_vec = cuda_modexp._pow_launch(b, digits[:B].contiguous(), ctx,
+                                          mg.DEFAULT_WINDOW, True, mxu)
         at = [i for i, r in enumerate(checked) if r < B]
         rs = [checked[i] for i in at]
         check(values(got[rs]) == [want[i] for i in at]
@@ -1504,8 +1565,9 @@ def limb_engine_path(pub, priv, dev, card, totals):
           and all(100 * v < 101 * nsq for v in gi),
           "mont_pow_shared L=%d: value differs from Python pow" % L)
     products = sum(pow_products(5, nd))
-    bms, by = mont_pow_bound(2, L, 5, nd, 8 * nd)
-    bms_rows, by_rows = mont_pow_bound(rows, L, 5, nd, 8 * nd)
+    bms, by = body_pow_bound(launch_body(L, 2), 2, L, 5, nd, 8 * nd)
+    bms_rows, by_rows = body_pow_bound(launch_body(L, rows), rows, L, 5, nd,
+                                       8 * nd)
     check(ms >= bms and ms_rows >= bms_rows,
           "mont_pow_shared L=%d ran under its bound" % L)
     print("mont_pow_shared L=%d windows=%d: Python pow on 2 rows; kernel "
@@ -1515,7 +1577,8 @@ def limb_engine_path(pub, priv, dev, card, totals):
                           by_rows, ms, tile_text(L, 2), bms, by, py_ms,
                           products, card))
     wide["mont_pow_shared"] = dict(
-        L=L, rows=rows, tile=tile_text(L, rows), max_abs_err=0, ms=ms_rows,
+        L=L, rows=rows, body="int8" if launch_body(L, rows) else "int",
+        tile=tile_text(L, rows), max_abs_err=0, ms=ms_rows,
         plain_ms=None, plain_rows=0, bound_ms=bms_rows, bound_by=by_rows,
         ms_at_2_rows=ms, bound_ms_at_2_rows=bms, python_pow_ms=py_ms,
         products=products)
@@ -1543,13 +1606,16 @@ def limb_engine_path(pub, priv, dev, card, totals):
               "mont_pow L=%d: value differs from Python pow" % L)
     n_windows = digits.shape[1]
     products = sum(pow_products(4, n_windows))
-    bms, by = mont_pow_bound(rows_p, L, 4, n_windows, rows_p * n_windows)
+    bms, by = body_pow_bound(launch_body(L, rows_p), rows_p, L, 4,
+                             n_windows, rows_p * n_windows)
     check(ms >= bms, "mont_pow L=%d ran under its bound" % L)
     print("mont_pow L=%d windows=%d: value-equal on %d rows, Python pow on "
           "4; kernel %.3f ms, %s, plain %.3f ms, bound %.4f ms (%s, %d "
           "products a row)" % (L, n_windows, rows_p, ms, tile_text(L, rows_p),
                                plain_ms, bms, by, products))
-    wide["mont_pow"] = dict(L=L, rows=rows_p, tile=tile_text(L, rows_p),
+    wide["mont_pow"] = dict(L=L, rows=rows_p, body="int8" if launch_body(
+                                L, rows_p) else "int",
+                            tile=tile_text(L, rows_p),
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             plain_rows=rows_p, bound_ms=bms, bound_by=by,
                             products=products)
@@ -1557,6 +1623,114 @@ def limb_engine_path(pub, priv, dev, card, totals):
         m: {"value": v, "unit": "ops/s", "batch": rows}
         for m, v in rates.items()}, "card": card}))
     return rates, wide
+
+
+def body_sweep(dev, card):
+    """Phase 7's two-body sweep: each limb launch of the sweep's shapes
+    timed in both REDC bodies, the int8 one (what every context with REDC
+    matrices ran before the launch chose its body) and the integer pipe,
+    in turns (int8, int, int, int8), each turn the CUDA-event mean over
+    enough launches to fill SWEEP_MS, after the two bodies' outputs are
+    found equal mod M; printed beside the body that
+    cuda_modexp._body picks there, and checked for the modexps, which the
+    rule follows: the rule's body is never slower in both of its turns
+    than the other in either, by more than 5 %. (A product follows its
+    modexp: at L <= 152 the integer pipe runs it faster, and the sweep
+    shows by how much.) Returns the rows of the record: (form, L, B,
+    int8 ms, int ms, the rule's body)."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch import benchmarks
+    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
+    from phe_tpu_torch.ops import montgomery as mg
+
+    sms = cuda_rns._sms(dev)
+    moduli = {}
+    for bits in SWEEP_KEYS:
+        pub, priv = benchmarks.fixed_key(bits)
+        for M in (pub.nsquare, priv.psquare, priv.p):
+            moduli.setdefault(mg.num_limbs_for_modulus(M.bit_length()), M)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 22)
+    rng = random.Random(SEED + 22)
+    rows_out, wrong = [], []
+
+    def operand(M, L, B):
+        """[B, L] limbs of values below M: random limbs under M's top."""
+        x = torch.randint(0, 1 << 14, (B, L), generator=gen, device=dev,
+                          dtype=torch.int64)
+        x[:, (M.bit_length() - 1) // 14:] = 0
+        return x
+
+    def turns(fn, ctx):
+        """{body: [ms, ms]} of fn(body) in turns int8, int, int, int8,
+        after both bodies' outputs are found equal mod M."""
+        outs = [mg.export_canonical(fn(body), ctx) for body in (True, False)]
+        check(torch.equal(*outs), "the two REDC bodies' outputs differ mod M")
+        del outs
+        reps = {b: max(1, min(200, int(SWEEP_MS / max(cuda_once(
+            lambda: fn(b))[1], 1e-3)))) for b in (True, False)}
+        out = {True: [], False: []}
+        for body in (True, False, False, True):
+            out[body].append(cuda_ms(lambda: fn(body), reps[body],
+                                     warm=False))
+        return out
+
+    def report(form, L, B, ms, extra=""):
+        rule = cuda_modexp._body(L, B, sms)
+        best = min(ms[rule])
+        other = min(ms[not rule])
+        name = {True: "int8", False: "int"}
+        print("sweep %s L=%d B=%d%s: int8 %.4f / %.4f ms (%s), int %.4f / "
+              "%.4f ms (%s); rule: %s, %.3f of the other [%s]"
+              % (form, L, B, extra, ms[True][0], ms[True][1],
+                 tile_text(L, B, True, "mont_pow" if "pow" in form
+                           else "mont_mul"), ms[False][0], ms[False][1],
+                 tile_text(L, B, False, "mont_pow" if "pow" in form
+                           else "mont_mul"), name[rule], best / other, card))
+        rows_out.append((form, L, B, ms[True], ms[False], name[rule]))
+        if "pow" in form and min(ms[rule]) > 1.05 * max(ms[not rule]):
+            wrong.append("%s at L = %d, B = %d" % (form, L, B))
+
+    for L, M in sorted(moduli.items()):
+        ctx = mg.build_context(M, dev)
+        check(mg.has_matrices(ctx), "the sweep's context has no REDC "
+              "matrices")
+        for B in SWEEP_ROWS:
+            a, b = operand(M, L, B), operand(M, L, B)
+            for shared in (False, True):
+                ms = turns(lambda body: cuda_modexp._launch(
+                    a, b[0] if shared else b, ctx, shared, body), ctx)
+                report("mont_mul_const" if shared else "mont_mul", L, B, ms)
+            del a, b
+        e = rng.getrandbits(SWEEP_BITS) | 1 << (SWEEP_BITS - 1)
+        sdig = torch.as_tensor(mg.exponent_digits(e, SWEEP_BITS), device=dev)
+        for B in SWEEP_POW_ROWS:
+            x = operand(M, L, B)
+            vdig = torch.as_tensor(tbatch._digits_rows(
+                [rng.getrandbits(SWEEP_BITS) for _ in range(B)],
+                SWEEP_BITS), device=dev)
+            for vec, d in ((False, sdig), (True, vdig)):
+                ms = turns(lambda body: cuda_modexp._pow_launch(
+                    x, d, ctx, mg.DEFAULT_WINDOW, vec, body), ctx)
+                report("mont_pow" if vec else "mont_pow_shared", L, B, ms,
+                       " (%d-bit exponents)" % SWEEP_BITS)
+            del x, vdig
+        torch.cuda.empty_cache()
+    # The 8192-bit encrypt's own launch: r^n over LIMB_ROWS rows at
+    # L = 1,176, window 5.
+    pub8 = benchmarks.fixed_key(8192)[0]
+    ctx = mg.build_context(pub8.nsquare, dev)
+    L = ctx.num_limbs
+    ndig = torch.as_tensor(mg.exponent_digits(
+        pub8.n, pub8.n.bit_length(), tbatch.ENCRYPT_WINDOW), device=dev)
+    x = operand(pub8.nsquare, L, LIMB_ROWS)
+    ms = turns(lambda body: cuda_modexp._pow_launch(
+        x, ndig, ctx, tbatch.ENCRYPT_WINDOW, False, body), ctx)
+    report("mont_pow_shared", L, LIMB_ROWS, ms, " (r^n, exponent n)")
+    print(json.dumps({"body_sweep": rows_out, "card": card}))
+    check(not wrong, "the body rule picks the body slower in both turns by "
+          "more than 5 %% for %s" % "; ".join(wrong))
+    return rows_out
 
 
 def wire_path(pub, priv, dev, card, totals):
@@ -1785,8 +1959,8 @@ def wire_path(pub, priv, dev, card, totals):
           "the plain version" % L2)
     ms = cuda_ms(lambda: run(xm), 3)
     windows = len(digits)
-    bms, by = mont_pow_bound(BATCH, L2, tbatch.DECRYPT_WINDOW, windows,
-                             8 * windows)
+    bms, by = body_pow_bound(launch_body(L2, BATCH), BATCH, L2,
+                             tbatch.DECRYPT_WINDOW, windows, 8 * windows)
     check(ms >= bms, "mont_pow_shared L=%d ran under its bound" % L2)
     print("crt_powers: %d rows in %.4f s, %.1f rows/s, Python pow on %d "
           "sampled rows of both halves; launches %s; mont_pow_shared L=%d "
@@ -2154,9 +2328,9 @@ def engine_trip(pub, priv, values, engine, dev, totals, int_pipe=False):
 
 def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
               exponent=None, digits=None, exponents=None):
-    """The limb engine's modexp of one form, in the body ctx carries (int8
-    REDC, or the integer pipe for a context without REDC matrices), over
-    rows at ctx's L: per-row `bits`-bit schedules (vec; `exponents` if
+    """The limb engine's modexp of one form, in the REDC body launch_body
+    picks at its shape (the integer pipe for a context without REDC
+    matrices), over rows at ctx's L: per-row `bits`-bit schedules (vec; `exponents` if
     given, else random ones), or one shared exponent (`exponent`, else
     `bits` random bits; its `digits` if given, at `window`). Value-equal
     to its plain version on plain_rows rows and to Python's pow on four,
@@ -2167,7 +2341,8 @@ def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
     from phe_tpu_torch.ops import montgomery as mg
     from phe_tpu_torch.utils import limbs as hl
 
-    L, mxu = ctx.num_limbs, mg.has_matrices(ctx)
+    L = ctx.num_limbs
+    mxu = mg.has_matrices(ctx) and launch_body(L, rows)
     R = 1 << (14 * L)
     R_inv = pow(R, -1, M)
     xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
@@ -2214,11 +2389,7 @@ def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
         check(g[i] % M == pow(xs[i] * R_inv, es[i], M) * R % M,
               "%s L=%d: value differs from Python pow" % (name, L))
     sq, mul = pow_products(window, n_windows)
-    if mxu:
-        bms, by = mont_pow_bound(rows, L, window, n_windows, digit_bytes)
-    else:
-        bms, by = int_pipe_bound(8 * (2 * rows * L + 3 * L) + digit_bytes,
-                                 L, rows, sq, mul)
+    bms, by = body_pow_bound(mxu, rows, L, window, n_windows, digit_bytes)
     tile = tile_text(L, rows, mxu)
     print("%s L=%d windows=%d: value-equal on %d rows, Python pow on 4; "
           "kernel %.3f ms at %d rows, %s (%d launches so far), plain %.3f "
@@ -2227,9 +2398,9 @@ def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
              cuda_modexp.launches[name], plain_ms, plain_rows, bms, by,
              sq + mul))
     check(ms >= bms, "%s L=%d ran under its bound" % (name, L))
-    return dict(L=L, rows=rows, tile=tile, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, plain_rows=plain_rows, bound_ms=bms,
-                bound_by=by, products=sq + mul)
+    return dict(L=L, rows=rows, body=name, tile=tile, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, plain_rows=plain_rows,
+                bound_ms=bms, bound_by=by, products=sq + mul)
 
 
 def check_ragged_products(ctx, M, dev, rng):
@@ -2238,7 +2409,9 @@ def check_ragged_products(ctx, M, dev, rng):
     (ragged_sizes: one row a block, or for the integer pipe one row a
     cluster of 8, 4, 2 and 1 blocks; three rows a block of E = 8; full
     blocks of E = 8 and of E = 32, each at its smallest and largest
-    batch), value-equal to the plain version on every row."""
+    batch), value-equal to the plain version on every row, in the body
+    ctx carries: int8 with REDC matrices (held by the launch's private
+    body argument), else the integer pipe."""
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
 
@@ -2253,9 +2426,9 @@ def check_ragged_products(ctx, M, dev, rng):
     b = limbs_on([rng.randrange(0, 2 * M) for _ in range(rows)], L, dev)
     for B in sorted(B for Bs in sizes.values() for B in Bs):
         x, y = a[:B].contiguous(), b[:B].contiguous()
-        for got, ref in ((cuda_modexp.mont_mul(x, y, ctx),
+        for got, ref in ((cuda_modexp._launch(x, y, ctx, False, mxu),
                           cuda_modexp.mont_mul_plain(x, y, ctx)),
-                         (cuda_modexp.mont_mul_const(x, y[0], ctx),
+                         (cuda_modexp._launch(x, y[0], ctx, True, mxu),
                           cuda_modexp.mont_mul_plain(x, y[0], ctx))):
             check(torch.equal(mg.export_canonical(got, ctx),
                               mg.export_canonical(ref, ctx))
@@ -2454,7 +2627,7 @@ def engines_phase(keys, dev, card, totals):
         checks[name].append(check_pow(ctx8, M8, dev, rng, vec,
                                       LIMB_POW_ROWS, 64, LIMB_POW_ROWS))
     # The 8192-bit encrypt's own launch, r^n over LIMB_ROWS rows: the
-    # integer pipe's E = 8 tile (phase 7 times the int8 body there).
+    # integer pipe's E = 8 tile (phase 7's sweep times both bodies there).
     checks["mont_pow_shared_int"].append(check_pow(
         ctx8, M8, dev, rng, False, LIMB_ROWS, pub8.n.bit_length(),
         INT_WIDE_PLAIN_ROWS, window=tbatch.ENCRYPT_WINDOW, exponent=pub8.n))
@@ -2658,10 +2831,10 @@ def main():
     print("main path B=%d: decrypt(encrypt(x)) == x for every row" % BATCH)
     print("launches per encrypt batch: %s" % json.dumps(enc_counts))
     print("launches per decrypt batch: %s" % json.dumps(dec_counts))
-    check(enc_counts == {"mont_mul": 1, "mont_mul_const": 1, "rns_ladder": 1},
-          "encrypt did not launch each kernel as expected")
-    check(dec_counts == {"mont_mul": 3, "mont_mul_const": 6, "rns_ladder": 2},
-          "decrypt did not launch each kernel as expected")
+    expect_launches("encrypt", enc_counts,
+                    {"mont_mul": 1, "mont_mul_const": 1, "rns_ladder": 1})
+    expect_launches("decrypt", dec_counts,
+                    {"mont_mul": 3, "mont_mul_const": 6, "rns_ladder": 2})
     print("encrypt: %.1f ops/s (%.3f s for %d); decrypt: %.1f ops/s "
           "(%.3f s) [%s]" % (BATCH / t_enc, t_enc, BATCH, BATCH / t_dec,
                               t_dec, card))
@@ -2700,8 +2873,11 @@ def main():
     # -- 6. the benchmarks -------------------------------------------------
     benchmark_phase(pub, priv, dev, card, path_launches)
 
-    # -- 7. the limb engine at 8192 bits -----------------------------------
+    # -- 7. the limb engine at 8192 bits, and the two-body sweep -----------
     _, wide_checks = limb_engine_path(pub8, priv8, dev, card, path_launches)
+    t0 = time.time()
+    body_sweep(dev, card)
+    print("two-body sweep: %.1f s" % (time.time() - t0))
 
     # -- 8. wire formats, CLI, CRT powers, mesh ----------------------------
     wire_seconds, crt_check = wire_path(pub, priv, dev, card, path_launches)

@@ -8,12 +8,14 @@ kernel of ``csrc/mont_mul.cu``; ``mont_pow_shared`` and ``mont_pow``
 exponent shared by the batch or one per row) launch the kernel of
 ``csrc/mont_pow.cu``. Both run the REDC tile of ``csrc/redc_tile.cuh``: E
 rows a block (``_pow_elems``), both constant products of each reduction
-on the int8 tensor cores against the context's REDC matrices, packed once
-per context and card (``_pow_columns``), or, for a context built without
-them (montgomery.has_matrices False: PHE_TPU_TORCH_MXU=0), on the CUDA
+either on the int8 tensor cores against the context's REDC matrices,
+packed once per context and card (``_pow_columns``), or on the CUDA
 cores' integer pipe against M' and M (the ``_int`` entry points), whose
 batches no larger than the card's SMs run one row a thread-block cluster
-of C blocks (E = 1). Each
+of C blocks (E = 1). Each launch takes the body that ``_body`` finds the
+faster at its shape (L, B) on the card; a context built without REDC
+matrices (montgomery.has_matrices False: PHE_TPU_TORCH_MXU=0) takes the
+integer pipe at every shape. Each
 launches its kernel for tensors on the card and takes its plain PyTorch
 version (montgomery.mont_mul_plain, mont_pow_shared_plain,
 mont_pow_plain: the integer-pipe formulation) for tensors on the CPU;
@@ -63,6 +65,10 @@ POW_SKEW_PAD, ONE_ROW_BYTES = 16, 116736
 # spread over 128, while 64 blocks at L = 592 (0.27 GB) ran faster than
 # 8 (PERF.md, section 6).
 POW_STREAM = 1 << 29
+# The REDC body rule's limbs (_body): the int8 body up to BODY_ROW_LIMBS
+# times the rows its blocks hold, and up to BODY_ONE_ROW_LIMBS for the
+# batches the integer pipe runs on its one-row tile.
+BODY_ROW_LIMBS, BODY_ONE_ROW_LIMBS = 24, 128
 # Per context with REDC matrices (keyed by its m tensor): the kernels'
 # packed REDC operands on its card, built at its first launch of either
 # kernel.
@@ -193,6 +199,30 @@ def _pow_elems(L, B, sms, mxu=True, fit=None):
     return fits[-1], min(fits[-1], rows), 1
 
 
+def _body(L, B, sms):
+    """Whether a product or modexp launch of B rows at L on a card of
+    `sms` multiprocessors runs the int8 REDC body (True) or the integer
+    pipe (False), for a context that has REDC matrices: the int8 body
+    where the modexps measured it the faster (PERF.md, section 6).
+
+    Each block of the int8 body streams the two REDC matrices, 12 L^2
+    bytes, from L2 once a product, shared by the rows it holds; the
+    integer pipe computes q and q M on the CUDA cores instead. The int8
+    body ran the modexps faster where that stream a row-product,
+    12 L^2 ceil(B / rows) / B bytes, is at most 12 BODY_ROW_LIMBS L:
+    every 32-row block, where one fits (L <= 296); 8-row blocks up to
+    L = 152; none at L >= 440. A batch of at most `sms` rows, which the
+    integer pipe runs one row a cluster of blocks, whose syncs cost most
+    at small L, takes the int8 body up to L = BODY_ONE_ROW_LIMBS. A
+    product launch follows its modexp: at L <= 152 the integer pipe ran
+    single products up to 43 % (0.15 ms) faster, where the int8 body ran
+    the modexps up to 49 % faster."""
+    if B <= sms:
+        return L <= BODY_ONE_ROW_LIMBS
+    _, rows, _ = _pow_elems(L, B, sms)
+    return L * -(-B // rows) <= BODY_ROW_LIMBS * B
+
+
 def _pow_columns(ctx):
     """(w_mq, w_m packed in fragment order, c_mq, c_m as int32) on the
     context's device, packed on the host once per context and card; the
@@ -237,13 +267,21 @@ def _tile(L, B, dev, mxu, kernel):
     return elems, rows, cluster, (B, rows) if mxu else (B, rows, cluster)
 
 
-def _redc_args(ctx, dev, L):
-    """(mxu, the REDC constants' pointers): the packed matrices and their
-    compensation vectors, or M' and M for the integer-pipe body."""
-    cols = _pow_columns(ctx)
-    if cols is None:
+def _redc_args(ctx, dev, L, B, body=None):
+    """(mxu, the REDC constants' pointers) of a launch of B rows: the
+    packed matrices and their compensation vectors for the int8 body, or
+    M' and M for the integer pipe. The body is _body's where the context
+    has REDC matrices, else the integer pipe; `body` (the launch helpers'
+    private argument, for the card's tests and sweeps) holds it to one."""
+    if body is None:
+        body = mg.has_matrices(ctx) and _body(L, B, cuda_rns._sms(dev))
+    if not body:
         _check(ctx.m_prime, "ctx.m_prime", (L,), dev)
         return False, (ctx.m_prime.data_ptr(), ctx.m.data_ptr())
+    cols = _pow_columns(ctx)
+    if cols is None:
+        raise ValueError("the int8 REDC body needs a context with REDC "
+                         "matrices")
     return True, tuple(t.data_ptr() for t in cols)
 
 
@@ -260,8 +298,9 @@ def _check(t, name, shape, device):
         raise ValueError("%s must be contiguous" % name)
 
 
-def _launch(a, b, ctx, shared):
-    """One launch of the product kernel, E and its rows from _pow_elems."""
+def _launch(a, b, ctx, shared, body=None):
+    """One launch of the product kernel, E and its rows from _pow_elems,
+    the REDC body from _redc_args."""
     if a.dim() != 2:
         raise ValueError("a must be [B, L], got shape %s" % (tuple(a.shape),))
     B, L = a.shape
@@ -278,7 +317,7 @@ def _launch(a, b, ctx, shared):
     out = torch.empty_like(a)
     if B == 0:
         return out
-    mxu, consts = _redc_args(ctx, dev, L)
+    mxu, consts = _redc_args(ctx, dev, L, B, body)
     elems, _, _, tile = _tile(L, B, dev, mxu, "mont_mul")
     rc = _lib(shared, elems, mxu)(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), *consts, *tile, L,
@@ -317,8 +356,9 @@ def _pow_table(B, rows, window, L, dev, cluster=1):
                        dtype=torch.int32, device=dev)
 
 
-def _pow_launch(base, digits, ctx, window, vec):
-    """One launch of the modexp kernel, E and its rows from _pow_elems."""
+def _pow_launch(base, digits, ctx, window, vec, body=None):
+    """One launch of the modexp kernel, E and its rows from _pow_elems,
+    the REDC body from _redc_args."""
     if base.dim() != 2:
         raise ValueError("base must be [B, L], got shape %s"
                          % (tuple(base.shape),))
@@ -340,7 +380,7 @@ def _pow_launch(base, digits, ctx, window, vec):
     out = torch.empty_like(base)
     if B == 0:
         return out
-    mxu, consts = _redc_args(ctx, dev, L)
+    mxu, consts = _redc_args(ctx, dev, L, B, body)
     elems, rows, cluster, tile = _tile(L, B, dev, mxu, "mont_pow")
     table = _pow_table(B, rows, window, L, dev, cluster)
     rc = _pow_lib(vec, elems, mxu)(

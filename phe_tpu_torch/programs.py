@@ -102,6 +102,7 @@ class CudaGraphs:
 
     def __init__(self):
         self._streams = {}
+        # dev -> (the pool's handle, the graphs captured into it, weakly).
         self._pools = {}
 
     def _side(self, dev):
@@ -122,18 +123,25 @@ class CudaGraphs:
         """(graph, its static outputs). As torch.cuda.graph does, the
         blocks cached for eager work are freed on the card first, so that
         the graphs' pool can take them; unlike it, no synchronise and no
-        garbage collection (the side stream has run the warm-up)."""
+        garbage collection (the side stream has run the warm-up). A pool
+        whose graphs have all been dropped (their keys died) is not
+        captured into again: PyTorch's pinned-memory allocator keeps such
+        a pool's id with no user, and a capture into it fails an internal
+        assert; the next capture opens a new pool."""
         graph = torch.cuda.CUDAGraph()
         side = self._side(dev)
-        if dev not in self._pools:
-            self._pools[dev] = torch.cuda.graph_pool_handle()
+        pool = self._pools.get(dev)
+        if pool is None or not pool[1]:
+            pool = self._pools[dev] = (torch.cuda.graph_pool_handle(),
+                                       weakref.WeakSet())
         torch.cuda.empty_cache()
         with torch.cuda.device(dev), torch.cuda.stream(side):
-            graph.capture_begin(pool=self._pools[dev])
+            graph.capture_begin(pool=pool[0])
             try:
                 out = fn()
             finally:
                 graph.capture_end()
+        pool[1].add(graph)
         return graph, out
 
     def drop_pool(self, dev):

@@ -22,7 +22,10 @@ CLI's vector commands run on the card through click's CliRunner, and a
 world of one on NCCL sums as batch.sum() does. The integer-pipe REDC
 bodies (contexts built with mxu=False) run every block width on ragged
 batches at L = 80 and 296, and the one-row tile on thread-block clusters
-at L = 1,176 on 16 and ragged rows; both layouts' shared-memory formulas
+at L = 1,176 on 16 and ragged rows; a context with REDC matrices takes
+the body cuda_modexp._body picks at each launch's shape (the integer
+pipe for the 8192-bit r^n over 512 rows), and the int8 body's tests hold
+it through the launch helpers' private body argument; both layouts' shared-memory formulas
 match the kernels', and PHE_TPU_TORCH_ENGINE=limb gives the RNS engine's
 pinned-r ciphertexts at 2048 bits. Tolerance zero throughout:
 all exact integer arithmetic.
@@ -91,7 +94,8 @@ def test_mont_mul_kernel_matches_plain(dev, bits, shared):
     ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
     a, b = _limbs(xs, L, dev), _limbs(ys, L, dev)
     fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
-    name = "mont_mul_const" if shared else "mont_mul"
+    name = ("mont_mul_const" if shared else "mont_mul") + (
+        "" if cuda_modexp._body(L, rows, cuda_rns._sms(dev)) else "_int")
     before = cuda_modexp.launches[name]
     got = fn(a, b[0] if shared else b, ctx)
     assert cuda_modexp.launches[name] == before + 1
@@ -141,13 +145,16 @@ def _mul_modulus(which):
 @pytest.mark.parametrize("shared", [False, True], ids=["two", "shared"])
 def test_mont_mul_every_width_and_ragged_batch_value_equal(dev, which,
                                                            shared):
-    """Both product forms at every (E, rows a block) the wrapper picks at
-    L = 8, 40, 296, 440 and 1,176, reached through the batch size (one row
-    a block of E = 8 on 1, 7, 8 and 9 rows; three a block where the
-    matrix stream allows; full blocks of E = 8 and, where 32 rows fit, of
-    E = 32, their last block holding 1 row and all but one): every row
-    value-equal to Python ints, the first rows and the last two blocks to
-    the plain version, limbs in [0, 2^14], values < 1.01 M."""
+    """Both product forms in the int8 body at every (E, rows a block) the
+    wrapper picks for it at L = 8, 40, 296, 440 and 1,176, reached through
+    the batch size (one row a block of E = 8 on 1, 7, 8 and 9 rows; three
+    a block where the matrix stream allows; full blocks of E = 8 and,
+    where 32 rows fit, of E = 32, their last block holding 1 row and all
+    but one), the body held by the launch's private argument where _body
+    would take the integer pipe: every row value-equal to Python ints,
+    the first rows and the last two blocks to the plain version, limbs in
+    [0, 2^14], values < 1.01 M, one launch counted under the int8 body's
+    name."""
     rng = random.Random(len(which) + shared)
     M = _mul_modulus(which)
     ctx = mg.build_context(M, dev)
@@ -161,12 +168,13 @@ def test_mont_mul_every_width_and_ragged_batch_value_equal(dev, which,
     a, b = _limbs(xs, L, dev), _limbs(ys, L, dev)
     R_inv = pow(1 << (14 * L), -1, M)
     name = "mont_mul_const" if shared else "mont_mul"
-    fn = cuda_modexp.mont_mul_const if shared else cuda_modexp.mont_mul
+    fn = functools.partial(cuda_modexp._launch, ctx=ctx, shared=shared,
+                           body=True)
     for B, (E, per, C) in widths:
         assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per, C)
         bb = b[0] if shared else b[:B].contiguous()
         before = cuda_modexp.launches[name]
-        got = fn(a[:B].contiguous(), bb, ctx)
+        got = fn(a[:B].contiguous(), bb)
         assert cuda_modexp.launches[name] == before + 1
         idx = sorted(set(range(min(B, 4)))
                      | set(range(max(0, B - 2 * per), B)))
@@ -218,8 +226,8 @@ def test_3072_bit_default_key_on_the_card(dev):
     assert batch.mont.is_cuda
     assert batch.decrypt(priv) == values
     assert cuda_rns.launches["rns_ladder"] == 3
-    assert cuda_modexp.launches["mont_mul"] == 4
-    assert cuda_modexp.launches["mont_mul_const"] == 7
+    assert _by_form(cuda_modexp.launches)["mont_mul"] == 4
+    assert _by_form(cuda_modexp.launches)["mont_mul_const"] == 7
     rng = random.Random(3072)
     rs = [rng.randrange(1, pub.n) for _ in values]
     pinned = pt.EncryptedBatch.encrypt(pub, values, r_values=rs, device=dev)
@@ -234,9 +242,7 @@ def test_3072_bit_default_key_on_the_card(dev):
         for key in counts:
             counts[key] = 0
     total = a + b
-    assert {k: v for c in (cuda_modexp.launches, cuda_rns.launches)
-            for k, v in c.items() if v} == {"rns_ladder_vec": 2,
-                                             "mont_mul": 1}
+    assert _by_form(_counts()) == {"rns_ladder_vec": 2, "mont_mul": 1}
     assert total.decrypt(priv) == [x + y for x, y in zip(vals, other)]
 
 
@@ -413,8 +419,7 @@ def test_algebra_on_the_card_goes_through_the_kernels(dev):
             for key in c:
                 c[key] = 0
         out = fn()
-        return out, {k: v for c in (cuda_modexp.launches, cuda_rns.launches)
-                     for k, v in c.items() if v}
+        return out, _by_form(_counts())
 
     got, n = counts(lambda: a + b)
     assert got.decrypt(priv) == [x + y for x, y in zip(vals, other)]
@@ -444,8 +449,8 @@ def test_round_trip_on_the_card_goes_through_the_kernels(dev):
     assert batch.mont.is_cuda
     assert batch.decrypt(priv) == values
     assert cuda_rns.launches["rns_ladder"] == 3
-    assert cuda_modexp.launches["mont_mul"] == 4
-    assert cuda_modexp.launches["mont_mul_const"] == 7
+    assert _by_form(cuda_modexp.launches)["mont_mul"] == 4
+    assert _by_form(cuda_modexp.launches)["mont_mul_const"] == 7
     assert cuda_rns.launches["rns_ladder_vec"] == 0
     rng = random.Random(7)
     rs = [rng.randrange(1, pub.n) for _ in values]
@@ -484,9 +489,10 @@ def test_issue_chain_wrapper_checks(dev):
 
 
 def test_mont_pow_at_the_8192_bit_geometry(dev):
-    """mont_pow at L = 1,176 (n^2 of an 8192-bit key, window 4: blocks of
-    E = 8 in 227,072 bytes of shared memory, the table in device memory),
-    on 64-bit schedules, against its plain version and Python pow."""
+    """mont_pow's int8 body at L = 1,176 (n^2 of an 8192-bit key, window
+    4: blocks of E = 8 in 227,072 bytes of shared memory, the table in
+    device memory), held by the launch's private body argument, on 64-bit
+    schedules, against its plain version and Python pow."""
     rng = random.Random(8192)
     M = rng.getrandbits(16384) | (1 << 16383) | 1
     ctx = mg.build_context(M, dev)
@@ -497,7 +503,10 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
     es = [rng.getrandbits(64) for _ in range(rows - 2)] + [0, (1 << 64) - 1]
     base = _limbs(xs, L, dev)
     digits = tbatch._digits_rows(es, 64)
-    got = cuda_modexp.mont_pow(base, digits, ctx)
+    before = cuda_modexp.launches["mont_pow"]
+    got = cuda_modexp._pow_launch(base, digits, ctx, mg.DEFAULT_WINDOW,
+                                  vec=True, body=True)
+    assert cuda_modexp.launches["mont_pow"] == before + 1
     plain = mg.mont_pow_plain(base, digits, ctx)
     torch.cuda.synchronize()
     R = 1 << (14 * L)
@@ -506,6 +515,50 @@ def test_mont_pow_at_the_8192_bit_geometry(dev):
     g = hl.limbs_to_ints(got.cpu().numpy())
     assert [v % M for v in g] == want
     assert [v % M for v in hl.limbs_to_ints(plain.cpu().numpy())] == want
+    assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+    assert all(100 * v < 101 * M for v in g)
+
+
+def test_8192_bit_r_n_takes_the_integer_pipe_and_int8_stays_held(dev):
+    """The 8192-bit key's n^2 with REDC matrices (L = 1,176): the
+    encrypt's r^n launch shape, mont_pow_shared over 512 rows (a 256-bit
+    exponent at ENCRYPT_WINDOW), runs the integer pipe (counted under
+    mont_pow_shared_int, not mont_pow_shared) and is value-equal mod M to
+    mont_pow_shared_plain and to Python's pow on four rows; the int8
+    body, held by the launch's private body argument, gives the same
+    values mod M on every row and counts under its own name."""
+    M = benchmarks.fixed_key(8192)[0].nsquare
+    ctx = mg.build_context(M, dev)
+    L = ctx.num_limbs
+    assert L == 1176 and mg.has_matrices(ctx)
+    assert not cuda_modexp._body(L, 512, cuda_rns._sms(dev))
+    rng = random.Random(1176 + 512)
+    xs = [rng.randrange(0, 2 * M) for _ in range(512)]
+    base = _limbs(xs, L, dev)
+    e = rng.getrandbits(256) | 1 << 255
+    window = tbatch.ENCRYPT_WINDOW
+    digits = torch.as_tensor(mg.exponent_digits(e, 256, window), device=dev)
+    before = dict(cuda_modexp.launches)
+    got = cuda_modexp.mont_pow_shared(base, digits, ctx, window=window)
+    assert cuda_modexp.launches["mont_pow_shared_int"] == (
+        before["mont_pow_shared_int"] + 1)
+    assert cuda_modexp.launches["mont_pow_shared"] == before["mont_pow_shared"]
+    held = cuda_modexp._pow_launch(base, digits, ctx, window, vec=False,
+                                   body=True)
+    assert cuda_modexp.launches["mont_pow_shared"] == (
+        before["mont_pow_shared"] + 1)
+    idx = [0, 1, 510, 511]
+    plain = mg.mont_pow_shared_plain(base[idx], digits, ctx, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(mg.export_canonical(got, ctx),
+                       mg.export_canonical(held, ctx))
+    assert torch.equal(mg.export_canonical(got[idx], ctx),
+                       mg.export_canonical(plain, ctx))
+    R = 1 << (14 * L)
+    Rinv = pow(R, -1, M)
+    g = hl.limbs_to_ints(got.cpu().numpy())
+    assert [g[i] % M for i in idx] == [pow(xs[i] * Rinv, e, M) * R % M
+                                        for i in idx]
     assert int(got.min()) >= 0 and int(got.max()) <= 1 << 14
     assert all(100 * v < 101 * M for v in g)
 
@@ -538,11 +591,13 @@ def _pow_widths(dev, L, mxu=True):
 @pytest.mark.parametrize("which", ["256", "2048", "8192"])
 @pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
 def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
-    """Both modexp forms at every (E, rows a block) the wrapper picks,
-    reached through the batch size, at L = 40, 296 and 1,176 (64-bit
-    exponents, window 4): value-equal to the plain version and Python pow
-    on the first rows and the last two blocks, limbs in [0, 2^14], value
-    < 1.01 M."""
+    """Both modexp forms in the int8 body at every (E, rows a block) the
+    wrapper picks for it, reached through the batch size, at L = 40, 296
+    and 1,176 (64-bit exponents, window 4), the body held by the launch's
+    private argument where _body would take the integer pipe:
+    value-equal to the plain version and Python pow on the first rows and
+    the last two blocks, limbs in [0, 2^14], value < 1.01 M, one launch
+    counted under the int8 body's name."""
     rng = random.Random(len(which) + vec)
     if which == "256":
         M = _key(256)[0].nsquare
@@ -565,13 +620,14 @@ def test_mont_pow_every_width_and_ragged_batch_value_equal(dev, which, vec):
         es = [e] * rows
         digits = torch.as_tensor(mg.exponent_digits(e, 64), device=dev)
     name = "mont_pow" if vec else "mont_pow_shared"
-    fn = cuda_modexp.mont_pow if vec else cuda_modexp.mont_pow_shared
+    fn = functools.partial(cuda_modexp._pow_launch, ctx=ctx,
+                           window=mg.DEFAULT_WINDOW, vec=vec, body=True)
     plain = mg.mont_pow_plain if vec else mg.mont_pow_shared_plain
     for B, (E, per, C) in widths:
         assert cuda_modexp._pow_elems(L, B, cuda_rns._sms(dev)) == (E, per, C)
         before = cuda_modexp.launches[name]
         db = digits[:B].contiguous() if vec else digits
-        got = fn(base[:B].contiguous(), db, ctx)
+        got = fn(base[:B].contiguous(), db)
         assert cuda_modexp.launches[name] == before + 1
         idx = sorted(set(range(min(B, 4)))
                      | set(range(max(0, B - 2 * per), B)))
@@ -737,8 +793,8 @@ def test_limb_engine_at_2048_bits_equals_the_rns_engine(dev, monkeypatch):
         assert batch.decrypt(priv) == values
         ladders = cuda_rns.launches["rns_ladder"]
         assert (ladders == 0) == (engine == "limb")
-        assert (cuda_modexp.launches["mont_pow_shared"] == 3) == (
-            engine == "limb")
+        assert (_by_form(cuda_modexp.launches).get("mont_pow_shared")
+                == 3) == (engine == "limb")
     encs = pt.EncodedNumber.encode_many(pub, values)
     assert ints["limb"] == ints["rns"] == [
         pub.raw_encrypt(e.encoding, r_value=r) for e, r in zip(encs, rs)]
@@ -882,6 +938,17 @@ def _counts():
             for k, v in c.items() if v}
 
 
+def _by_form(counts):
+    """Launch counts by form: a limb kernel's launches in either REDC body
+    (the integer pipe's counted under <form>_int) under the form's name."""
+    out = {}
+    for k, v in counts.items():
+        if v:
+            form = k[:-4] if k.endswith("_int") else k
+            out[form] = out.get(form, 0) + v
+    return out
+
+
 def test_serialised_round_trip_of_a_card_batch(dev):
     """dump_encrypted_batch of a batch on the card, pinned (the host's
     raw_encrypt after decrease_exponent_to, JSON for JSON) and secure (re-
@@ -926,7 +993,7 @@ def test_crt_powers_on_the_card_equal_python_pow(dev):
     _zero_counts()
     xp, xq = pdc.crt_powers(mont)
     torch.cuda.synchronize()
-    assert _counts().get("mont_pow_shared") == 2
+    assert _by_form(_counts()).get("mont_pow_shared") == 2
     assert xp.is_cuda and xp.shape == (mont.shape[0], 152)
     for got, d in ((xp, priv.p), (xq, priv.q)):
         ints = hl.limbs_to_ints(got.cpu().numpy())

@@ -168,9 +168,12 @@ def test_8192_bit_key_runs_n_squared_on_the_limb_engine():
 
 def test_mont_mul_wrapper_takes_the_8192_bit_geometry(monkeypatch):
     """The Montgomery product's wrapper admits L = 1,176 (n^2 of an
-    8192-bit key: 227,072 bytes of shared memory a block of 8 rows, above
-    the 48 KB default, which the launch raises) and refuses a context
-    whose block of 8 rows passes the 227 KB a Hopper block can have."""
+    8192-bit key: 227,072 bytes of shared memory a block of 8 rows of
+    the int8 body, above the 48 KB default, which the launch raises; the
+    body held by the launch's private argument, since the body rule
+    gives 3 rows there to the integer pipe's one-row tile) and refuses a
+    context whose block of 8 rows passes the 227 KB a Hopper block can
+    have."""
     from phe_tpu_torch.ops import _build, cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
 
@@ -179,14 +182,23 @@ def test_mont_mul_wrapper_takes_the_8192_bit_geometry(monkeypatch):
         lambda *args: calls.append((shared, elems) + args) or 0))
     monkeypatch.setattr(_build, "stream_handle", lambda device: None)
     monkeypatch.setattr(cuda_rns, "_sms", lambda device: 132)
+    # The clusters of C blocks an H100 holds at once, about.
+    monkeypatch.setattr(cuda_modexp, "_fit",
+                        lambda kernel, dev, L: lambda C: 120 // C)
     monkeypatch.setitem(cuda_modexp.launches, "mont_mul", 0)
+    monkeypatch.setitem(cuda_modexp.launches, "mont_mul_int", 0)
     ctx = mg.build_context((1 << 16383) + 1, "cpu")
     a = torch.zeros((3, 1176), dtype=torch.int64)
-    assert cuda_modexp._launch(a, a, ctx, shared=False).shape == (3, 1176)
+    assert cuda_modexp._launch(a, a, ctx, shared=False,
+                               body=True).shape == (3, 1176)
     # E = 8 (the only block that fits), one row a block over 3 blocks.
     assert len(calls) == 1 and calls[0][:2] == (False, 8)
     assert calls[0][9:12] == (3, 1, 1176)
     assert cuda_modexp.launches["mont_mul"] == 1
+    # Left to the rule: the integer pipe's one-row tile, clusters of 8.
+    cuda_modexp._launch(a, a, ctx, shared=False)
+    assert calls[1][:2] == (False, 1) and calls[1][7:11] == (3, 1, 8, 1176)
+    assert cuda_modexp.launches["mont_mul_int"] == 1
     assert cuda_modexp._pow_smem(1176, 8) == 227072
     wide = mg.build_context((1 << 16800) + 1, "cpu")
     assert wide.num_limbs == 1208 > cuda_modexp.MAX_MUL_LIMBS

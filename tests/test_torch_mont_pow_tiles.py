@@ -878,45 +878,232 @@ def test_int_tile_chooser_and_smem_fit_every_path_width(L):
         assert cm._pow_smem(L, 32, False) == 215080
 
 
+# The REDC body that was the faster for the modexps (both forms, 64-bit
+# exponents, and the 8192-bit r^n) in the two-body sweep on an H100 SXM
+# (PERF.md, section 6), at each (L, B) a FedAvg cell launches: True for
+# the int8 body.
+_SWEEP_WINNERS = {
+    (80, 64): True, (80, 512): True, (80, 4096): True, (80, 16384): True,
+    (152, 64): False, (152, 4096): True, (152, 16384): True,
+    (296, 64): False, (296, 512): False, (296, 4096): False,
+    (296, 16384): True, (440, 64): False, (440, 512): False,
+    (440, 4096): False, (440, 16384): False, (592, 64): False,
+    (592, 512): False, (592, 4096): False, (592, 16384): False,
+    (1176, 16): False, (1176, 64): False, (1176, 512): False,
+    (1176, 4096): False, (1176, 16384): False}
+
+
+def _bare_modulus(L):
+    """An odd modulus whose Montgomery context takes L limbs."""
+    return (1 << (14 * L - 30)) + 1
+
+
+@pytest.mark.parametrize("B", [1, 16, 64, 512, 4096, 16384])
+@pytest.mark.parametrize("L", _PATH_LIMBS)
+def test_body_rule_follows_the_shape_alone(monkeypatch, L, B):
+    """cuda_modexp._body(L, B, sms) is a function of the launch's shape
+    and the card's SMs alone: no environment variable or context moves
+    it, and it gives the body the sweep measured the faster for the
+    modexps at every shape it ran (_SWEEP_WINNERS: int8 at 16,384 rows
+    and L = 152 and 296, the integer pipe at L = 1,176 on 512 and 16
+    rows). A launch's REDC constants follow it where the context has REDC
+    matrices; a context without them takes the integer pipe (M' and M) at
+    every shape, and refuses the int8 body."""
+    import inspect
+
+    assert list(inspect.signature(cm._body).parameters) == ["L", "B", "sms"]
+    got = cm._body(L, B, H100_SMS)
+    assert isinstance(got, bool)
+    if (L, B) in _SWEEP_WINNERS:
+        assert got == _SWEEP_WINNERS[L, B]
+    # The rule as documented: blocks of 32 rows where they fit; smaller
+    # blocks only at small L; the one-row cluster tile's batches only at
+    # L <= 128.
+    E, rows, _ = cm._pow_elems(L, B, H100_SMS)
+    if B > H100_SMS and rows == 32:
+        assert got
+    if L >= 440:
+        assert not got
+    if B <= H100_SMS:
+        assert got == (L <= cm.BODY_ONE_ROW_LIMBS)
+    monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
+    monkeypatch.setattr(cm, "_pow_columns", lambda ctx: (
+        torch.zeros(1, dtype=torch.int32),) * 4 if mg.has_matrices(ctx)
+        else None)
+    M = _bare_modulus(L)
+    bare = mg.build_context(M, CPU, mxu=False)
+    with_matrices = mg.build_context(M, CPU)
+    assert bare.num_limbs == with_matrices.num_limbs == L
+    assert mg.has_matrices(with_matrices) and not mg.has_matrices(bare)
+    assert cm._redc_args(bare, CPU, L, B) == (
+        False, (bare.m_prime.data_ptr(), bare.m.data_ptr()))
+    assert cm._redc_args(with_matrices, CPU, L, B)[0] is got
+    assert cm._redc_args(with_matrices, CPU, L, B, body=not got)[0] is (
+        not got)
+    with pytest.raises(ValueError, match="REDC matrices"):
+        cm._redc_args(bare, CPU, L, B, body=True)
+    for name, value in (("PHE_TPU_TORCH_MXU", "0"),
+                        ("PHE_TPU_TORCH_ENGINE", "limb")):
+        monkeypatch.setenv(name, value)
+        assert cm._body(L, B, H100_SMS) is got
+        assert cm._redc_args(with_matrices, CPU, L, B)[0] is got
+
+
+def _launch_tiles(L, B, body):
+    """The ints an entry point of either kernel takes before L at a launch
+    of B rows at L on an H100 (the integer pipe's clusters as many as it
+    holds at once): (B, rows) for the int8 body, (B, rows, C) for the
+    integer pipe."""
+    _, rows, C = cm._pow_elems(L, B, H100_SMS, body,
+                               None if body else H100_FIT.get)
+    return (B, rows) if body else (B, rows, C)
+
+
+def _entry_point(calls, int8, integer):
+    """A stand-in for _lib or _pow_lib: each entry point records (its
+    form's flag, body, E) and the ints it was given before the stream,
+    and answers 0 only for its own body's arguments. int8 and integer:
+    each body's (pointers, arguments)."""
+    def lib(flag, elems, body):
+        pointers, count = int8 if body else integer
+        def fn(*args):
+            if len(args) != count:
+                return 1
+            calls.append((flag, body, elems) + args[pointers:-1])
+            return 0
+        return fn
+    return lib
+
+
 @pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
 def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
     """MAX_MUL_LIMBS is the widest L whose E = 8 block fits, for either
-    body; the wrapper launches the entry point of the chosen E and body
-    with the chosen rows (the packed matrices, or M' and M), counts one
-    launch a call under its body's name, and refuses a width it cannot
-    hold."""
+    body; the wrapper launches the entry point of the body _body picks at
+    the launch's shape (with REDC matrices; the integer pipe at every
+    shape without them) at the chosen E with the chosen rows (the packed
+    matrices, or M' and M), counts one launch a call under its body's
+    name, and refuses a width it cannot hold. At L = 40 a context with
+    matrices takes the int8 body at every batch, at L = 1,176 the
+    integer pipe."""
     for body in (True, False):
         assert cm._pow_smem(cm.MAX_MUL_LIMBS, 8, body) <= cm.MAX_SMEM
         assert cm._pow_smem(cm.MAX_MUL_LIMBS + 8, 8, True) > cm.MAX_SMEM
     calls = []
-    # (shared, E, B, rows[, C], L): the ints before the stream.
-    monkeypatch.setattr(cm, "_lib", lambda shared, elems, body: (
-        lambda *args: calls.append((shared, elems) + args[7 if mxu else 5:-1])
-        or 0 if body == mxu and len(args) == (11 if mxu else 10) else 1))
+    # The pointers, then (B, rows[, C], L, stream).
+    monkeypatch.setattr(cm, "_lib", _entry_point(calls, (7, 11), (5, 10)))
     monkeypatch.setattr(cm._build, "stream_handle", lambda device: None)
     monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
     # The clusters an H100 holds at once (cudaOccupancyMaxActiveClusters).
     monkeypatch.setattr(cm, "_fit", lambda kernel, dev, L: H100_FIT.get)
-    suffix = "" if mxu else "_int"
-    monkeypatch.setitem(cm.launches, "mont_mul" + suffix, 0)
-    monkeypatch.setitem(cm.launches, "mont_mul_const" + suffix, 0)
-    ctx = mg.build_context(_modulus("256"), CPU, mxu=mxu)
-    for B in (1, 9, 2 * H100_SMS + 1, 32 * H100_SMS + 1):
-        a = torch.zeros((B, 40), dtype=torch.int64)
-        cm._launch(a, a, ctx, shared=False)
-        cm._launch(a, a[0], ctx, shared=True)
-    # The integer pipe runs batches of at most 132 rows on the one-row
-    # tile, in clusters of 8 blocks a row (1 and 9 rows).
-    one = ((1, 1, 1, 8, 40), (1, 9, 1, 8, 40)) if not mxu else (
-        (8, 1, 1, 40), (8, 9, 1, 40))
-    rest = [(8, 2 * H100_SMS + 1, 3), (32, 32 * H100_SMS + 1, 32)]
-    rest = [t + ((1, 40) if not mxu else (40,)) for t in rest]
-    assert calls == [(shared,) + t for t in list(one) + rest
+    for name in cm.FORMS[:2]:
+        for suffix in ("", "_int"):
+            monkeypatch.setitem(cm.launches, name + suffix, 0)
+    batches = (1, 9, 2 * H100_SMS + 1, 32 * H100_SMS + 1)
+    want = []
+    contexts = {L: mg.build_context(_modulus(which), CPU, mxu=mxu)
+                for which, L in (("256", 40), ("8192", 1176))}
+    for L, ctx in contexts.items():
+        for B in batches:
+            a = torch.zeros((B, L), dtype=torch.int64)
+            cm._launch(a, a, ctx, shared=False)
+            cm._launch(a, a[0], ctx, shared=True)
+            body = mxu and L == 40
+            assert body == (mxu and cm._body(L, B, H100_SMS))
+            want += [(shared, body, cm._pow_elems(L, B, H100_SMS, body)[0])
+                     + _launch_tiles(L, B, body) + (L,)
                      for shared in (False, True)]
-    assert (cm.launches["mont_mul" + suffix]
-            == cm.launches["mont_mul_const" + suffix] == 4)
+    assert calls == want
+    # The integer pipe runs batches of at most 132 rows on the one-row
+    # tile, in clusters of 8 blocks a row (1 and 9 rows); its E = 8 tile
+    # holds 3 rows a block at 265 rows and L = 1,176; the int8 body's
+    # one row a block of E = 8, 3 rows at 265 and E = 32 at 4,225 rows.
+    assert ((False, True, 8, 1, 1, 40) in calls and
+            (True, True, 8, 265, 3, 40) in calls and
+            (False, True, 32, 4225, 32, 40) in calls) if mxu else (
+        (False, False, 1, 9, 1, 8, 40) in calls and
+        (True, False, 32, 4225, 32, 1, 40) in calls)
+    assert (False, False, 8, 265, 3, 1, 1176) in calls
+    assert (True, False, 1, 9, 1, 8, 1176) in calls
+    int8 = 4 if mxu else 0
+    assert cm.launches["mont_mul"] == cm.launches["mont_mul_const"] == int8
+    assert (cm.launches["mont_mul_int"] == cm.launches["mont_mul_const_int"]
+            == 8 - int8)
+    ctx = contexts[40]
     a = torch.zeros((2, 40), dtype=torch.int64)
     with pytest.raises(ValueError, match="limb count"):
         cm._launch(a[:, :32].contiguous(), a[:, :32].contiguous(), ctx, False)
     with pytest.raises(ValueError, match="shape"):
         cm._launch(a, a, ctx, shared=True)
+
+
+@pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
+def test_mont_pow_launch_tiles_and_bodies(monkeypatch, mxu):
+    """The modexp's twin of the product's launch test: both forms launch
+    the entry point of the body _body picks at the launch's shape (with
+    REDC matrices; the integer pipe at every shape without them), at the
+    chosen E, rows and clusters, with the table scratch those imply,
+    counted once a call under the body's name; the launch's private body
+    argument holds either body where the context has REDC matrices, and
+    the int8 body refuses a context without them. At L = 296 (the
+    2048-bit key's n^2) a context with matrices takes the int8 body at
+    4,225 rows (blocks of 32) and the integer pipe at 512 and 16; at
+    L = 1,176 the integer pipe at 512 rows (the 8192-bit encrypt's r^n,
+    4 rows a block of E = 8) and at 16."""
+    calls, tables = [], []
+    # The pointers, then (B, rows[, C], L, windows, window, stream).
+    monkeypatch.setattr(cm, "_pow_lib", _entry_point(calls, (9, 15),
+                                                     (7, 14)))
+    monkeypatch.setattr(cm._build, "stream_handle", lambda device: None)
+    monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
+    monkeypatch.setattr(cm, "_fit", lambda kernel, dev, L: H100_FIT.get)
+    table = cm._pow_table
+    # (B, rows, window, L, device, C): the scratch is made on "meta".
+    monkeypatch.setattr(cm, "_pow_table", lambda *args: tables.append(
+        args[:4] + args[5:]) or table(*args[:4], "meta", *args[5:]))
+    for name in cm.FORMS[2:]:
+        for suffix in ("", "_int"):
+            monkeypatch.setitem(cm.launches, name + suffix, 0)
+    want, bodies = [], []
+    for bits, L, batches in ((2048, 296, (16, 512, 32 * H100_SMS + 1)),
+                             (8192, 1176, (16, 512))):
+        ctx = mg.build_context(_modulus(str(bits)), CPU, mxu=mxu)
+        assert ctx.num_limbs == L
+        for B in batches:
+            base = torch.zeros((B, L), dtype=torch.int64)
+            body = mxu and cm._body(L, B, H100_SMS)
+            bodies.append((L, B, body))
+            for vec in (False, True):
+                cm._pow_launch(base, np.ones((B, 3), np.int8) if vec
+                               else [1, 2, 3], ctx, 4, vec)
+                want.append((vec, body,
+                             cm._pow_elems(L, B, H100_SMS, body)[0])
+                            + _launch_tiles(L, B, body) + (L, 3, 4))
+        base = torch.zeros((512, L), dtype=torch.int64)
+        if mxu:
+            # The private argument holds the int8 body where _body takes
+            # the integer pipe, and the integer pipe where it takes int8.
+            for body in (True, False):
+                cm._pow_launch(base, [1], ctx, 4, False, body=body)
+                want.append((False, body, 8) + _launch_tiles(L, 512, body)
+                            + (L, 1, 4))
+        else:
+            with pytest.raises(ValueError, match="REDC matrices"):
+                cm._pow_launch(base, [1], ctx, 4, False, body=True)
+    assert calls == want
+    assert bodies == [(296, 16, False), (296, 512, False), (296, 4225, mxu),
+                      (1176, 16, False), (1176, 512, False)]
+    # The 8192-bit r^n's tile in either body: 128 blocks of 4 rows on the
+    # integer pipe, 64 blocks of 8 on the int8 body.
+    assert (False, False, 8, 512, 4, 1, 1176, 3, 4) in calls
+    assert ((False, True, 8, 512, 8, 1176, 1, 4) in calls) == mxu
+    # One table a launch: 2^window rows of L words for each row slot of
+    # each block, a copy a cluster block on the integer pipe's one-row
+    # tile (16 rows: clusters of 4 on an H100).
+    assert tables == [(c[3], c[4], 4, c[-3]) + ((c[5],) if not c[1]
+                                               else (1,)) for c in calls]
+    assert tables[0] == (16, 1, 4, 296, 4)
+    assert cm.launches == dict(cm.launches, **(
+        {"mont_pow_shared": 3, "mont_pow": 1, "mont_pow_shared_int": 6,
+         "mont_pow_int": 4} if mxu else
+        {"mont_pow_shared": 0, "mont_pow": 0, "mont_pow_shared_int": 5,
+         "mont_pow_int": 5}))
