@@ -115,30 +115,6 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8192-bit decrypt under profiling.trace, eagerly (the bodies) and
    through the programs in turns, each with its CUDA runtime calls; the
    memory the card holds after it.
-10. The engines (engines_phase), under PHE_TPU_TORCH_ENGINE set and
-   restored by the phase: the fixed 2048- and 3072-bit keys' 16,384-row
-   round trips on the limb engine (no rns_ladder launch) and on the RNS
-   engine, timed in turns (RNS, limb, limb, RNS) after each engine's
-   warm-up and capture, equal to x on every row; a pinned-r batch equal
-   across the engines and to raw_encrypt; mul_scalars over 65,536 rows and
-   an aligned add equal, ciphertext for ciphertext, to the RNS engine's
-   and exact after a limb decrypt; the limb path's kernels against their
-   plain versions at its own shapes: mont_pow_shared at the encrypt's
-   launch (L = 296 and 440) and the CRT halves' (L = 152 and 224) over
-   16,384 rows, mont_pow at mul_scalars' (L = 296 and 440 over 65,536
-   rows, its own exponents), the 3072-bit key's products mod p^2 and p.
-   Then, under PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object and the
-   8192-bit n^2, whose contexts have no REDC matrices: each integer-pipe
-   body against its plain version (the product at L = 296, 152 and 80,
-   with ragged batches; the modexp at L = 296 and 152 at the path's
-   launches, with ragged batches, at L = 1,176 on 16 rows, one row a
-   thread-block cluster of 8 blocks, and at the 8192-bit encrypt's r^n
-   over 512 rows on 2 rows of the plain version), each no faster than its
-   least int32 work (int_pipe_bound); the ragged batches reach every tile
-   the wrapper picks, the one-row tile's clusters of 8, 4, 2 and 1 among
-   them; each check prints its tile, grid and cluster dims; and a
-   16,384-row round trip and mul_scalars on the limb engine with those
-   contexts, exact, launching only the integer-pipe kernels.
 
 The second-to-last lines are the kernels' JSON record, the seconds the
 whole run took, and the card's name and power limit; the last line is
@@ -147,7 +123,6 @@ CUDA-event times; bounds use NVIDIA's published H100 SXM peaks, and for
 the issue-rate chain the instructions its SASS issues (CHAIN_ISSUE).
 """
 
-import contextlib
 import json
 import os
 import random
@@ -183,10 +158,6 @@ CRT_SAMPLE = 64  # crt_powers rows held against Python's pow
 CRT_PLAIN_ROWS = 64  # rows of mont_pow_shared's plain version at L = 152
 CLI_FEW = 4  # values of the CLI run in a process of its own
 CLI_TIMEOUT_S = 300
-ENGINE_PINNED = 16  # the pinned-r batch held across the two engines
-VEC_PLAIN_ROWS = 128  # rows of phase 10's mont_pow checks' plain version
-SHARED_PLAIN_ROWS = 4  # and of its mont_pow_shared checks'
-INT_WIDE_PLAIN_ROWS = 2  # plain rows of the integer pipe's 512-row r^n
 # The two-body sweep (body_sweep): the moduli of the fixed 2048-, 3072- and
 # 8192-bit keys (n^2, p^2, p: L = 296, 152, 80; 440, 224, 112; 1,176,
 # 592, 296), the products at every batch a FedAvg step launches there
@@ -199,15 +170,6 @@ SWEEP_ROWS = (64, 128, 320, 512, 1024, 2560, 4096, 8192, 16384, 20480,
 SWEEP_POW_ROWS = (64, 512, 4096, 16384)
 SWEEP_BITS = 64
 SWEEP_MS = 30.0  # the least CUDA-event milliseconds of one timed turn
-# Each engine's launches a round trip, at keys whose n^2 the RNS channel
-# supply covers (the 2048- and 3072-bit keys).
-TRIP_LAUNCHES = {
-    "rns": ({"mont_mul": 1, "mont_mul_const": 1, "rns_ladder": 1},
-            {"mont_mul": 3, "mont_mul_const": 6, "rns_ladder": 2}),
-    "limb": ({"mont_pow_shared": 1, "mont_mul_const": 2, "mont_mul": 1},
-             {"mont_pow_shared": 2, "mont_mul_const": 8, "mont_mul": 3}),
-}
-
 # NVIDIA H100 SXM published peaks (data sheet; Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
 INT8_MAC_PER_S = 1979e12 / 2  # 1,979 TOP/s int8 dense, 2 ops per MAC
@@ -372,17 +334,16 @@ def int_pipe_bound(nbytes, L, rows, squarings=0, products=1):
 
 def check_mont_mul(ctx, M, shared, rng, rows=BATCH):
     """The Montgomery product's kernel for ctx (the REDC body
-    launch_body picks at its shape, or the integer pipe for a context
-    without REDC matrices) against its plain version and Python ints over
-    rows at L, value mod M with the contract's bounds, timed beside its
-    bound; its record."""
+    launch_body picks at its shape) against its plain version and Python
+    ints over rows at L, value mod M with the contract's bounds, timed
+    beside its bound; its record."""
     from phe_tpu_torch.ops import cuda_modexp
     from phe_tpu_torch.ops import montgomery as mg
     from phe_tpu_torch.utils import limbs as hl
 
     dev = ctx.m.device
     L = ctx.num_limbs
-    mxu = mg.has_matrices(ctx) and launch_body(L, rows)
+    mxu = launch_body(L, rows)
     R_inv = pow(1 << (14 * L), -1, M)
     xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
     ys = [rng.randrange(0, 2 * M) for _ in range(1 if shared else rows)]
@@ -450,8 +411,8 @@ def ladder_elems(k, rows):
 
 
 def launch_body(L, rows):
-    """The REDC body of a limb-kernel launch of rows at L on this card for
-    a context with REDC matrices (cuda_modexp._body): True for int8."""
+    """The REDC body of a limb-kernel launch of rows at L on this card
+    (cuda_modexp._body): True for int8."""
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
 
     return cuda_modexp._body(L, rows, cuda_rns._sms(torch.device("cuda")))
@@ -523,12 +484,9 @@ def by_form(counts):
 
 
 def expect_launches(step, counts, want):
-    """counts == want, by form (by_form) unless want names an
-    integer-pipe form: a context with REDC matrices takes the body
-    cuda_modexp._body picks at each launch's shape, a context without
-    them the integer pipe at every one."""
-    if not any(k.endswith("_int") for k in want):
-        counts = by_form(counts)
+    """counts == want, by form (by_form): each launch takes the body
+    cuda_modexp._body picks at its shape."""
+    counts = by_form(counts)
     check(counts == want, "%s launched %s, expected %s"
           % (step, json.dumps(counts), json.dumps(want)))
 
@@ -725,23 +683,12 @@ def check_vec_kernels(pub, dev, rng):
     return out
 
 
-def ragged_sizes(sms, mxu, L, kernel):
-    """{(E, rows a block, C): batches} of the ragged checks, for either
-    body: one row a block of E = 8 on 1, 7 and 9 rows (the integer pipe:
-    the one-row tile on 1, 7, 9, 16, 20, 40 and sms - 1 rows, whose
-    clusters, as many as the card holds at once, must take 8, 4, 2 and 1
-    blocks among them); three rows a block of E = 8; full blocks of E = 8
-    and of E = 32, each at its smallest and largest batch."""
-    if mxu:
-        sizes = {(8, 1, 1): (1, 7, 9)}
-    else:
-        sizes = {}
-        for B in (1, 7, 9, 16, 20, 40, sms - 1):
-            sizes.setdefault(pow_tile(L, B, False, kernel), []).append(B)
-        check({C for E, _, C in sizes if E == 1} == {1, 2, 4, 8},
-              "the one-row tile's ragged batches take clusters of %s, not 8, "
-              "4, 2 and 1" % sorted(C for _, _, C in sizes))
-    sizes[8, 3, 1] = (2 * sms + 1, 3 * sms - 1)
+def ragged_sizes(sms):
+    """{(E, rows a block, C): batches} of the ragged checks in the int8
+    body: one row a block of E = 8 on 1, 7 and 9 rows; three rows a block
+    of E = 8; full blocks of E = 8 and of E = 32, each at its smallest and
+    largest batch."""
+    sizes = {(8, 1, 1): (1, 7, 9), (8, 3, 1): (2 * sms + 1, 3 * sms - 1)}
     for E in (8, 32):
         sizes[E, E, 1] = ((sms - 1) * E + 1, sms * E - 1)
     return sizes
@@ -753,14 +700,11 @@ def check_ragged_pows(pub, dev, rng):
     schedules' first two all-zero and all-ones), value-equal to their
     plain versions and Python pow, at every (E, rows a block, C) the
     wrapper picks on this card (ragged_sizes): one row a block (1, 7 and 9
-    rows; the integer pipe: one row a cluster of 8, 4, 2 and 1 blocks, as
-    many clusters as the card holds at once) on every row; three rows a
-    block of E = 8, and full blocks of E = 8 and of E = 32, each at the
-    smallest and largest batch that takes it (a last block of 1 row, and
-    of all but one), on their first rows and last two blocks. The REDC
-    body is the context's: int8 with REDC matrices (held by the launch's
-    private body argument), the integer pipe for a key whose contexts
-    were built without them."""
+    rows) on every row; three rows a block of E = 8, and full blocks of
+    E = 8 and of E = 32, each at the smallest and largest batch that takes
+    it (a last block of 1 row, and of all but one), on their first rows
+    and last two blocks. The REDC body is int8, held by the launch's
+    private body argument."""
     from phe_tpu_torch import batch as tbatch
     from phe_tpu_torch.ops import cuda_modexp, cuda_rns
     from phe_tpu_torch.ops import montgomery as mg
@@ -770,12 +714,10 @@ def check_ragged_pows(pub, dev, rng):
         pub.nsquare
     R = 1 << (14 * L)
     R_inv = pow(R, -1, N)
-    mxu = mg.has_matrices(ctx)
-    body = "" if mxu else " (integer pipe)"
     sms = cuda_rns._sms(dev)
-    sizes = ragged_sizes(sms, mxu, L, "mont_pow")
+    sizes = ragged_sizes(sms)
     for tile, Bs in sizes.items():
-        check(all(pow_tile(L, B, mxu) == tile for B in Bs),
+        check(all(pow_tile(L, B) == tile for B in Bs),
               "ragged modexp batches %s do not take %s" % (Bs, tile))
     rows = max(max(Bs) for Bs in sizes.values())
     checked = sorted(set(range(9)).union(*(
@@ -803,21 +745,21 @@ def check_ragged_pows(pub, dev, rng):
     for B in sorted(B for Bs in sizes.values() for B in Bs):
         b = base[:B].contiguous()
         got = cuda_modexp._pow_launch(b, sdig, ctx, mg.DEFAULT_WINDOW, False,
-                                      mxu)
+                                      True)
         got_vec = cuda_modexp._pow_launch(b, digits[:B].contiguous(), ctx,
-                                          mg.DEFAULT_WINDOW, True, mxu)
+                                          mg.DEFAULT_WINDOW, True, True)
         at = [i for i, r in enumerate(checked) if r < B]
         rs = [checked[i] for i in at]
         check(values(got[rs]) == [want[i] for i in at]
               and values(got_vec[rs]) == [want_vec[i] for i in at]
               and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
               and int(got_vec.min()) >= 0 and int(got_vec.max()) <= 1 << 14,
-              "mont_pow%s L=%d: a ragged batch of %d rows differs from the "
-              "plain version" % (body, L, B))
-    print("mont_pow_shared, mont_pow%s L=%d: ragged batches value-equal to "
+              "mont_pow L=%d: a ragged batch of %d rows differs from the "
+              "plain version" % (L, B))
+    print("mont_pow_shared, mont_pow L=%d: ragged batches value-equal to "
           "the plain versions and Python pow on %d checked rows, %d SMs: %s "
           "(plain %.1f s)"
-          % (body, L, len(checked), sms, "; ".join(
+          % (L, len(checked), sms, "; ".join(
               "E = %d, %d rows a block, clusters of %d: %s rows" % (
                   E, r, C, ", ".join(map(str, Bs)))
               for (E, r, C), Bs in sizes.items()), plain_s))
@@ -1302,18 +1244,10 @@ def calibration(card, totals):
 
 def _busy_us(kernels):
     """Microseconds covered by the union of the kernels' time ranges."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    total, cur_start, cur_end = 0, None, None
-    for a, b in spans:
-        if cur_end is None or a > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = a, b
-        else:
-            cur_end = max(cur_end, b)
-    if cur_end is not None:
-        total += cur_end - cur_start
-    return total
+    from paillier_bench import devicetrace
+
+    return sum(b - a for a, b in devicetrace._union(
+        [(e.time_range.start, e.time_range.end) for e in kernels]))
 
 
 def benchmark_phase(pub, priv, dev, card, totals):
@@ -1415,13 +1349,14 @@ def limb_engine_path(pub, priv, dev, card, totals):
     4 against the host's raw_encrypt, add at equal exponents, mixed-sign
     mul_scalars, short encrypt, and _decrypt_residue_limb (the limb decrypt
     that runs alone only above ~8,760-bit keys) on LIMB_DIRECT_ROWS rows
-    against the RNS decrypt. The plain modexp at L = 1,176 with an
-    8192-bit exponent would take minutes, so mont_pow_shared is held
-    against Python's pow on 2 rows, and mont_pow against its plain version
-    on 64-bit schedules over LIMB_POW_ROWS rows.
+    against the RNS decrypt. The encrypt's r^n (mont_pow_shared, 8192-bit
+    exponent) is held against its plain version and Python's pow on 2 of
+    its LIMB_ROWS rows, since the plain version takes seconds a row; both
+    forms are held against their plain versions over LIMB_POW_ROWS rows on
+    64-bit exponents.
 
     Returns ({BENCH_8192.json metric: ops/s}, {kernel: its L = 1,176
-    check record}).
+    check records}).
     """
     import phe_tpu_torch as pt
     from phe_tpu_torch import batch as tbatch
@@ -1558,7 +1493,15 @@ def limb_engine_path(pub, priv, dev, card, totals):
     t0 = time.perf_counter()
     want = [pow(x * R_inv, pub.n, nsq) * R % nsq for x in xs2[:2]]
     py_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = mg.mont_pow_shared_plain(two, dc.n_digits, ctx, window=5)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = int((mg.export_canonical(got[:2], ctx)
+               - mg.export_canonical(ref, ctx)).abs().max())
     gi = hl.limbs_to_ints(got.cpu().numpy())
+    check(err == 0, "mont_pow_shared L=%d: kernel value mod M differs from "
+          "the plain version" % L)
     check([v % nsq for v in gi[:2]] == want
           and hl.limbs_to_ints(got2.cpu().numpy()) == gi[:2]
           and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
@@ -1570,19 +1513,20 @@ def limb_engine_path(pub, priv, dev, card, totals):
                                        8 * nd)
     check(ms >= bms and ms_rows >= bms_rows,
           "mont_pow_shared L=%d ran under its bound" % L)
-    print("mont_pow_shared L=%d windows=%d: Python pow on 2 rows; kernel "
-          "%.3f ms at %d rows, %s (bound %.3f ms, %s), %.3f ms at 2 rows, "
-          "%s (bound %.4f ms, %s), Python pow %.1f ms for 2, %d products "
-          "a row [%s]" % (L, nd, ms_rows, rows, tile_text(L, rows), bms_rows,
-                          by_rows, ms, tile_text(L, 2), bms, by, py_ms,
-                          products, card))
-    wide["mont_pow_shared"] = dict(
+    print("mont_pow_shared L=%d windows=%d: value-equal to the plain "
+          "version and Python pow on 2 rows; kernel %.3f ms at %d rows, %s "
+          "(bound %.3f ms, %s), %.3f ms at 2 rows, %s (bound %.4f ms, %s), "
+          "plain %.1f ms and Python pow %.1f ms for 2, %d products a row "
+          "[%s]" % (L, nd, ms_rows, rows, tile_text(L, rows), bms_rows,
+                    by_rows, ms, tile_text(L, 2), bms, by, plain_ms, py_ms,
+                    products, card))
+    wide["mont_pow_shared"] = [dict(
         L=L, rows=rows, body="int8" if launch_body(L, rows) else "int",
-        tile=tile_text(L, rows), max_abs_err=0, ms=ms_rows,
-        plain_ms=None, plain_rows=0, bound_ms=bms_rows, bound_by=by_rows,
+        tile=tile_text(L, rows), max_abs_err=err, ms=ms_rows,
+        plain_ms=plain_ms, plain_rows=2, bound_ms=bms_rows, bound_by=by_rows,
         ms_at_2_rows=ms, bound_ms_at_2_rows=bms, python_pow_ms=py_ms,
-        products=products)
-    del base, got
+        products=products)]
+    del base, got, ref
 
     rows_p = LIMB_POW_ROWS
     xs3 = [rng.randrange(0, 2 * nsq) for _ in range(rows_p)]
@@ -1613,12 +1557,46 @@ def limb_engine_path(pub, priv, dev, card, totals):
           "4; kernel %.3f ms, %s, plain %.3f ms, bound %.4f ms (%s, %d "
           "products a row)" % (L, n_windows, rows_p, ms, tile_text(L, rows_p),
                                plain_ms, bms, by, products))
-    wide["mont_pow"] = dict(L=L, rows=rows_p, body="int8" if launch_body(
-                                L, rows_p) else "int",
-                            tile=tile_text(L, rows_p),
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            plain_rows=rows_p, bound_ms=bms, bound_by=by,
-                            products=products)
+    wide["mont_pow"] = [dict(L=L, rows=rows_p, body="int8" if launch_body(
+                                 L, rows_p) else "int",
+                             tile=tile_text(L, rows_p),
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             plain_rows=rows_p, bound_ms=bms, bound_by=by,
+                             products=products)]
+
+    # The shared form at the same shape: one random 64-bit exponent.
+    e = rng.getrandbits(64) | 1 << 63
+    sdig = torch.as_tensor(mg.exponent_digits(e, 64, 4), device=dev)
+    got, ms = cuda_once(lambda: cuda_modexp.mont_pow_shared(base, sdig, ctx,
+                                                            window=4))
+    t0 = time.perf_counter()
+    ref = mg.mont_pow_shared_plain(base, sdig, ctx, window=4)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = int((mg.export_canonical(got, ctx)
+               - mg.export_canonical(ref, ctx)).abs().max())
+    gi = hl.limbs_to_ints(got.cpu().numpy())
+    check(err == 0 and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
+          and all(100 * v < 101 * nsq for v in gi),
+          "mont_pow_shared L=%d: kernel value mod M differs from the plain "
+          "version on %d rows" % (L, rows_p))
+    for i in (0, 1, rows_p - 2, rows_p - 1):
+        check(gi[i] % nsq == pow(xs3[i] * R_inv, e, nsq) * R % nsq,
+              "mont_pow_shared L=%d: value differs from Python pow" % L)
+    n_windows = len(sdig)
+    products = sum(pow_products(4, n_windows))
+    bms, by = body_pow_bound(launch_body(L, rows_p), rows_p, L, 4,
+                             n_windows, 8 * n_windows)
+    check(ms >= bms, "mont_pow_shared L=%d ran under its bound" % L)
+    print("mont_pow_shared L=%d windows=%d: value-equal on %d rows, Python "
+          "pow on 4; kernel %.3f ms, %s, plain %.3f ms, bound %.4f ms (%s, "
+          "%d products a row)" % (L, n_windows, rows_p, ms,
+                                  tile_text(L, rows_p), plain_ms, bms, by,
+                                  products))
+    wide["mont_pow_shared"].append(dict(
+        L=L, rows=rows_p, body="int8" if launch_body(L, rows_p) else "int",
+        tile=tile_text(L, rows_p), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        plain_rows=rows_p, bound_ms=bms, bound_by=by, products=products))
     print(json.dumps({"paillier_8192": {
         m: {"value": v, "unit": "ops/s", "batch": rows}
         for m, v in rates.items()}, "card": card}))
@@ -1627,9 +1605,8 @@ def limb_engine_path(pub, priv, dev, card, totals):
 
 def body_sweep(dev, card):
     """Phase 7's two-body sweep: each limb launch of the sweep's shapes
-    timed in both REDC bodies, the int8 one (what every context with REDC
-    matrices ran before the launch chose its body) and the integer pipe,
-    in turns (int8, int, int, int8), each turn the CUDA-event mean over
+    timed in both REDC bodies, the int8 one and the integer pipe, in
+    turns (int8, int, int, int8), each turn the CUDA-event mean over
     enough launches to fill SWEEP_MS, after the two bodies' outputs are
     found equal mod M; printed beside the body that
     cuda_modexp._body picks there, and checked for the modexps, which the
@@ -1693,8 +1670,6 @@ def body_sweep(dev, card):
 
     for L, M in sorted(moduli.items()):
         ctx = mg.build_context(M, dev)
-        check(mg.has_matrices(ctx), "the sweep's context has no REDC "
-              "matrices")
         for B in SWEEP_ROWS:
             a, b = operand(M, L, B), operand(M, L, B)
             for shared in (False, True):
@@ -2282,378 +2257,6 @@ def programs_phase(keys, dev, card):
     return record
 
 
-@contextlib.contextmanager
-def environment(**values):
-    """os.environ with `values` set inside the block, and every one of them
-    as it was (set or unset) after it."""
-    old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
-def int_names(counts):
-    """Launch counts under the integer-pipe kernels' names."""
-    return {k + "_int" if k.startswith("mont_") else k: v
-            for k, v in counts.items()}
-
-
-def engine_trip(pub, priv, values, engine, dev, totals, int_pipe=False):
-    """One round trip under PHE_TPU_TORCH_ENGINE=engine through the entry
-    points, each half with its launches (TRIP_LAUNCHES), equal to values
-    on every row; (encrypt s, decrypt s) on the host clock."""
-    from phe_tpu_torch.batch import EncryptedBatch
-
-    want_enc, want_dec = TRIP_LAUNCHES[engine]
-    if int_pipe:
-        want_enc, want_dec = int_names(want_enc), int_names(want_dec)
-    bits = pub.n.bit_length()
-    with environment(PHE_TPU_TORCH_ENGINE=engine):
-        batch, t_enc, enc = run_step(
-            lambda: EncryptedBatch.encrypt(pub, values, device=dev), totals)
-        out, t_dec, dec = run_step(lambda: batch.decrypt(priv), totals)
-    expect_launches("%d-bit %s encrypt" % (bits, engine), enc, want_enc)
-    expect_launches("%d-bit %s decrypt" % (bits, engine), dec, want_dec)
-    check(out == values, "%d-bit %s engine: decrypt(encrypt(x)) != x for %d "
-          "of %d rows" % (bits, engine, sum(a != b for a, b in
-                                            zip(out, values)), len(values)))
-    return t_enc, t_dec
-
-
-def check_pow(ctx, M, dev, rng, vec, rows, bits, plain_rows, window=4,
-              exponent=None, digits=None, exponents=None):
-    """The limb engine's modexp of one form, in the REDC body launch_body
-    picks at its shape (the integer pipe for a context without REDC
-    matrices), over rows at ctx's L: per-row `bits`-bit schedules (vec; `exponents` if
-    given, else random ones), or one shared exponent (`exponent`, else
-    `bits` random bits; its `digits` if given, at `window`). Value-equal
-    to its plain version on plain_rows rows and to Python's pow on four,
-    limbs in [0, 2^14] and values below 1.01 M on every row, timed beside
-    its bound (mont_pow_bound, or int_pipe_bound). Its record."""
-    from phe_tpu_torch import batch as tbatch
-    from phe_tpu_torch.ops import cuda_modexp
-    from phe_tpu_torch.ops import montgomery as mg
-    from phe_tpu_torch.utils import limbs as hl
-
-    L = ctx.num_limbs
-    mxu = mg.has_matrices(ctx) and launch_body(L, rows)
-    R = 1 << (14 * L)
-    R_inv = pow(R, -1, M)
-    xs = [rng.randrange(0, 2 * M) for _ in range(rows)]
-    base = limbs_on(xs, L, dev)
-    if vec:
-        es = exponents if exponents is not None else (
-            [0, (1 << bits) - 1]
-            + [rng.getrandbits(bits) for _ in range(rows - 2)])
-        digits = torch.as_tensor(tbatch._digits_rows(es, bits), device=dev)
-        n_windows = digits.shape[1]
-        run = lambda: cuda_modexp.mont_pow(base, digits, ctx)
-        plain = lambda: mg.mont_pow_plain(base[:plain_rows],
-                                          digits[:plain_rows], ctx)
-        digit_bytes = rows * n_windows
-    else:
-        e = exponent if exponent is not None else (
-            rng.getrandbits(bits) | 1 << (bits - 1))
-        es = [e] * rows
-        if digits is None:
-            digits = torch.as_tensor(mg.exponent_digits(e, bits, window),
-                                     device=dev)
-        n_windows = len(digits)
-        run = lambda: cuda_modexp.mont_pow_shared(base, digits, ctx,
-                                                  window=window)
-        plain = lambda: mg.mont_pow_shared_plain(base[:plain_rows], digits,
-                                                 ctx, window=window)
-        digit_bytes = 8 * n_windows
-    name = ("mont_pow" if vec else "mont_pow_shared") + ("" if mxu
-                                                         else "_int")
-    got, ms = cuda_once(run)
-    sync()
-    t0 = time.perf_counter()
-    ref = plain()
-    sync()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    err = int((mg.export_canonical(got[:plain_rows], ctx)
-               - mg.export_canonical(ref, ctx)).abs().max())
-    g = hl.limbs_to_ints(got.cpu().numpy())
-    check(err == 0 and int(got.min()) >= 0 and int(got.max()) <= 1 << 14
-          and all(100 * v < 101 * M for v in g),
-          "%s L=%d: kernel value mod M differs from the plain version, or "
-          "out of the contract's bounds" % (name, L))
-    for i in (0, 1, rows - 2, rows - 1):
-        check(g[i] % M == pow(xs[i] * R_inv, es[i], M) * R % M,
-              "%s L=%d: value differs from Python pow" % (name, L))
-    sq, mul = pow_products(window, n_windows)
-    bms, by = body_pow_bound(mxu, rows, L, window, n_windows, digit_bytes)
-    tile = tile_text(L, rows, mxu)
-    print("%s L=%d windows=%d: value-equal on %d rows, Python pow on 4; "
-          "kernel %.3f ms at %d rows, %s (%d launches so far), plain %.3f "
-          "ms at %d, bound %.4f ms (%s, %d products a row)"
-          % (name, L, n_windows, plain_rows, ms, rows, tile,
-             cuda_modexp.launches[name], plain_ms, plain_rows, bms, by,
-             sq + mul))
-    check(ms >= bms, "%s L=%d ran under its bound" % (name, L))
-    return dict(L=L, rows=rows, body=name, tile=tile, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, plain_rows=plain_rows,
-                bound_ms=bms, bound_by=by, products=sq + mul)
-
-
-def check_ragged_products(ctx, M, dev, rng):
-    """Both forms of the Montgomery product for ctx on ragged batches at
-    every (E, rows a block, C) the wrapper picks at its L on this card
-    (ragged_sizes: one row a block, or for the integer pipe one row a
-    cluster of 8, 4, 2 and 1 blocks; three rows a block of E = 8; full
-    blocks of E = 8 and of E = 32, each at its smallest and largest
-    batch), value-equal to the plain version on every row, in the body
-    ctx carries: int8 with REDC matrices (held by the launch's private
-    body argument), else the integer pipe."""
-    from phe_tpu_torch.ops import cuda_modexp, cuda_rns
-    from phe_tpu_torch.ops import montgomery as mg
-
-    L, mxu = ctx.num_limbs, mg.has_matrices(ctx)
-    sms = cuda_rns._sms(dev)
-    sizes = ragged_sizes(sms, mxu, L, "mont_mul")
-    for tile, Bs in sizes.items():
-        check(all(pow_tile(L, B, mxu, "mont_mul") == tile for B in Bs),
-              "ragged product batches %s do not take %s" % (Bs, tile))
-    rows = max(max(Bs) for Bs in sizes.values())
-    a = limbs_on([rng.randrange(0, 2 * M) for _ in range(rows)], L, dev)
-    b = limbs_on([rng.randrange(0, 2 * M) for _ in range(rows)], L, dev)
-    for B in sorted(B for Bs in sizes.values() for B in Bs):
-        x, y = a[:B].contiguous(), b[:B].contiguous()
-        for got, ref in ((cuda_modexp._launch(x, y, ctx, False, mxu),
-                          cuda_modexp.mont_mul_plain(x, y, ctx)),
-                         (cuda_modexp._launch(x, y[0], ctx, True, mxu),
-                          cuda_modexp.mont_mul_plain(x, y[0], ctx))):
-            check(torch.equal(mg.export_canonical(got, ctx),
-                              mg.export_canonical(ref, ctx))
-                  and int(got.min()) >= 0 and int(got.max()) <= 1 << 14,
-                  "mont_mul L=%d: a ragged batch of %d rows differs from the "
-                  "plain version" % (L, B))
-    print("mont_mul, mont_mul_const%s L=%d: ragged batches value-equal to the "
-          "plain version on every row, %d SMs: %s"
-          % ("" if mxu else " (integer pipe)", L, sms, "; ".join(
-              "E = %d, %d rows a block, clusters of %d: %s rows" % (
-                  E, r, C, ", ".join(map(str, Bs)))
-              for (E, r, C), Bs in sizes.items())))
-
-
-def engines_phase(keys, dev, card, totals):
-    """Phase 10: both engines at the fixed 2048- and 3072-bit keys, and
-    the integer-pipe REDC bodies.
-
-    Under PHE_TPU_TORCH_ENGINE=limb each key's BATCH-row round trip runs on
-    the limb engine (mont_pow_shared at n^2's L for r^n, the CRT halves on
-    mont_pow_shared too), with no rns_ladder launch; after two untimed
-    round trips per engine (the programs' warm-up and capture) they are
-    timed in turns, RNS, limb, limb, RNS, each equal to x on every row. A
-    pinned-r batch is equal across the engines and to raw_encrypt;
-    mul_scalars over MUL_ROWS rows and an aligned add give the RNS
-    engine's ciphertexts on every row and decrypt to the exact results;
-    the limb path's modexps (and the 3072-bit key's products mod p^2 and
-    p) are held against their plain versions at the path's shapes. Then,
-    under PHE_TPU_TORCH_MXU=0, a fresh 2048-bit key object (its five
-    contexts built without REDC matrices) and the fixed 8192-bit key's
-    n^2: each integer-pipe body against its plain version (the product at
-    L = 296, 152 and 80, on ragged batches too; the modexp at the path's
-    launches at L = 296 and 152, on ragged batches, at L = 1,176 on
-    LIMB_POW_ROWS rows and at the 8192-bit r^n over LIMB_ROWS), and a
-    BATCH-row round trip and mul_scalars on the limb engine with those
-    contexts. The variables are restored as they were after each step.
-    Returns (record, {kernel: [its checks]})."""
-    import phe_tpu_torch as pt
-    from phe_tpu_torch import batch as tbatch
-    from phe_tpu_torch import benchmarks
-    from phe_tpu_torch.batch import EncryptedBatch
-    from phe_tpu_torch.ops import montgomery as mg
-
-    g = np.random.default_rng(SEED + 11)
-    rng = random.Random(SEED + 11)
-    record, checks = {}, {}
-    chunk = EncryptedBatch._INVERSE_CHUNK
-
-    def floats(lo, hi, rows):
-        return [float(v) for v in g.uniform(lo, hi, rows)]
-
-    def shared_pows(pub, priv):
-        """mont_pow_shared at the limb path's two launches, in the body
-        the key's contexts carry: r^n at n^2's L (the encrypt) and the
-        CRT half at p^2's (the decrypt), each over BATCH rows."""
-        dc, c = pub.device_context(dev), priv.device_context(dev).consts
-        return [check_pow(dc.ctx, pub.nsquare, dev, rng, False, BATCH,
-                          dc.n_bits, SHARED_PLAIN_ROWS,
-                          window=tbatch.ENCRYPT_WINDOW, exponent=pub.n,
-                          digits=dc.n_digits),
-                check_pow(c.ctx_p, priv.psquare, dev, rng, False, BATCH,
-                          priv.p.bit_length(), SHARED_PLAIN_ROWS,
-                          window=tbatch.DECRYPT_WINDOW, exponent=priv.p - 1,
-                          digits=c.dp_digits)]
-
-    for pub, priv in keys:
-        bits = pub.n.bit_length()
-        dc = pub.device_context(dev)
-        values = floats(-1e6, 1e6, BATCH)
-        for engine in ("rns", "limb"):
-            for _ in range(2):  # the programs' warm-up and capture
-                engine_trip(pub, priv, values, engine, dev, totals)
-        turns = [(engine, engine_trip(pub, priv, values, engine, dev, totals))
-                 for engine in ("rns", "limb", "limb", "rns")]
-        for i, (engine, (t_enc, t_dec)) in enumerate(turns):
-            print("%d-bit round trip, %s engine (turn %d), %d rows: encrypt "
-                  "%.4f s (%.1f ops/s), decrypt %.4f s (%.1f ops/s), equal "
-                  "to x on every row [%s]"
-                  % (bits, engine, i + 1, BATCH, t_enc, BATCH / t_enc, t_dec,
-                     BATCH / t_dec, card))
-        record["%d-bit turns" % bits] = [
-            dict(engine=e, encrypt_s=te, decrypt_s=td)
-            for e, (te, td) in turns]
-
-        few = values[:ENGINE_PINNED]
-        rs = [rng.randrange(1, pub.n) for _ in few]
-        pinned = {}
-        for engine in ("limb", "rns"):
-            with environment(PHE_TPU_TORCH_ENGINE=engine):
-                batch, _, n = run_step(lambda: EncryptedBatch.encrypt(
-                    pub, few, r_values=rs, device=dev), totals)
-            expect_launches("%d-bit %s pinned-r encrypt" % (bits, engine), n,
-                            TRIP_LAUNCHES[engine][0])
-            pinned[engine] = batch.ciphertext_ints(be_secure=False)
-        encs = pt.EncodedNumber.encode_many(pub, few)
-        check(pinned["limb"] == pinned["rns"]
-              == [pub.raw_encrypt(e.encoding, r_value=r)
-                  for e, r in zip(encs, rs)],
-              "%d-bit pinned-r ciphertexts differ between the engines or "
-              "from raw_encrypt" % bits)
-        print("%d-bit pinned-r batch of %d: the limb engine's ciphertexts "
-              "equal the RNS engine's and raw_encrypt's" % (bits, len(few)))
-
-        checks.setdefault("mont_pow_shared", []).extend(
-            shared_pows(pub, priv))
-        if bits != 2048:  # phase 2 holds the 2048-bit key's products
-            c = priv.device_context(dev).consts
-            for ctx, M, forms in ((c.ctx_p, priv.psquare, (True,)),
-                                  (c.ctx_hp, priv.p, (False, True))):
-                for shared in forms:
-                    name = "mont_mul_const" if shared else "mont_mul"
-                    checks.setdefault(name, []).append(
-                        check_mont_mul(ctx, M, shared, rng))
-
-        xa, yb = floats(-1e6, 1e6, MUL_ROWS), floats(-1e-3, 1e-3, MUL_ROWS)
-        sc = floats(-100.0, 100.0, MUL_ROWS)
-        # mul_scalars' per-row modexp at its own exponents, over MUL_ROWS.
-        ks = [int(k) for k in tbatch._signed_mantissas_fast(pub, sc)[0]]
-        checks.setdefault("mont_pow", []).append(check_pow(
-            dc.ctx, pub.nsquare, dev, rng, True, MUL_ROWS,
-            max(ks).bit_length(), VEC_PLAIN_ROWS, exponents=ks))
-        a = EncryptedBatch.encrypt(pub, xa, obfuscation="none", device=dev)
-        b = EncryptedBatch.encrypt(pub, yb, obfuscation="none", device=dev)
-        mm, mc = inverse_launches(a.mont.shape[0], chunk)
-        want = {"limb": ({"mont_pow": 1, "mont_mul": mm, "mont_mul_const": mc},
-                         {"mont_pow": 2, "mont_mul": 1}),
-                "rns": ({"rns_ladder_vec": 1, "mont_mul": mm,
-                         "mont_mul_const": mc},
-                        {"rns_ladder_vec": 2, "mont_mul": 1})}
-        res = {}
-        for engine in ("limb", "rns"):
-            # The same ciphertexts, without the inverse a first product
-            # caches on the batch.
-            fresh = EncryptedBatch(pub, a.mont, a.exponents)
-            with environment(PHE_TPU_TORCH_ENGINE=engine):
-                prod, t_mul, n_mul = run_step(lambda: fresh * sc, totals)
-                summ, t_add, n_add = run_step(lambda: a + b, totals)
-            expect_launches("%d-bit %s mul_scalars" % (bits, engine), n_mul,
-                            want[engine][0])
-            expect_launches("%d-bit %s aligned add" % (bits, engine), n_add,
-                            want[engine][1])
-            res[engine] = (prod, summ)
-            print("%d-bit %s engine: mul_scalars %.4f s, aligned add %.4f s "
-                  "over %d rows; launches %s, %s [%s]"
-                  % (bits, engine, t_mul, t_add, MUL_ROWS, json.dumps(n_mul),
-                     json.dumps(n_add), card))
-        for i, what in enumerate(("mul_scalars", "aligned add")):
-            x, y = res["limb"][i], res["rns"][i]
-            check(list(x.exponents) == list(y.exponents)
-                  and dc.export_ints(x.mont) == dc.export_ints(y.mont),
-                  "%d-bit %s: the limb engine's ciphertexts differ from the "
-                  "RNS engine's" % (bits, what))
-        with environment(PHE_TPU_TORCH_ENGINE="limb"):
-            check(decrypt_all(res["limb"][0], priv)
-                  == [x * y for x, y in zip(xa, sc)]
-                  and decrypt_all(res["limb"][1], priv)
-                  == [x + y for x, y in zip(xa, yb)],
-                  "%d-bit limb engine: mul_scalars or the aligned add does "
-                  "not decrypt to the exact result" % bits)
-        print("%d-bit mul_scalars and aligned add over %d rows: the limb "
-              "engine's ciphertexts equal the RNS engine's on every row and "
-              "decrypt (on the limb engine) to the exact results"
-              % (bits, MUL_ROWS))
-        del a, b, fresh, res, prod, summ
-
-    # -- the integer-pipe bodies -------------------------------------------
-    with environment(PHE_TPU_TORCH_MXU="0"):
-        pub0, priv0 = benchmarks.fixed_key(2048)
-        dc0, pdc0 = pub0.device_context(dev), priv0.device_context(dev)
-        pub8 = benchmarks.fixed_key(8192)[0]
-        M8 = pub8.nsquare
-        ctx8 = mg.build_context(M8, dev)
-    contexts = key_contexts(dc0, pdc0) + (ctx8,)
-    check(not any(mg.has_matrices(c) for c in contexts),
-          "a context built under PHE_TPU_TORCH_MXU=0 holds REDC matrices")
-    check(mg.has_matrices(mg.build_context(pub0.nsquare, dev)),
-          "PHE_TPU_TORCH_MXU was not restored")
-    print("PHE_TPU_TORCH_MXU=0: a fresh 2048-bit key's five contexts and the "
-          "8192-bit n^2 built without REDC matrices [%s]" % card)
-    c = pdc0.consts
-    # The two-operand product never runs mod p^2.
-    for ctx, M, forms in ((dc0.ctx, pub0.nsquare, (False, True)),
-                          (c.ctx_p, priv0.psquare, (True,)),
-                          (c.ctx_hp, priv0.p, (False, True))):
-        for shared in forms:
-            name = "mont_mul_const_int" if shared else "mont_mul_int"
-            checks.setdefault(name, []).append(
-                check_mont_mul(ctx, M, shared, rng))
-        check_ragged_products(ctx, M, dev, rng)
-    checks["mont_pow_int"] = [check_pow(
-        dc0.ctx, pub0.nsquare, dev, rng, True, BATCH, SHORT_BITS,
-        VEC_PLAIN_ROWS)]
-    checks["mont_pow_shared_int"] = shared_pows(pub0, priv0)
-    check_ragged_pows(pub0, dev, rng)
-    for vec, name in ((True, "mont_pow_int"), (False, "mont_pow_shared_int")):
-        checks[name].append(check_pow(ctx8, M8, dev, rng, vec,
-                                      LIMB_POW_ROWS, 64, LIMB_POW_ROWS))
-    # The 8192-bit encrypt's own launch, r^n over LIMB_ROWS rows: the
-    # integer pipe's E = 8 tile (phase 7's sweep times both bodies there).
-    checks["mont_pow_shared_int"].append(check_pow(
-        ctx8, M8, dev, rng, False, LIMB_ROWS, pub8.n.bit_length(),
-        INT_WIDE_PLAIN_ROWS, window=tbatch.ENCRYPT_WINDOW, exponent=pub8.n))
-    xs = floats(-1e6, 1e6, BATCH)
-    t_enc, t_dec = engine_trip(pub0, priv0, xs, "limb", dev, totals,
-                               int_pipe=True)
-    sc = floats(-100.0, 100.0, BATCH)
-    with environment(PHE_TPU_TORCH_ENGINE="limb"):
-        enc = EncryptedBatch.encrypt(pub0, xs, obfuscation="none", device=dev)
-        prod, t_mul, n_mul = run_step(lambda: enc * sc, totals)
-        out = prod.decrypt(priv0)
-    mm, mc = inverse_launches(enc.mont.shape[0], chunk)
-    expect_launches("integer-pipe mul_scalars", n_mul, {
-        "mont_pow_int": 1, "mont_mul_int": mm, "mont_mul_const_int": mc})
-    check(out == [x * y for x, y in zip(xs, sc)],
-          "integer-pipe mul_scalars: decrypt(x * s) != x * s")
-    print("2048-bit limb engine on contexts without REDC matrices, %d rows: "
-          "round trip equal to x on every row (encrypt %.4f s, decrypt %.4f "
-          "s, the programs' first calls), mul_scalars %.4f s, its decrypt "
-          "exact; launches %s [%s]"
-          % (BATCH, t_enc, t_dec, t_mul, json.dumps(n_mul), card))
-    record["integer pipe"] = dict(encrypt_s=t_enc, decrypt_s=t_dec,
-                                  mul_scalars_s=t_mul)
-    return record, checks
-
-
 def main():
     started = time.time()
     if not torch.cuda.is_available():
@@ -2890,13 +2493,6 @@ def main():
     print("programs phase: %.1f s" % (time.time() - t0))
     print(json.dumps({"programs_phase": programs, "card": card}))
 
-    # -- 10. the engines, and the integer-pipe REDC bodies -----------------
-    t0 = time.time()
-    engines, engine_checks = engines_phase([(pub, priv), key3], dev, card,
-                                           path_launches)
-    print("engines phase: %.1f s" % (time.time() - t0))
-    print(json.dumps({"engines_phase": engines, "card": card}))
-
     src = {"mont_mul": "phe_tpu_torch/csrc/mont_mul.cu",
            "mont_mul_const": "phe_tpu_torch/csrc/mont_mul.cu",
            "rns_ladder": "phe_tpu_torch/csrc/rns_ladder.cu",
@@ -2906,8 +2502,7 @@ def main():
            "vpu_microbench": "phe_tpu_torch/csrc/microbench.cu"}
     # The integer-pipe REDC bodies: the same kernels' kMxu = false
     # instantiations, phe_tpu's mxu=False branch of the same Pallas calls.
-    for name in ("mont_mul", "mont_mul_const", "mont_pow_shared",
-                 "mont_pow"):
+    for name in cuda_modexp.FORMS:
         src[name + "_int"] = src[name]
     replaces = {"mont_mul": "phe_tpu/ops/pallas_modexp.py:378",
                 "mont_mul_const": "phe_tpu/ops/pallas_modexp.py:434",
@@ -2930,12 +2525,16 @@ def main():
               "rns_ladder": ladder_checks}
     checks.update({name: [c] for name, c in vec_checks.items()})
     checks["vpu_microbench"] = chain_checks
-    for name, c in wide_checks.items():
-        checks[name].append(c)
+    for name, cs in wide_checks.items():
+        checks[name].extend(cs)
     checks["rns_ladder_vec"].append(vec_456)
     checks["mont_pow_shared"].append(crt_check)
-    for name, c in engine_checks.items():
-        checks.setdefault(name, []).extend(c)
+    # A limb check counts under the kernel its launches ran: <form>_int
+    # where _body took the integer pipe (its tile text names the body).
+    for form in cuda_modexp.FORMS:
+        for c in checks.pop(form):
+            int_pipe = c["tile"].startswith("integer-pipe")
+            checks.setdefault(form + "_int" * int_pipe, []).append(c)
     for name in src:
         check(path_launches.get(name, 0) > 0,
               "%s was not launched on the main path" % name)

@@ -16,13 +16,12 @@ over ranks on torch.distributed (:mod:`~phe_tpu_torch.parallel`); and the
 native C++ host engine behind ``utils.ntheory`` (``HAVE_NATIVE``).
 
 Two modexp engines serve every key size, chosen as phe_tpu chooses them
-(PHE_TPU_TORCH_ENGINE, :mod:`~phe_tpu_torch.config`): by default the RNS
-ladder where the channel-prime supply covers the modulus (up to ~8,760
-bits: n^2 of keys up to ~4,380 bits, and the decrypt halves p^2, q^2 of
-keys up to ~8,760 bits), and the limb engine's windowed modexps past it
-(n^2 of an 8192-bit key, for one); ``limb`` runs the limb engine at every
-key size. The limb kernels reduce on the int8 tensor cores, or on the
-integer pipe for contexts built under PHE_TPU_TORCH_MXU=0.
+by default: the RNS ladder where the channel-prime supply covers the
+modulus (``rns.fits``, up to ~8,760 bits: n^2 of keys up to ~4,380 bits,
+and the decrypt halves p^2, q^2 of keys up to ~8,760 bits), and the limb
+engine's windowed modexps past it (n^2 of an 8192-bit key, for one). The
+limb kernels reduce on the int8 tensor cores or on the integer pipe,
+whichever ``cuda_modexp._body`` picks at each launch's shape.
 :mod:`~phe_tpu_torch.profiling`,
 :mod:`~phe_tpu_torch.benchmarks`, :mod:`~phe_tpu_torch.bench` and
 :mod:`~phe_tpu_torch.microbench` measure them on the card.

@@ -24,21 +24,17 @@ Two modexp engines, as in phe_tpu: the RNS ladder (csrc/rns_ladder.cu)
 and the limb engine's windowed modexps (csrc/mont_pow.cu), chosen at
 phe_tpu's five sites (encrypt_mont, obfuscate_mont, the per-element
 programs, raw_decrypt_launch, raw_decrypt_compact) by each context's
-``rstate()``: ``rns_state()`` if ``_use_rns()``, else None.
-``_use_rns()`` reads PHE_TPU_TORCH_ENGINE
-(config.use_rns_engine): under rns or auto (the default) the RNS ladder
-runs wherever the channel-prime supply covers the modulus (rns.fits:
-moduli up to ~8,760 bits) and ``rns_state()`` is None past it; under limb
-every modexp runs on the limb engine and no RNS state is ever built. Each
-program with an RNS twin (_encrypt_limb, _obfuscate_limb, _pow_elems,
-_decrypt_residue_limb) runs on that answer alone. By default keys up to
-~4,380 bits run everything on RNS; at 8192-bit keys n^2 (16,384 bits)
-runs on the limb engine while the decrypt halves p^2, q^2 (8,192 bits)
-stay on RNS; only above ~8,760-bit keys does decryption take the limb
-engine too. crt_powers and short obfuscation run on the limb engine
-under either setting, as in phe_tpu. Encoding
-exponents are host-side numpy metadata. Blinding factors r come from the
-host CSPRNG (``secrets``), never from a torch generator.
+``rns_state()``: the RNS state wherever the channel-prime supply covers
+the modulus (rns.fits: moduli up to ~8,760 bits), else None for the
+limb engine. Each program with an RNS twin
+(_encrypt_limb, _obfuscate_limb, _pow_elems, _decrypt_residue_limb) runs
+on that answer alone. Keys up to ~4,380 bits run everything on RNS; at
+8192-bit keys n^2 (16,384 bits) runs on the limb engine while the
+decrypt halves p^2, q^2 (8,192 bits) stay on RNS; only above ~8,760-bit
+keys does decryption take the limb engine too. crt_powers and short
+obfuscation run on the limb engine at every key size, as in phe_tpu.
+Encoding exponents are host-side numpy metadata. Blinding factors r come
+from the host CSPRNG (``secrets``), never from a torch generator.
 """
 
 import functools
@@ -72,14 +68,6 @@ _WINDOW_GROUP = 8
 SHORT_EXPONENT_BITS = 320
 # rns_state()'s cache before its first call (None is a cached answer).
 _UNBUILT = object()
-
-
-def _use_rns():
-    """Engine selection for the modexps of encryption, re-obfuscation,
-    scalar multiply, alignment and decryption: PHE_TPU_TORCH_ENGINE (rns,
-    limb or auto; auto is rns wherever rns.fits the modulus, on every
-    device)."""
-    return config.use_rns_engine()
 
 
 def bucket_rows(b):
@@ -732,11 +720,8 @@ class PublicDeviceContext:
             red=mg.build_excess_reducer(nsq, rsys.out_limbs, self.device),
         )
 
-    def rstate(self):
-        """The engine handle of the per-element programs (_pow_elems):
-        the RnsPubState when the RNS engine is selected and fits, else
-        None for the limb engine."""
-        return self.rns_state() if _use_rns() else None
+    # The name the benchmark harness calls (paillier_bench/protocols).
+    rstate = rns_state
 
     @classmethod
     def build(cls, public_key, device=None):
@@ -811,7 +796,7 @@ class PublicDeviceContext:
         """Fresh encryption (n*m+1)*r^n for encoded residues -> [Bp, L]."""
         m = self.pack_messages(encodings)
         r = self.random_r_bytes(len(encodings), r_values)
-        st = self.rstate()
+        st = self.rns_state()
         if st is None:
             return _encrypt_dev(m, r, self.nr2_limbs, self.n_digits,
                                 self.ctx, self.Ln)
@@ -821,7 +806,7 @@ class PublicDeviceContext:
     def obfuscate_mont(self, mont):
         """Fresh uniform re-obfuscation of a Montgomery ciphertext batch."""
         r = self.random_r_bytes(mont.shape[0])
-        st = self.rstate()
+        st = self.rns_state()
         if st is None:
             return _obfuscate_dev(mont, r, self.n_digits, self.ctx)
         return _obfuscate_rns_dev(mont, r, self.n_digits, self.ctx, st)
@@ -863,7 +848,7 @@ class PublicDeviceContext:
             digits = _digits_on(_digits_rows(exponents, exponent_bits,
                                              pad_rows=ct_mont.shape[0]),
                                 self.device)
-        return _pow_elems_dev(ct_mont, digits, self.ctx, self.rstate())
+        return _pow_elems_dev(ct_mont, digits, self.ctx, self.rns_state())
 
 
 class PrivateDeviceConstants(NamedTuple):
@@ -956,10 +941,8 @@ class PrivateDeviceContext:
                                   for pp, nsq, ctx2 in squares)
         return self._rns
 
-    def rstate(self):
-        """The engine handle of the decrypt programs: rns_state() when the
-        RNS engine is selected, else None for the limb engine."""
-        return self.rns_state() if _use_rns() else None
+    # The name the benchmark harness calls (paillier_bench/protocols).
+    rstate = rns_state
 
     @classmethod
     def build(cls, private_key, device=None):
@@ -987,7 +970,7 @@ class PrivateDeviceContext:
 
     def raw_decrypt_launch(self, ct_mont):
         """Run the decrypt program: [Bp, nbytes] packed plaintext bytes."""
-        halves = self.rstate()
+        halves = self.rns_state()
         if halves is None:
             return _decrypt_dev(ct_mont, self.pub_ctx.ctx, self.consts)
         return _decrypt_rns_dev(ct_mont, self.pub_ctx.ctx, self.consts,
@@ -999,7 +982,7 @@ class PrivateDeviceContext:
 
     def raw_decrypt_compact(self, ct_mont):
         """(compact decode rows [Bp, 3], full packed bytes) — _decode_compact."""
-        halves = self.rstate()
+        halves = self.rns_state()
         if halves is None:
             return _decrypt_compact_dev(ct_mont, self.pub_ctx.ctx,
                                         self.consts)
@@ -1298,7 +1281,7 @@ class EncryptedBatch:
             mont = _add_encrypted_aligned_dev(
                 self.mont, self._align_digits(target),
                 other.mont, other._align_digits(target),
-                dc.ctx, dc.rstate(),
+                dc.ctx, dc.rns_state(),
             )
         return EncryptedBatch(self.public_key, mont, target, False)
 
@@ -1329,7 +1312,7 @@ class EncryptedBatch:
         else:
             mont = _add_scalars_aligned_dev(
                 self.mont, self._align_digits(target), m, dc.nr2_limbs,
-                dc.ctx, dc.rstate(), dc.Ln,
+                dc.ctx, dc.rns_state(), dc.Ln,
             )
         return EncryptedBatch(self.public_key, mont, target, False)
 
@@ -1413,9 +1396,9 @@ class EncryptedBatch:
                           (0, self.mont.shape[0] - len(neg)))
             mont = _pow_select_dev(self.mont, self.inverse_mont(),
                                    config.to_device(mask, dc.device),
-                                   digits, dc.ctx, dc.rstate())
+                                   digits, dc.ctx, dc.rns_state())
         else:
-            mont = _pow_elems_dev(self.mont, digits, dc.ctx, dc.rstate())
+            mont = _pow_elems_dev(self.mont, digits, dc.ctx, dc.rns_state())
         return EncryptedBatch(self.public_key, mont,
                               self.exponents + sc_exps, False)
 
@@ -1431,7 +1414,7 @@ class EncryptedBatch:
             mont = _sum_aligned_dev(
                 self.mont,
                 self._align_digits(np.full_like(self.exponents, target)),
-                dc.ctx, dc.rstate(),
+                dc.ctx, dc.rns_state(),
             )
         return EncryptedBatch(self.public_key, mont, np.array([target]),
                               False)
@@ -1481,5 +1464,5 @@ class EncryptedBatch:
         mask = config.to_device(np.array(neg, dtype=bool).reshape(B, D),
                                 dc.device)
         mont = _matvec_dev(w_mont, inv_mont, mask, digits, dc.ctx,
-                           dc.rstate())
+                           dc.rns_state())
         return EncryptedBatch(self.public_key, mont, row_min, False)

@@ -160,15 +160,15 @@ def _sync(b):
 def op_costs(pub, priv, device):
     """Roofline cost models of encrypt, decrypt, add and mul on the engines
     that actually run them (phe_tpu's bench_key_size chooses them alike):
-    the RNS models where the RNS engine is selected and fits (the
-    contexts' rstate()), the limb-engine models otherwise."""
+    the RNS models where the RNS engine fits the modulus (the contexts'
+    rns_state()), the limb-engine models otherwise."""
     from phe_tpu_torch import batch as bt
     from phe_tpu_torch import profiling
 
     dc = pub.device_context(device)
     pdc = priv.device_context(device)
-    st = dc.rstate()
-    halves = pdc.rstate()
+    st = dc.rns_state()
+    halves = pdc.rns_state()
     return {
         "encrypt": profiling.rns_encrypt_cost(
             dc.n_bits, st.rsys.k, bt.ENCRYPT_WINDOW
@@ -359,7 +359,7 @@ def bench_mem(keysize=2048, test_size=100_000, step=10_000, emit=print,
     kind = device_name(dev)
     pub, _ = generate_paillier_keypair(n_length=keysize)
     dc = pub.device_context(dev)
-    dc.rstate()
+    dc.rns_state()
     L = dc.L
     r_init = _rss_kb()
     rng = np.random.default_rng(1)

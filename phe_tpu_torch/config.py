@@ -1,25 +1,13 @@
-"""Runtime configuration: the engine knobs, the device and the build
-directories, in one place.
+"""Runtime configuration: the device and the build directories, in one
+place.
 
-The counterpart of phe_tpu/config.py. Its knobs are a frozen dataclass
+The counterpart of phe_tpu/config.py. Its settings are a frozen dataclass
 resolved from the environment on every call (``current()``), so tests can
 set a variable and the next call sees it; this module is the only one of
 the package that reads the environment (``ops/_build.py``'s ``CUDA_HOME``,
 which finds the compiler, aside). The variables are the port's own, so
 that a process holding both packages sets them apart:
 
-  PHE_TPU_TORCH_ENGINE     rns|limb|auto  the modexp engine of encryption,
-                           re-obfuscation, scalar multiply, alignment and
-                           decryption. rns and auto: the RNS ladder wherever
-                           the channel-prime supply covers the modulus
-                           (rns.fits), the limb engine past it, on every
-                           device; limb: the limb engine at every key size.
-                           Any other value raises a ValueError.
-  PHE_TPU_TORCH_MXU        1|0  the REDC body of the limb engine's kernels:
-                           1 (the default) reduces on the int8 tensor cores
-                           against the context's REDC matrices, 0 on the
-                           CUDA cores' integer pipe. Read when a Montgomery
-                           context is built, so it is fixed per context.
   PHE_TPU_TORCH_CACHE_DIR  where the CUDA kernel libraries are compiled to
                            (default ``build/kernels`` in the checkout, which
                            ``.gitignore`` lists). The build is keyed by the
@@ -28,9 +16,12 @@ that a process holding both packages sets them apart:
   PHE_TPU_TORCH_NATIVE_DIR where the native host engine's library is
                            compiled to (default ``build/native``).
 
+No setting chooses an engine or a REDC body: each is decided from shape,
+the modexp engine by ``rns.fits`` (the contexts' ``rns_state()`` in
+batch.py) and the limb kernels' REDC body by ``cuda_modexp._body``.
 phe_tpu's ``backend`` and ``rns_kernel`` (Pallas or XLA) have no
-counterpart: on the card every wrapper launches its CUDA kernel, and no
-knob swaps in the plain PyTorch version.
+counterpart either: on the card every wrapper launches its CUDA kernel,
+and nothing swaps in the plain PyTorch version.
 
 The device is ``"cuda"`` unless the caller passes another
 (``resolve_device``). Asking for CUDA on a machine without it raises;
@@ -48,42 +39,19 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(os.path.dirname(_PKG_DIR), "build")
-ENGINES = ("rns", "limb", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Engine configuration snapshot (see the module docstring)."""
+    """Configuration snapshot (see the module docstring)."""
 
-    engine: str = "auto"
-    mxu: bool = True
     cache_dir: str = os.path.join(_BUILD, "kernels")
     native_dir: str = os.path.join(_BUILD, "native")
 
 
 def current():
     """The configuration as of this call (the environment re-read)."""
-    engine = os.environ.get("PHE_TPU_TORCH_ENGINE", Config.engine)
-    if engine not in ENGINES:
-        raise ValueError("PHE_TPU_TORCH_ENGINE=%r: expected one of %s"
-                         % (engine, ", ".join(ENGINES)))
-    return Config(
-        engine=engine,
-        mxu=os.environ.get("PHE_TPU_TORCH_MXU", "1") != "0",
-        cache_dir=build_dir(),
-        native_dir=native_dir(),
-    )
-
-
-def use_rns_engine():
-    """The RNS engine for the modexps, where it fits the modulus?
-    (PHE_TPU_TORCH_ENGINE: rns and auto say yes, limb no.)"""
-    return current().engine != "limb"
-
-
-def use_mxu():
-    """REDC matrices for Montgomery contexts built now? (PHE_TPU_TORCH_MXU)"""
-    return current().mxu
+    return Config(cache_dir=build_dir(), native_dir=native_dir())
 
 
 def resolve_device(device=None):
@@ -123,7 +91,7 @@ def to_device(array, device):
 
 def build_dir():
     """Directory the CUDA kernel libraries are compiled into
-    (PHE_TPU_TORCH_CACHE_DIR, read alone: the engine's check is not its)."""
+    (PHE_TPU_TORCH_CACHE_DIR)."""
     return os.environ.get("PHE_TPU_TORCH_CACHE_DIR", Config.cache_dir)
 
 

@@ -1,7 +1,7 @@
 // Batched Montgomery product a * b * R^-1 mod M over 14-bit redundant
 // limbs, E rows a block, both constant products of the reduction on the
-// int8 tensor cores, or, for a context without REDC matrices, on the CUDA
-// cores' integer pipe.
+// int8 tensor cores or on the CUDA cores' integer pipe, whichever the
+// wrapper picks for the launch's shape.
 //
 // Replaces phe_tpu/ops/pallas_modexp.py: mont_mul_cols (call :378) and
 // mont_mul_const_cols (call :434), whose kernel body is _mul_kernel

@@ -1,7 +1,8 @@
 // Windowed Montgomery exponentiation over 14-bit redundant limbs, with the
 // exponent shared by the batch or one exponent per row, E rows a block and
-// both constant products of each reduction on the int8 tensor cores, or,
-// for a context without REDC matrices, on the CUDA cores' integer pipe.
+// both constant products of each reduction on the int8 tensor cores or on
+// the CUDA cores' integer pipe, whichever the wrapper picks for the
+// launch's shape.
 //
 // Replaces phe_tpu/ops/pallas_modexp.py: mont_pow_shared_cols (call :302),
 // whose kernel body is _pow_kernel (:199-248), and mont_pow_cols (call

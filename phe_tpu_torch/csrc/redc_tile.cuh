@@ -1,7 +1,7 @@
 // The REDC tile: Montgomery products over 14-bit redundant limbs for E
 // rows a block, both constant products of each reduction on the int8
-// tensor cores (kMxu), or, for a context without REDC matrices, on the
-// CUDA cores' integer pipe (the integer-pipe body, below). mont_mul.cu
+// tensor cores (kMxu) or on the CUDA cores' integer pipe (the integer-pipe
+// body, below), whichever the wrapper picks for the launch. mont_mul.cu
 // runs one product a row on it, mont_pow.cu a whole windowed modexp a row.
 //
 // What a product computes: for a, b < 2.01 M with limbs in [0, 2^14] and

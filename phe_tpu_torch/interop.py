@@ -36,17 +36,15 @@ def montgomery_context(d, device):
     compensation vectors, where d has them, become the context's own, on
     the host (mg.redc_matrices returns them), so both packages reduce with
     the same constants. A context phe_tpu built without them (w_mq None:
-    under PHE_TPU_MXU=0, or past its L = 507 ceiling) is carried as one
-    without matrices, whose kernels reduce on the integer pipe, as
-    phe_tpu's do."""
+    under PHE_TPU_MXU=0, or past its L = 507 ceiling) arrives as an
+    ordinary port context, which builds its own at its first int8-body
+    launch; the kernels agree with phe_tpu's in value mod M either way."""
     ctx = mg.MontgomeryContext(
         **{f: _t(d[f], device) for f in mg.MontgomeryContext._fields}
     )
     if np.asarray(d.get("w_mq")).dtype == np.int8:
         mg.attach_redc_matrices(ctx, mg.RedcMatrices(
             **{f: _t(d[f], "cpu") for f in mg.RedcMatrices._fields}))
-    else:
-        mg.drop_redc_matrices(ctx)
     return ctx
 
 

@@ -13,13 +13,11 @@ packed once per context and card (``_pow_columns``), or on the CUDA
 cores' integer pipe against M' and M (the ``_int`` entry points), whose
 batches no larger than the card's SMs run one row a thread-block cluster
 of C blocks (E = 1). Each launch takes the body that ``_body`` finds the
-faster at its shape (L, B) on the card; a context built without REDC
-matrices (montgomery.has_matrices False: PHE_TPU_TORCH_MXU=0) takes the
-integer pipe at every shape. Each
-launches its kernel for tensors on the card and takes its plain PyTorch
-version (montgomery.mont_mul_plain, mont_pow_shared_plain,
-mont_pow_plain: the integer-pipe formulation) for tensors on the CPU;
-any other device raises.
+faster at its shape (L, B) on the card. Each launches its kernel for
+tensors on the card and takes its plain PyTorch version
+(montgomery.mont_mul_plain, mont_pow_shared_plain, mont_pow_plain: the
+integer-pipe formulation) for tensors on the CPU; any other device
+raises.
 
 The contract (phe_tpu's tests state it for its kernels): for inputs below
 2.01 M with limbs in [0, 2^14], the output is congruent to a*b*R^-1 mod M
@@ -69,9 +67,8 @@ POW_STREAM = 1 << 29
 # times the rows its blocks hold, and up to BODY_ONE_ROW_LIMBS for the
 # batches the integer pipe runs on its one-row tile.
 BODY_ROW_LIMBS, BODY_ONE_ROW_LIMBS = 24, 128
-# Per context with REDC matrices (keyed by its m tensor): the kernels'
-# packed REDC operands on its card, built at its first launch of either
-# kernel.
+# Per context (keyed by its m tensor): the kernels' packed REDC operands
+# on its card, built at its first int8-body launch of either kernel.
 _pow_packed = WeakIdKeyDictionary()
 # (kernel, device index, L, C) -> the clusters of C blocks of the one-row
 # tile the card holds at once (cudaOccupancyMaxActiveClusters).
@@ -202,8 +199,8 @@ def _pow_elems(L, B, sms, mxu=True, fit=None):
 def _body(L, B, sms):
     """Whether a product or modexp launch of B rows at L on a card of
     `sms` multiprocessors runs the int8 REDC body (True) or the integer
-    pipe (False), for a context that has REDC matrices: the int8 body
-    where the modexps measured it the faster (PERF.md, section 6).
+    pipe (False): the int8 body where the modexps measured it the faster
+    (PERF.md, section 6).
 
     Each block of the int8 body streams the two REDC matrices, 12 L^2
     bytes, from L2 once a product, shared by the rows it holds; the
@@ -226,10 +223,7 @@ def _body(L, B, sms):
 def _pow_columns(ctx):
     """(w_mq, w_m packed in fragment order, c_mq, c_m as int32) on the
     context's device, packed on the host once per context and card; the
-    unpacked matrices are not kept. None for a context without REDC
-    matrices: nothing is packed."""
-    if not mg.has_matrices(ctx):
-        return None
+    unpacked matrices are not kept."""
     cols = _pow_packed.get(ctx.m)
     if cols is None:
         mats = mg.redc_matrices(ctx)
@@ -270,19 +264,15 @@ def _tile(L, B, dev, mxu, kernel):
 def _redc_args(ctx, dev, L, B, body=None):
     """(mxu, the REDC constants' pointers) of a launch of B rows: the
     packed matrices and their compensation vectors for the int8 body, or
-    M' and M for the integer pipe. The body is _body's where the context
-    has REDC matrices, else the integer pipe; `body` (the launch helpers'
-    private argument, for the card's tests and sweeps) holds it to one."""
+    M' and M for the integer pipe. The body is _body's; `body` (the launch
+    helpers' private argument, for the card's tests and sweeps) holds it
+    to one."""
     if body is None:
-        body = mg.has_matrices(ctx) and _body(L, B, cuda_rns._sms(dev))
+        body = _body(L, B, cuda_rns._sms(dev))
     if not body:
         _check(ctx.m_prime, "ctx.m_prime", (L,), dev)
         return False, (ctx.m_prime.data_ptr(), ctx.m.data_ptr())
-    cols = _pow_columns(ctx)
-    if cols is None:
-        raise ValueError("the int8 REDC body needs a context with REDC "
-                         "matrices")
-    return True, tuple(t.data_ptr() for t in cols)
+    return True, tuple(t.data_ptr() for t in _pow_columns(ctx))
 
 
 def _check(t, name, shape, device):

@@ -17,8 +17,7 @@ shared memory (``_smem``) and the elements a block holds (``_elems``),
 chosen per launch from (k, B) among the kernel's instantiations.
 
 ``launches`` counts the kernel launches of each form; nothing else changes
-it. ``block_elems`` counts the same launches by the elements a block
-holds, apart from ``launches``, whose sum a benchmark reads.
+it.
 """
 
 import ctypes
@@ -41,7 +40,6 @@ _packed = WeakIdKeyDictionary()
 
 # Elements a block holds: the kernel's instantiations, widest first.
 ELEMS = (32, 8)
-block_elems = {e: 0 for e in ELEMS}
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
 
 
@@ -244,7 +242,6 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec, elems):
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, rc))
     launches[name] += 1
-    block_elems[elems] += 1
     return out
 
 

@@ -12,9 +12,8 @@ the encrypt -> decrypt round trip runs:
   (phe_tpu_torch.ops.cuda_modexp) for tensors on the card, and through its
   plain PyTorch version, ``redc(mul_full(a, b))``, for tensors on the CPU;
   the kernel reduces on the int8 tensor cores against the context's REDC
-  matrices, or, for a context built without them (``mxu=False`` or
-  PHE_TPU_TORCH_MXU=0, as phe_tpu's PHE_TPU_MXU=0), on the CUDA cores'
-  integer pipe (``has_matrices``);
+  matrices or on the CUDA cores' integer pipe, whichever
+  ``cuda_modexp._body`` picks at the launch's shape;
 * so do the windowed modexps with a shared or a per-element exponent
   (``mont_pow_shared``, ``mont_pow``), whose plain versions are the
   windowed-table loops below;
@@ -29,7 +28,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
-from phe_tpu_torch import config
 from phe_tpu_torch.ops import limb_math as lm
 from phe_tpu_torch.utils import limbs as hl
 
@@ -52,10 +50,7 @@ class MontgomeryContext(NamedTuple):
     beside it, on the host: ``redc_matrices(ctx)`` returns the ones
     ``interop.montgomery_context`` carried across from phe_tpu, or builds
     them. Both limb kernels (csrc/mont_pow.cu, csrc/mont_mul.cu) read them,
-    packed once per context on its card (cuda_modexp._pow_columns). A
-    context built without them (phe_tpu's ``w_mq is None``) is recorded
-    beside it the same way (``has_matrices`` is False), and its kernels
-    reduce on the integer pipe.
+    packed once per context on its card (cuda_modexp._pow_columns).
     """
 
     m: torch.Tensor
@@ -75,12 +70,10 @@ def num_limbs_for_modulus(modulus_bits):
     return -(-raw // 8) * 8
 
 
-def build_context(modulus, device, num_limbs=None, mxu=True):
+def build_context(modulus, device, num_limbs=None):
     """Host-side construction of a MontgomeryContext from a Python int.
 
-    mxu=True (the default; PHE_TPU_TORCH_MXU=0 overrides it, read here)
-    gives the context REDC matrices, built at its first launch, at every
-    L; otherwise its kernels take the integer-pipe REDC body.
+    Its REDC matrices are built at its first int8-body launch, at every L.
     """
     if num_limbs is None:
         num_limbs = num_limbs_for_modulus(modulus.bit_length())
@@ -89,16 +82,13 @@ def build_context(modulus, device, num_limbs=None, mxu=True):
         raise ValueError("num_limbs too small for subtraction-free Montgomery")
     m_prime = (-pow(modulus, -1, R)) % R
     pack = lambda v: _tensor(hl.int_to_limbs(v, num_limbs), device)
-    ctx = MontgomeryContext(
+    return MontgomeryContext(
         m=pack(modulus),
         m_prime=pack(m_prime),
         r2=pack(R * R % modulus),
         one=pack(R % modulus),
         m_comp=pack(R - modulus),
     )
-    if not (mxu and config.use_mxu()):
-        drop_redc_matrices(ctx)
-    return ctx
 
 
 class RedcMatrices(NamedTuple):
@@ -124,7 +114,7 @@ class RedcMatrices(NamedTuple):
 
 
 # Per context, keyed by its m tensor: the RedcMatrices carried across from
-# phe_tpu, on the host, or None for a context without them.
+# phe_tpu, on the host.
 _carried = WeakIdKeyDictionary()
 
 
@@ -164,19 +154,10 @@ def build_redc_matrices(modulus, num_limbs, device):
                         c_m=_tensor(c_m, device))
 
 
-def has_matrices(ctx):
-    """Whether the context's kernels reduce against REDC matrices (else
-    on the integer pipe)."""
-    return _carried.get(ctx.m, True) is not None
-
-
 def redc_matrices(ctx):
     """The context's RedcMatrices on the host: the ones carried across
     from phe_tpu, else built from M's limbs. No built copy is kept: the
     modexp's wrapper keeps only its packed operands."""
-    if not has_matrices(ctx):
-        raise ValueError("this Montgomery context was built without REDC "
-                         "matrices")
     mats = _carried.get(ctx.m)
     if mats is None:
         modulus = hl.limbs_to_int(ctx.m.cpu().numpy())
@@ -187,12 +168,6 @@ def redc_matrices(ctx):
 def attach_redc_matrices(ctx, mats):
     """Keep mats (carried across from phe_tpu) as the context's own."""
     _carried[ctx.m] = mats
-
-
-def drop_redc_matrices(ctx):
-    """Record the context as one without REDC matrices (phe_tpu's
-    ``w_mq is None``): its kernels reduce on the integer pipe."""
-    _carried[ctx.m] = None
 
 
 def redc(t, ctx):

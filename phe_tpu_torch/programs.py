@@ -66,7 +66,7 @@ from phe_tpu_torch import profiling
 from phe_tpu_torch.ops import cuda_modexp, cuda_rns
 
 # The kernel wrappers' launch counters.
-COUNTERS = (cuda_modexp.launches, cuda_rns.launches, cuda_rns.block_elems)
+COUNTERS = (cuda_modexp.launches, cuda_rns.launches)
 
 
 def _counts():

@@ -3,9 +3,9 @@
 bench_key_size at a 256-bit key emits rows with phe_tpu's keys plus the
 device they ran on ("cpu" here, so no CPU row can pass for a card
 number), and its speed_of_light comes from the cost model of the engine
-that ran: the RNS models by default, the limb-engine models under
-PHE_TPU_TORCH_ENGINE=limb (phe_tpu's bench_key_size chooses alike on
-PHE_TPU_ENGINE). bench_mem reports
+that ran: the RNS models where rns.fits holds, the limb-engine models
+where it is made to refuse the key's moduli (phe_tpu's bench_key_size
+chooses alike on PHE_TPU_ENGINE). bench_mem reports
 the bytes the port holds per ciphertext, int64 limbs: 8 L. bench_scaling
 runs over the world there is (one process here; worlds of 2 and 4 in
 tests/test_torch_parallel.py). The fixed keys are the repository's.
@@ -20,6 +20,7 @@ from phe_tpu import benchmarks as jbench
 from phe_tpu import profiling as jprof
 
 from phe_tpu_torch import bench, benchmarks, profiling
+from torch_route import refuse_rns
 from __graft_entry__ import _P, _Q
 
 OPS = ["keygen", "encrypt", "decrypt", "add_enc_enc", "add_enc_scalar",
@@ -34,7 +35,8 @@ def phe_tpu_rows():
 
 
 def _port_rows(engine, monkeypatch):
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", engine)
+    if engine == "limb":
+        refuse_rns(monkeypatch)
     rows = []
     results = benchmarks.bench_key_size(256, 8, runs=1, emit=rows.append,
                                         device="cpu")
@@ -77,7 +79,8 @@ def test_op_costs_follow_the_engine(monkeypatch):
     assert costs["decrypt"] == jprof.rns_decrypt_cost(2048, 152, 5)
     assert costs["mul"] == jprof.rns_vec_modexp_cost(64, 304, 4)
     assert costs["add"] == jprof.mont_mul_cost(296)
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", "limb")
+    refuse_rns(monkeypatch)
+    pub, priv = benchmarks.fixed_key(2048)
     costs = benchmarks.op_costs(pub, priv, "cpu")
     assert costs["encrypt"] == jprof.encrypt_cost(2048, 296, 5)
     assert costs["decrypt"] == jprof.decrypt_cost(2048, 152, 5)

@@ -1,20 +1,22 @@
-"""The port's engine configuration (phe_tpu_torch/config.py) against
-phe_tpu's (phe_tpu/config.py), on the CPU.
+"""The port's configuration (phe_tpu_torch/config.py) and its engine
+route against phe_tpu's (phe_tpu/config.py), on the CPU.
 
-config.current() re-reads PHE_TPU_TORCH_ENGINE, PHE_TPU_TORCH_MXU,
-PHE_TPU_TORCH_CACHE_DIR and PHE_TPU_TORCH_NATIVE_DIR on every call; an
-engine other than rns, limb or auto raises. The engine picks the program
-at phe_tpu's five sites (encrypt_mont, obfuscate_mont, rstate,
-raw_decrypt_launch, raw_decrypt_compact), and under limb no RNS state is
-built. At a 256-bit key the port under each engine equals phe_tpu under
-the same engine (PHE_TPU_ENGINE, with PHE_TPU_BACKEND=xla or
-PHE_TPU_RNS_KERNEL=xla): pinned-r ciphertext ints, decrypted values,
-compact-decode rows, mul_scalars, decrease_exponent_to, and short
-obfuscation decrypting to x. PHE_TPU_TORCH_MXU=0 builds contexts without
-REDC matrices, as PHE_TPU_MXU=0 does, with the same public results;
-interop carries a phe_tpu context without matrices as one, and a batch
-program keys the two kinds of context apart. Tolerance zero: exact
-integer arithmetic.
+config.current() re-reads PHE_TPU_TORCH_CACHE_DIR and
+PHE_TPU_TORCH_NATIVE_DIR on every call, and nothing else: the former
+PHE_TPU_TORCH_ENGINE and PHE_TPU_TORCH_MXU, which the benchmark harness
+still exports, change neither the route nor the REDC body. The route
+follows rns.fits at phe_tpu's five sites (encrypt_mont, obfuscate_mont,
+the per-element programs, raw_decrypt_launch, raw_decrypt_compact);
+where rns.fits refuses the modulus (made to refuse every one here) no
+RNS state is built. At a 256-bit key the port on either route equals
+phe_tpu on the same one (PHE_TPU_ENGINE, with PHE_TPU_BACKEND=xla or
+PHE_TPU_RNS_KERNEL=xla):
+pinned-r ciphertext ints, decrypted values, compact-decode rows,
+mul_scalars, decrease_exponent_to, and short obfuscation decrypting to
+x; and equals phe_tpu under PHE_TPU_MXU=0, whose contexts carry no REDC
+matrices. interop carries a phe_tpu context with or without them as one
+that packs the same REDC operands as a fresh port context. Tolerance
+zero: exact integer arithmetic.
 """
 
 import dataclasses
@@ -30,25 +32,33 @@ from phe_tpu.ops import montgomery as jmg
 
 import phe_tpu_torch as pt
 from phe_tpu_torch import batch as tbatch
-from phe_tpu_torch import config, interop, programs
-from phe_tpu_torch.ops import cuda_modexp
+from phe_tpu_torch import config, interop
+from phe_tpu_torch.ops import cuda_modexp, cuda_rns
 from phe_tpu_torch.ops import montgomery as mg
+from torch_route import refuse_rns
 
 CPU = torch.device("cpu")
-VARS = ("PHE_TPU_TORCH_ENGINE", "PHE_TPU_TORCH_MXU",
-        "PHE_TPU_TORCH_CACHE_DIR", "PHE_TPU_TORCH_NATIVE_DIR")
+VARS = ("PHE_TPU_TORCH_CACHE_DIR", "PHE_TPU_TORCH_NATIVE_DIR")
+# The variables the port read before the route and the REDC body were
+# decided from shape alone; paillier_bench/run.py still exports them.
+FORMER_VARS = ("PHE_TPU_TORCH_ENGINE", "PHE_TPU_TORCH_MXU")
 A = [1.5, -2.0, 300.0, 0.0625, 7, -1e-3, 12345.678]
 SCALARS = [3.0, -0.5, 2.0, -16.0, 1.0, -7.25, 1e-3]
-# phe_tpu's variables for each engine of the port: its XLA routes.
+# phe_tpu's variables for each route of the port: its XLA routes.
 PHE_TPU_ENV = {
     "limb": {"PHE_TPU_ENGINE": "limb", "PHE_TPU_BACKEND": "xla"},
     "rns": {"PHE_TPU_ENGINE": "rns", "PHE_TPU_RNS_KERNEL": "xla"},
 }
+H100_SMS = 132  # multiprocessors of an H100 SXM
+# The limb kernels' widths on the port's paths, and launch rows around
+# the body rule's turns.
+PATH_LIMBS = (8, 16, 24, 40, 80, 152, 296, 440, 592, 1176)
+PATH_ROWS = (1, 16, 64, 512, 4096, 16384)
 
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
-    for var in VARS:
+    for var in VARS + FORMER_VARS:
         monkeypatch.delenv(var, raising=False)
 
 
@@ -77,21 +87,17 @@ def test_current_defaults():
         os.path.abspath(config.__file__))), "build")
     cfg = config.current()
     assert cfg == config.Config(
-        engine="auto", mxu=True, cache_dir=os.path.join(build, "kernels"),
+        cache_dir=os.path.join(build, "kernels"),
         native_dir=os.path.join(build, "native"))
-    assert config.use_rns_engine() and config.use_mxu()
+    assert [f.name for f in dataclasses.fields(cfg)] == ["cache_dir",
+                                                         "native_dir"]
     assert config.build_dir() == cfg.cache_dir
     assert config.native_dir() == cfg.native_dir
     with pytest.raises(dataclasses.FrozenInstanceError):
-        cfg.engine = "limb"
+        cfg.cache_dir = "/x"
 
 
 @pytest.mark.parametrize("var,value,field,want", [
-    ("PHE_TPU_TORCH_ENGINE", "rns", "engine", "rns"),
-    ("PHE_TPU_TORCH_ENGINE", "limb", "engine", "limb"),
-    ("PHE_TPU_TORCH_ENGINE", "auto", "engine", "auto"),
-    ("PHE_TPU_TORCH_MXU", "0", "mxu", False),
-    ("PHE_TPU_TORCH_MXU", "1", "mxu", True),
     ("PHE_TPU_TORCH_CACHE_DIR", "/x/kernels", "cache_dir", "/x/kernels"),
     ("PHE_TPU_TORCH_NATIVE_DIR", "/x/native", "native_dir", "/x/native"),
 ])
@@ -100,24 +106,40 @@ def test_each_variable_is_read_on_every_call(monkeypatch, var, value, field,
     before = getattr(config.current(), field)
     monkeypatch.setenv(var, value)
     assert getattr(config.current(), field) == want
-    assert config.use_rns_engine() == (config.current().engine != "limb")
-    assert config.use_mxu() == config.current().mxu
     assert config.build_dir() == config.current().cache_dir
     assert config.native_dir() == config.current().native_dir
     monkeypatch.delenv(var)
     assert getattr(config.current(), field) == before
 
 
-def test_an_unknown_engine_raises_naming_the_variable(monkeypatch):
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", "pallas")
-    with pytest.raises(ValueError, match="PHE_TPU_TORCH_ENGINE"):
-        config.current()
-    with pytest.raises(ValueError, match="PHE_TPU_TORCH_ENGINE"):
-        tbatch._use_rns()
-    # The build directories read their own variables, not the engine's.
-    monkeypatch.setenv("PHE_TPU_TORCH_CACHE_DIR", "/x/kernels")
-    assert config.build_dir() == "/x/kernels"
-    assert config.native_dir() == config.Config.native_dir
+@pytest.mark.parametrize("var,value", [
+    ("PHE_TPU_TORCH_ENGINE", "limb"), ("PHE_TPU_TORCH_ENGINE", "rns"),
+    ("PHE_TPU_TORCH_ENGINE", "pallas"), ("PHE_TPU_TORCH_MXU", "0"),
+], ids=["ENGINE=limb", "ENGINE=rns", "ENGINE=pallas", "MXU=0"])
+def test_the_former_variables_change_nothing(keys, monkeypatch, var, value):
+    """With a former variable set, as the harness still sets it from a
+    config: config.current() does not raise and reads as without it, both
+    contexts of a 256-bit key take the RNS state, and each launch at the
+    path widths takes the REDC body it takes with the variable unset."""
+    monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
+    monkeypatch.setattr(cuda_modexp, "_pow_columns", lambda ctx: (
+        torch.zeros(1, dtype=torch.int32),) * 4)
+    contexts = {L: mg.build_context((1 << (14 * L - 30)) + 1, CPU)
+                for L in PATH_LIMBS}
+
+    def bodies():
+        return [cuda_modexp._redc_args(ctx, CPU, L, B)[0]
+                for L, ctx in contexts.items() for B in PATH_ROWS]
+
+    unset = bodies()
+    assert True in unset and False in unset
+    monkeypatch.setenv(var, value)
+    assert config.current() == config.Config()
+    pub, priv = _fresh(keys)
+    dc, pdc = pub.device_context(CPU), priv.device_context(CPU)
+    assert dc.rstate() is dc.rns_state() is not None
+    assert pdc.rns_state() is not None and len(pdc.rns_state()) == 2
+    assert bodies() == unset
 
 
 # The _dev programs of each site, RNS first.
@@ -130,12 +152,13 @@ SITES = {
 }
 
 
-@pytest.mark.parametrize("engine", ["rns", "limb", "auto"])
-def test_engine_routes_the_five_sites(keys, monkeypatch, engine):
-    """Which program each site calls under each engine (rstate: what
-    _pow_elems_dev is handed), and that under limb neither context ever
-    builds its RNS state."""
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", engine)
+@pytest.mark.parametrize("route", ["fits", "past_fits"])
+def test_engine_routes_the_five_sites(keys, monkeypatch, route):
+    """Which program each site calls where rns.fits holds and past it
+    (rstate: what _pow_elems_dev is handed), and that past it neither
+    context ever builds its RNS state."""
+    if route == "past_fits":
+        refuse_rns(monkeypatch)
     called = []
     for name in [n for pair in SITES.values() for n in pair] + [
             "_pow_elems_dev"]:
@@ -155,7 +178,7 @@ def test_engine_routes_the_five_sites(keys, monkeypatch, engine):
             built.append(type(self).__name__) or _real(self, *a)))
     pub, priv = _fresh(keys)
     dc, pdc = pub.device_context(CPU), priv.device_context(CPU)
-    rns = engine != "limb"
+    rns = route == "fits"
     batch = pt.EncryptedBatch.encrypt(pub, A, device=CPU)
     assert called.pop() == (SITES["encrypt_mont"][not rns], None)
     mont = dc.obfuscate_mont(batch.mont)
@@ -163,7 +186,7 @@ def test_engine_routes_the_five_sites(keys, monkeypatch, engine):
     powed = dc.pow_scalars(mont, [3] * len(A), 8)
     name, rstate = called.pop()
     assert name == "_pow_elems_dev" and (rstate is not None) == rns
-    assert rstate is dc.rstate()
+    assert rstate is dc.rns_state()
     values = pdc.raw_decrypt_batch(mont)
     assert called.pop() == (SITES["raw_decrypt_launch"][not rns], None)
     pdc.raw_decrypt_compact(powed)
@@ -174,21 +197,24 @@ def test_engine_routes_the_five_sites(keys, monkeypatch, engine):
     if rns:
         assert sorted(built) == ["PrivateDeviceContext"] * 2 + [
             "PublicDeviceContext"]
-        assert dc._rns is not tbatch._UNBUILT
+        assert dc._rns is not None
     else:
         assert built == []
-        assert dc._rns is pdc._rns is tbatch._UNBUILT
+        assert dc._rns is pdc._rns is None
 
 
 @pytest.mark.parametrize("engine", ["limb", "rns"])
 def test_public_results_equal_phe_tpu_under_each_engine(keys, monkeypatch,
                                                         engine):
-    jpub, jpriv, pub, priv = keys
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", engine)
+    jpub, jpriv, _, _ = keys
+    if engine == "limb":
+        refuse_rns(monkeypatch)
     for var, value in PHE_TPU_ENV[engine].items():
         monkeypatch.setenv(var, value)
+    pub, priv = _fresh(keys)
     rs = _pinned(pub, len(A), 71)
     got = pt.EncryptedBatch.encrypt(pub, A, r_values=rs, device=CPU)
+    assert (pub.device_context(CPU).rns_state() is None) == (engine == "limb")
     want = jbatch.EncryptedBatch.encrypt(jpub, A, r_values=rs)
     assert got.ciphertext_ints(False) == want.ciphertext_ints(False)
     assert got.decrypt(priv) == want.decrypt(jpriv) == A
@@ -214,24 +240,16 @@ def test_public_results_equal_phe_tpu_under_each_engine(keys, monkeypatch,
 
 
 def test_no_redc_matrices_equals_phe_tpu_without_them(keys, monkeypatch):
-    """PHE_TPU_TORCH_MXU=0 against PHE_TPU_MXU=0, both on the limb
-    engine: contexts built then have no REDC matrices, and the public
-    results equal phe_tpu's; a context built after the variable is unset
-    has them again."""
+    """The port, each launch's REDC body chosen by shape, against phe_tpu
+    under PHE_TPU_MXU=0 on its limb route, whose contexts carry no REDC
+    matrices: the public results are equal."""
     jpub, jpriv, _, _ = keys
-    for var, value in dict(PHE_TPU_ENV["limb"], PHE_TPU_MXU="0",
-                           PHE_TPU_TORCH_ENGINE="limb",
-                           PHE_TPU_TORCH_MXU="0").items():
+    for var, value in dict(PHE_TPU_ENV["limb"], PHE_TPU_MXU="0").items():
         monkeypatch.setenv(var, value)
-    pub, priv = _fresh(keys)
     jpub = phe_tpu.PaillierPublicKey(jpub.n)
     jpriv = phe_tpu.PaillierPrivateKey(jpub, jpriv.p, jpriv.q)
-    dc, pdc = pub.device_context(CPU), priv.device_context(CPU)
-    c = pdc.consts
-    for ctx in (dc.ctx, c.ctx_p, c.ctx_q, c.ctx_hp, c.ctx_hq):
-        assert not mg.has_matrices(ctx)
-        assert cuda_modexp._pow_columns(ctx) is None
     assert jpub.device_context().ctx.w_mq is None
+    pub, priv = _fresh(keys)
     rs = _pinned(pub, len(A), 72)
     got = pt.EncryptedBatch.encrypt(pub, A, r_values=rs, device=CPU)
     want = jbatch.EncryptedBatch.encrypt(jpub, A, r_values=rs)
@@ -240,29 +258,21 @@ def test_no_redc_matrices_equals_phe_tpu_without_them(keys, monkeypatch):
     assert mine.ciphertext_ints(False) == theirs.ciphertext_ints(False)
     assert mine.decrypt(priv) == theirs.decrypt(jpriv) == [
         x * y for x, y in zip(A, SCALARS)]
-    monkeypatch.delenv("PHE_TPU_TORCH_MXU")
-    assert mg.has_matrices(mg.build_context(pub.nsquare, CPU))
-    assert not mg.has_matrices(mg.build_context(pub.nsquare, CPU, mxu=False))
 
 
-def test_interop_carries_a_context_without_matrices(keys):
-    """A phe_tpu context built with mxu=False (w_mq None) arrives without
-    REDC matrices; one with them arrives with them; a batch program keys
-    two contexts of the same modulus, one of each, apart."""
-    jpub = keys[0]
-    M = jpub.nsquare
-    carried = {}
-    for mxu in (False, True):
-        jctx = jmg.build_context(M, mxu=mxu)
-        d = {f: np.asarray(getattr(jctx, f)) for f in jctx._fields}
-        carried[mxu] = ctx = interop.montgomery_context(d, CPU)
-        assert mg.has_matrices(ctx) == mxu
-        assert (cuda_modexp._pow_columns(ctx) is None) == (not mxu)
-    with pytest.raises(ValueError, match="without REDC matrices"):
-        mg.redc_matrices(carried[False])
-    prog = programs.device_program(mg.mont_mul)
-    a = torch.zeros((4, carried[True].num_limbs), dtype=torch.int64)
-    key = lambda ctx: prog._key(CPU, prog.signature.bind(a, a, ctx)
-                                .arguments)[0]
-    assert key(carried[False]) != key(carried[True])
-    assert key(carried[False]) == key(carried[False])
+@pytest.mark.parametrize("carried", [True, False], ids=["with", "without"])
+def test_interop_carries_a_context_without_matrices(keys, carried):
+    """A phe_tpu context with REDC matrices (w_mq int8) or without them
+    (mxu=False: w_mq None) arrives as a port context that packs the same
+    REDC operands (cuda_modexp._pow_columns) as a fresh port context of
+    the modulus: the carried matrices where they came, else its own."""
+    M = keys[0].nsquare
+    jctx = jmg.build_context(M, mxu=carried)
+    assert (jctx.w_mq is not None) == carried
+    ctx = interop.montgomery_context(
+        {f: np.asarray(getattr(jctx, f)) for f in jctx._fields}, CPU)
+    assert (mg._carried.get(ctx.m) is not None) == carried
+    mine = cuda_modexp._pow_columns(ctx)
+    fresh = cuda_modexp._pow_columns(mg.build_context(M, CPU))
+    assert len(mine) == len(fresh) == 4
+    assert all(torch.equal(a, b) for a, b in zip(mine, fresh))

@@ -19,16 +19,16 @@ encryption and an add on the card. The wire format round-trips a batch on
 the card (pinned: raw_encrypt's JSON; secure: re-obfuscated on the card),
 crt_powers equals Python's pow at 2048 bits through mont_pow_shared, the
 CLI's vector commands run on the card through click's CliRunner, and a
-world of one on NCCL sums as batch.sum() does. The integer-pipe REDC
-bodies (contexts built with mxu=False) run every block width on ragged
-batches at L = 80 and 296, and the one-row tile on thread-block clusters
-at L = 1,176 on 16 and ragged rows; a context with REDC matrices takes
-the body cuda_modexp._body picks at each launch's shape (the integer
-pipe for the 8192-bit r^n over 512 rows), and the int8 body's tests hold
-it through the launch helpers' private body argument; both layouts' shared-memory formulas
-match the kernels', and PHE_TPU_TORCH_ENGINE=limb gives the RNS engine's
-pinned-r ciphertexts at 2048 bits. Tolerance zero throughout:
-all exact integer arithmetic.
+world of one on NCCL sums as batch.sum() does. Each launch takes the
+REDC body cuda_modexp._body picks at its shape (the integer pipe for the
+8192-bit r^n over 512 rows); the tests of one body hold it through the
+launch helpers' private body argument: the integer-pipe bodies run every
+block width on ragged batches at L = 80 and 296, and the one-row tile on
+thread-block clusters at L = 1,176 on 16 and ragged rows. Both layouts'
+shared-memory formulas match the kernels', and the limb engine, reached
+with rns.fits made to refuse the key's moduli, gives the RNS engine's
+pinned-r ciphertexts at 2048 bits. Tolerance zero throughout: all exact
+integer arithmetic.
 """
 
 import functools
@@ -46,6 +46,7 @@ from phe_tpu_torch.ops import cuda_microbench, cuda_modexp, cuda_rns
 from phe_tpu_torch.ops import montgomery as mg
 from phe_tpu_torch.ops import rns
 from phe_tpu_torch.utils import limbs as hl
+from torch_route import refuse_rns
 
 pytestmark = pytest.mark.cuda
 
@@ -248,18 +249,23 @@ def test_3072_bit_default_key_on_the_card(dev):
 
 def test_3072_bit_full_call_takes_32_element_blocks(dev):
     """A 16,384-row encrypt at the fixed 3072-bit key runs its r^n ladder
-    (k = 456) in blocks of 32 elements, one launch that
-    cuda_rns.block_elems counts at E = 32; the decrypt's two CRT halves
-    take E = 32 too, and the batch decrypts to its values."""
+    (k = 456) in one launch, whose width _elems gives as blocks of 32
+    elements; the decrypt's two CRT halves take E = 32 too, in two
+    launches, and the batch decrypts to its values."""
     pub, priv = benchmarks.fixed_key(3072)
     g = np.random.default_rng(3072)
     values = [float(v) for v in g.uniform(-1e6, 1e6, 16384)]
-    for key in cuda_rns.block_elems:
-        cuda_rns.block_elems[key] = 0
+    sms = cuda_rns._sms(dev)
+    for key in cuda_rns.launches:
+        cuda_rns.launches[key] = 0
     batch = pt.EncryptedBatch.encrypt(pub, values, device=dev)
-    assert cuda_rns.block_elems == {8: 0, 32: 1}
+    st = pub.device_context(dev).rns_state()
+    assert st.rsys.k == 456 and cuda_rns._elems(st.rsys.k, 16384, sms) == 32
+    assert cuda_rns.launches == {"rns_ladder": 1, "rns_ladder_vec": 0}
     assert batch.decrypt(priv) == values
-    assert cuda_rns.block_elems == {8: 0, 32: 3}
+    halves = priv.device_context(dev).rns_state()
+    assert all(cuda_rns._elems(h[0].k, 16384, sms) == 32 for h in halves)
+    assert cuda_rns.launches == {"rns_ladder": 3, "rns_ladder_vec": 0}
 
 
 @pytest.mark.parametrize("window", [4, 5])
@@ -530,7 +536,7 @@ def test_8192_bit_r_n_takes_the_integer_pipe_and_int8_stays_held(dev):
     M = benchmarks.fixed_key(8192)[0].nsquare
     ctx = mg.build_context(M, dev)
     L = ctx.num_limbs
-    assert L == 1176 and mg.has_matrices(ctx)
+    assert L == 1176
     assert not cuda_modexp._body(L, 512, cuda_rns._sms(dev))
     rng = random.Random(1176 + 512)
     xs = [rng.randrange(0, 2 * M) for _ in range(512)]
@@ -656,17 +662,16 @@ def test_pow_smem_formula_matches_the_kernel(dev):
 @pytest.mark.parametrize("which", ["p", "n2"])
 @pytest.mark.parametrize("form", ["mul", "mul_const", "pow_shared", "pow"])
 def test_integer_pipe_bodies_value_equal_on_ragged_batches(dev, which, form):
-    """Each integer-pipe REDC body (a context built with mxu=False) at the
-    fixed 2048-bit key's p (L = 80) and n^2 (L = 296), at every (E, rows a
-    block) the wrapper picks, reached through the batch size: value-equal
-    to the plain version (every row of a product; the first rows and the
-    last two blocks of a modexp, 64-bit exponents, window 4) and to
-    Python's pow, limbs in [0, 2^14], value < 1.01 M, and counted under
-    its own name."""
+    """Each integer-pipe REDC body (held by the launch helpers' private
+    body argument) at the fixed 2048-bit key's p (L = 80) and n^2
+    (L = 296), at every (E, rows a block) the wrapper picks, reached
+    through the batch size: value-equal to the plain version (every row
+    of a product; the first rows and the last two blocks of a modexp,
+    64-bit exponents, window 4) and to Python's pow, limbs in [0, 2^14],
+    value < 1.01 M, and counted under its own name."""
     pub, priv = benchmarks.fixed_key(2048)
     M = priv.p if which == "p" else pub.nsquare
-    ctx = mg.build_context(M, dev, mxu=False)
-    assert not mg.has_matrices(ctx) and cuda_modexp._pow_columns(ctx) is None
+    ctx = mg.build_context(M, dev)
     L = ctx.num_limbs
     assert L == {"p": 80, "n2": 296}[which]
     rng = random.Random(L + len(form))
@@ -690,16 +695,15 @@ def test_integer_pipe_bodies_value_equal_on_ragged_batches(dev, which, form):
         before = cuda_modexp.launches[name]
         if form.startswith("mul"):
             shared = form == "mul_const"
-            got = (cuda_modexp.mont_mul_const(x, y[0], ctx) if shared
-                   else cuda_modexp.mont_mul(x, y, ctx))
+            got = cuda_modexp._launch(x, y[0] if shared else y, ctx, shared,
+                                      body=False)
             ref = cuda_modexp.mont_mul_plain(x, y[0] if shared else y, ctx)
             idx = list(range(B))
             want = [xs[i] * ys[0 if shared else i] * Rinv % M for i in idx]
         else:
             d = digits[:B].contiguous() if form == "pow" else digits
-            fn = (cuda_modexp.mont_pow if form == "pow"
-                  else cuda_modexp.mont_pow_shared)
-            got = fn(x, d, ctx)
+            got = cuda_modexp._pow_launch(x, d, ctx, mg.DEFAULT_WINDOW,
+                                          form == "pow", body=False)
             idx = sorted(set(range(min(B, 4)))
                          | set(range(max(0, B - 2 * per), B)))
             ref = (mg.mont_pow_plain(x[idx], digits[idx], ctx) if form == "pow"
@@ -716,17 +720,18 @@ def test_integer_pipe_bodies_value_equal_on_ragged_batches(dev, which, form):
 
 @pytest.mark.parametrize("form", ["mul", "mul_const", "pow_shared", "pow"])
 def test_cluster_tile_value_equal_at_1176_on_16_and_ragged_rows(dev, form):
-    """The integer-pipe body's one-row tile at the 8192-bit key's n^2 (L =
-    1,176, a context without REDC matrices) on 16 rows (one row a cluster
-    of 4 blocks on an H100, which holds 15 clusters of 8 at once) and on
-    ragged batches of 1, 7 and 131 rows (clusters of 8, 8 and 1), each
-    batch in one wave of clusters: every row value-equal to the plain version
-    (a modexp's first and last two rows, 64-bit exponents, window 4) and
-    to Python's pow, limbs in [0, 2^14], value < 1.01 M, one launch
-    counted under the body's name."""
+    """The integer-pipe body's one-row tile at the 8192-bit key's n^2
+    (L = 1,176, held by the launch helpers' private body argument) on 16
+    rows (one row a cluster of 4 blocks on an H100, which holds 15
+    clusters of 8 at once) and on ragged batches of 1, 7 and 131 rows
+    (clusters of 8, 8 and 1), each batch in one wave of clusters: every
+    row value-equal to the plain version (a modexp's first and last two
+    rows, 64-bit exponents, window 4) and to Python's pow, limbs in
+    [0, 2^14], value < 1.01 M, one launch counted under the body's
+    name."""
     M = benchmarks.fixed_key(8192)[0].nsquare
-    ctx = mg.build_context(M, dev, mxu=False)
-    assert not mg.has_matrices(ctx) and ctx.num_limbs == 1176
+    ctx = mg.build_context(M, dev)
+    assert ctx.num_limbs == 1176
     L = ctx.num_limbs
     sms = cuda_rns._sms(dev)
     rng = random.Random(1176 + len(form))
@@ -750,16 +755,15 @@ def test_cluster_tile_value_equal_at_1176_on_16_and_ragged_rows(dev, form):
         before = cuda_modexp.launches[name]
         if form.startswith("mul"):
             shared = form == "mul_const"
-            got = (cuda_modexp.mont_mul_const(x, y[0], ctx) if shared
-                   else cuda_modexp.mont_mul(x, y, ctx))
+            got = cuda_modexp._launch(x, y[0] if shared else y, ctx, shared,
+                                      body=False)
             idx = list(range(B))
             ref = cuda_modexp.mont_mul_plain(x, y[0] if shared else y, ctx)
             want = [xs[i] * ys[0 if shared else i] * Rinv % M for i in idx]
         else:
             d = digits[:B].contiguous() if form == "pow" else digits
-            fn = (cuda_modexp.mont_pow if form == "pow"
-                  else cuda_modexp.mont_pow_shared)
-            got = fn(x, d, ctx)
+            got = cuda_modexp._pow_launch(x, d, ctx, mg.DEFAULT_WINDOW,
+                                          form == "pow", body=False)
             idx = sorted({0, B - 2, B - 1} - {-1})
             ref = (mg.mont_pow_plain(x[idx], digits[idx], ctx) if form == "pow"
                    else mg.mont_pow_shared_plain(x[idx], digits, ctx))
@@ -774,23 +778,29 @@ def test_cluster_tile_value_equal_at_1176_on_16_and_ragged_rows(dev, form):
 
 
 def test_limb_engine_at_2048_bits_equals_the_rns_engine(dev, monkeypatch):
-    """PHE_TPU_TORCH_ENGINE=limb at the fixed 2048-bit key, 64 rows: the
-    limb engine's pinned-r ciphertexts equal the RNS engine's and
-    raw_encrypt's, its round trip returns x, and no ladder runs."""
+    """The limb engine at the fixed 2048-bit key, 64 rows, reached with
+    rns.fits made to refuse every modulus for a new key object: its
+    pinned-r ciphertexts equal the RNS engine's and raw_encrypt's, its
+    round trip returns x, and no ladder runs."""
     pub, priv = benchmarks.fixed_key(2048)
     rng = random.Random(2048)
     values = [rng.uniform(-1e6, 1e6) for _ in range(64)]
     rs = [rng.randrange(1, pub.n) for _ in values]
     ints = {}
     for engine in ("limb", "rns"):
-        monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", engine)
-        for counts in (cuda_modexp.launches, cuda_rns.launches):
-            for key in counts:
-                counts[key] = 0
-        batch = pt.EncryptedBatch.encrypt(pub, values, r_values=rs,
-                                          device=dev)
-        ints[engine] = batch.ciphertext_ints(be_secure=False)
-        assert batch.decrypt(priv) == values
+        pub, priv = benchmarks.fixed_key(2048)
+        with monkeypatch.context() as m:
+            if engine == "limb":
+                refuse_rns(m)
+            for counts in (cuda_modexp.launches, cuda_rns.launches):
+                for key in counts:
+                    counts[key] = 0
+            batch = pt.EncryptedBatch.encrypt(pub, values, r_values=rs,
+                                              device=dev)
+            ints[engine] = batch.ciphertext_ints(be_secure=False)
+            assert batch.decrypt(priv) == values
+        assert (pub.device_context(dev).rns_state() is None) == (
+            engine == "limb")
         ladders = cuda_rns.launches["rns_ladder"]
         assert (ladders == 0) == (engine == "limb")
         assert (_by_form(cuda_modexp.launches).get("mont_pow_shared")
@@ -850,15 +860,12 @@ def _ladder_check(sys_, x, digits, vec, B, E):
     name = "rns_ladder_vec" if vec else "rns_ladder"
     xb = x[:B].contiguous()
     before = cuda_rns.launches[name]
-    widths = dict(cuda_rns.block_elems)
     if vec:
         db = digits[:B].contiguous()
         got = cuda_rns.ladder_vec(xb, db, sys_)
     else:
         got = cuda_rns.ladder(xb, digits, sys_, window=4)
     assert cuda_rns.launches[name] == before + 1
-    widths[E] += 1
-    assert cuda_rns.block_elems == widths
     rows = sorted(set(range(min(B, 4))) | set(range(max(0, B - E - 1), B)))
     if vec:
         plain = rns.ladder_vec_plain(xb[rows], db[rows], sys_)
@@ -898,11 +905,11 @@ def test_ladder_at_k_624(dev, vec):
     xw = torch.zeros((1, C), dtype=torch.int64, device=dev)
     dw = (torch.zeros((1, 16), dtype=torch.int8, device=dev) if vec
           else torch.zeros(16, dtype=torch.int64, device=dev))
-    counts = dict(cuda_rns.launches), dict(cuda_rns.block_elems)
+    counts = dict(cuda_rns.launches)
     assert cuda_rns._smem(k, 32) == 232576 > cuda_rns.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         cuda_rns._launch(xw, dw, wide, 4, None, None, vec, 32)
-    assert (dict(cuda_rns.launches), dict(cuda_rns.block_elems)) == counts
+    assert cuda_rns.launches == counts
 
 
 def test_ladder_smem_formula_matches_the_kernel(dev):

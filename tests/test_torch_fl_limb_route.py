@@ -1,8 +1,8 @@
 """The 8192-bit key's route through the FL round, at a size the CPU runs.
 
-Under the default engine (auto) a key whose n^2 lies past ``rns.fits``
-runs every modexp mod n^2 on the limb engine (r^n, alignment) while its
-decrypt halves p^2, q^2 stay on the RNS ladder. At 8,192 bits that is
+A key whose n^2 lies past ``rns.fits`` runs every modexp mod n^2 on the
+limb engine (r^n, alignment) while its decrypt halves p^2, q^2 stay on
+the RNS ladder. At 8,192 bits that is
 the benchmark's ``fl_2nn-8192`` cell. Here ``rns.fits`` is made to refuse
 moduli above 300 bits, so that a 256-bit key takes the same route: n^2
 (512 bits) on the limb engine, p^2 and q^2 (256 bits) on the ladder.
@@ -25,6 +25,7 @@ from phe_tpu_torch.models.federated import aggregate_encrypted_gradients
 from phe_tpu_torch.ops import rns
 from paillier_bench.protocols import fl_aggregate
 from paillier_bench.reference import paillier as ref
+from torch_route import refuse_rns
 
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,19 +46,10 @@ def _keys(p, q):
     return pub, pt.PaillierPrivateKey(pub, p, q)
 
 
-def _refuse_past_fits_bits(monkeypatch):
-    """rns.fits refuses moduli above FITS_BITS, as it refuses n^2 of an
-    8192-bit key."""
-    real = rns.fits
-    monkeypatch.setattr(rns, "fits", lambda modulus, *a: (
-        int(modulus).bit_length() <= FITS_BITS and real(modulus, *a)))
-
-
 @pytest.fixture
 def hybrid(monkeypatch):
-    """The hybrid route under the default engine."""
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", "auto")
-    _refuse_past_fits_bits(monkeypatch)
+    """The hybrid route: n^2 past rns.fits, p^2 and q^2 under it."""
+    refuse_rns(monkeypatch, FITS_BITS)
 
 
 def _gradients(seed):
@@ -68,10 +60,8 @@ def _gradients(seed):
     return g
 
 
-@pytest.mark.parametrize("mxu", ["1", "0"])
 def test_round_on_the_hybrid_route_equals_the_reference(primes, hybrid,
-                                                        monkeypatch, mxu):
-    monkeypatch.setenv("PHE_TPU_TORCH_MXU", mxu)
+                                                        monkeypatch):
     called = []
     for name in ("_encrypt_dev", "_encrypt_rns_dev", "_pow_elems_dev",
                  "_decrypt_compact_dev", "_decrypt_compact_rns_dev"):
@@ -83,14 +73,14 @@ def test_round_on_the_hybrid_route_equals_the_reference(primes, hybrid,
 
         monkeypatch.setattr(tbatch, name, spy)
     pub, priv = _keys(*primes)
-    g = _gradients(int(mxu) + 5)
+    g = _gradients(6)
     batches = [pt.EncryptedBatch.encrypt(pub, row.tolist(), device=CPU)
                for row in g]
     aggregate = aggregate_encrypted_gradients(batches)
     got = aggregate.decrypt(priv)
     dc, pdc = pub.device_context(CPU), priv.device_context(CPU)
     assert dc.rns_state() is None and dc.rstate() is None
-    halves = pdc.rstate()
+    halves = pdc.rns_state()
     assert halves is not None and len(halves) == 2
     assert called.count("_encrypt_dev") == 3
     assert "_encrypt_rns_dev" not in called
@@ -110,12 +100,11 @@ def test_pinned_ciphertexts_equal_the_all_rns_route_and_the_host(primes,
     pub0, _ = _keys(*primes)
     rs = [1 + int.from_bytes(rng.bytes(40), "little") % (pub0.n - 1)
           for _ in values]
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", "auto")
     pub, _ = _keys(*primes)
     all_rns = pt.EncryptedBatch.encrypt(pub, values, r_values=rs,
                                         device=CPU)
     assert pub.device_context(CPU).rns_state() is not None
-    _refuse_past_fits_bits(monkeypatch)
+    refuse_rns(monkeypatch, FITS_BITS)
     pub, _ = _keys(*primes)
     limb = pt.EncryptedBatch.encrypt(pub, values, r_values=rs, device=CPU)
     assert pub.device_context(CPU).rns_state() is None

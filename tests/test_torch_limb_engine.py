@@ -1,16 +1,14 @@
 """The port's limb engine against phe_tpu's limb route.
 
-The limb engine runs the modexps wherever PHE_TPU_TORCH_ENGINE=limb asks
-for it, and past the RNS channel-prime supply (n^2 above ~8,760 bits)
-under any setting, as phe_tpu does on its chip. On the CPU, at a 256-bit
-key, phe_tpu runs its limb route (PHE_TPU_ENGINE=limb, with
-PHE_TPU_BACKEND=xla, and pallas in interpret mode for one test) and the
-port the plain versions of its limb kernels under
-PHE_TPU_TORCH_ENGINE=limb (the ``limb`` fixture). Ciphertext ints,
-decrypted residues, compact-decode rows and decoded values are equal:
-tolerance zero, all exact integer arithmetic. The supply-boundary tests
-check where the supply ends, with the real builders at 8,800 and 8,192
-bits, under the default setting.
+The limb engine runs the modexps past the RNS channel-prime supply
+(rns.fits: n^2 above ~8,760 bits), as phe_tpu does on its chip. On the
+CPU, at a 256-bit key, phe_tpu runs its limb route (PHE_TPU_ENGINE=limb,
+with PHE_TPU_BACKEND=xla, and pallas in interpret mode for one test) and
+the port the plain versions of its limb kernels, with rns.fits made to
+refuse every modulus (the ``limb`` fixture). Ciphertext ints, decrypted
+residues, compact-decode rows and decoded values are equal: tolerance
+zero, all exact integer arithmetic. The supply-boundary tests check
+where the supply ends, with the real builders at 8,800 and 8,192 bits.
 """
 
 import numpy as np
@@ -24,6 +22,7 @@ import phe_tpu_torch as pt
 from phe_tpu_torch import batch as tbatch
 from phe_tpu_torch import benchmarks, interop
 from phe_tpu_torch.ops import rns
+from torch_route import refuse_rns
 
 A = [1.5, -2.0, 300.0, 0.0625, 7, -1e-3, 12345.678]
 B = [2.5e-3, 7.0, -1.0, 4.0, -3.25, 1e6, 0.5]
@@ -36,17 +35,23 @@ def _phe_tpu_limb_route(monkeypatch):
     monkeypatch.setenv("PHE_TPU_BACKEND", "xla")
 
 
-@pytest.fixture
-def limb(monkeypatch):
-    """The port on its limb engine, at every key size."""
-    monkeypatch.setenv("PHE_TPU_TORCH_ENGINE", "limb")
-
-
 @pytest.fixture(scope="module")
 def keys():
     jpub, jpriv = phe_tpu.generate_paillier_keypair(n_length=256)
     pub = pt.PaillierPublicKey(jpub.n)
     return jpub, jpriv, pub, pt.PaillierPrivateKey(pub, jpriv.p, jpriv.q)
+
+
+@pytest.fixture
+def limb(keys, monkeypatch):
+    """keys with the port on its limb engine: rns.fits refuses every
+    modulus, as it refuses n^2 past the supply, and the port's key objects
+    are new, so that their contexts are built under it."""
+    refuse_rns(monkeypatch)
+    jpub, jpriv, pub, _ = keys
+    fresh = pt.PaillierPublicKey(pub.n)
+    return jpub, jpriv, fresh, pt.PaillierPrivateKey(fresh, jpriv.p,
+                                                     jpriv.q)
 
 
 def _pinned(pub, count, seed):
@@ -64,11 +69,11 @@ def _pair(keys, values, seed):
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_pinned_encrypt_equal_phe_tpu_limb_route(keys, limb, monkeypatch,
-                                                 backend):
+def test_pinned_encrypt_equal_phe_tpu_limb_route(limb, monkeypatch, backend):
     monkeypatch.setenv("PHE_TPU_BACKEND", backend)
-    jpub, _, pub, _ = keys
-    got, want = _pair(keys, A, 61)
+    jpub, _, pub, _ = limb
+    got, want = _pair(limb, A, 61)
+    assert pub.device_context("cpu").rns_state() is None
     ints = got.ciphertext_ints(be_secure=False)
     assert ints == want.ciphertext_ints(be_secure=False)
     rs = _pinned(pub, len(A), 61)
@@ -76,9 +81,9 @@ def test_pinned_encrypt_equal_phe_tpu_limb_route(keys, limb, monkeypatch,
                     zip(pt.EncodedNumber.encode_many(pub, A), rs)]
 
 
-def test_reobfuscation_with_pinned_r_equal(keys, limb):
-    jpub, _, pub, _ = keys
-    got, want = _pair(keys, A, 62)
+def test_reobfuscation_with_pinned_r_equal(limb):
+    jpub, _, pub, _ = limb
+    got, want = _pair(limb, A, 62)
     rs = _pinned(pub, len(A), 63)
     dc, jdc = pub.device_context("cpu"), jpub.device_context()
     mine = tbatch._obfuscate_limb(got.mont, dc.random_r_bytes(len(A), rs),
@@ -92,19 +97,19 @@ def test_reobfuscation_with_pinned_r_equal(keys, limb):
                     zip(got.ciphertext_ints(be_secure=False), rs)]
 
 
-def test_mixed_sign_mul_scalars_equal(keys, limb):
-    _, jpriv, _, priv = keys
-    got, want = _pair(keys, A, 64)
+def test_mixed_sign_mul_scalars_equal(limb):
+    _, jpriv, _, priv = limb
+    got, want = _pair(limb, A, 64)
     mine, theirs = got * SCALARS, want * SCALARS
     assert mine.ciphertext_ints(False) == theirs.ciphertext_ints(False)
     assert mine.decrypt(priv) == theirs.decrypt(jpriv) == [
         x * y for x, y in zip(A, SCALARS)]
 
 
-def test_aligned_add_and_sum_equal(keys, limb):
-    _, jpriv, _, priv = keys
-    a, ja = _pair(keys, A, 65)
-    b, jb = _pair(keys, B, 66)
+def test_aligned_add_and_sum_equal(limb):
+    _, jpriv, _, priv = limb
+    a, ja = _pair(limb, A, 65)
+    b, jb = _pair(limb, B, 66)
     mine, theirs = a + b, ja + jb
     assert mine.ciphertext_ints(False) == theirs.ciphertext_ints(False)
     assert mine.decrypt(priv) == theirs.decrypt(jpriv) == [
@@ -114,9 +119,9 @@ def test_aligned_add_and_sum_equal(keys, limb):
     assert s.decrypt(priv) == js.decrypt(jpriv)
 
 
-def test_decrypt_residue_limb_and_compact_rows_equal(keys, limb):
-    jpub, jpriv, pub, priv = keys
-    got, want = _pair(keys, A, 67)
+def test_decrypt_residue_limb_and_compact_rows_equal(limb):
+    jpub, jpriv, pub, priv = limb
+    got, want = _pair(limb, A, 67)
     pdc, jpdc = priv.device_context("cpu"), jpriv.device_context()
     rows = tbatch._decrypt_residue_limb(got.mont, pub.device_context("cpu").ctx,
                                         pdc.consts)
@@ -134,8 +139,8 @@ def test_decrypt_residue_limb_and_compact_rows_equal(keys, limb):
     assert got.decrypt(priv) == want.decrypt(jpriv) == A
 
 
-def test_phe_tpu_limb_batch_decrypts_in_the_port(keys, limb):
-    jpub, _, pub, priv = keys
+def test_phe_tpu_limb_batch_decrypts_in_the_port(limb):
+    jpub, _, pub, priv = limb
     theirs = jbatch.EncryptedBatch.encrypt(jpub, B) * SCALARS
     carried = interop.batch_from_limbs(pub, np.asarray(theirs.mont),
                                        theirs.exponents, device="cpu")

@@ -13,9 +13,8 @@ unpack to them; a numpy walk of one product as the tile runs it (its run
 jobs, carry passes, digit rows, MMA fragments read lane by lane as the PTX
 ISA lays them out, and 64-bit epilogues) equals the plain Montgomery
 product in value mod M and keeps its bounds, on rows with limbs of
-exactly 2^14, and so does the walk of the integer-pipe body (a context
-built with mxu=False: T_lo M' and q M as two more run passes against
-shared M' and M rows); the same walks over the product kernel's blocks
+exactly 2^14, and so does the walk of the integer-pipe body (T_lo M' and
+q M as two more run passes against shared M' and M rows); the same walks over the product kernel's blocks
 (live rows of E slots, a ragged last block, b broadcast in the shared
 form, L = 8) equal phe_tpu's mont_mul and mont_mul_const kernels in
 interpret mode with the same REDC body; and the rows a block holds fit
@@ -312,13 +311,14 @@ def _balanced(runs, tent, live):
     return out
 
 
-def _emulate_product(a, b, ctx, square, slots=None, cluster=None):
+def _emulate_product(a, b, ctx, square, slots=None, cluster=None,
+                     body=True):
     """One Montgomery product of the tile's live rows a (and b) as
-    csrc/redc_tile.cuh runs it for ctx: the int8 body against its packed
-    REDC matrices, the MMAs over `slots` row slots (default: one a live
-    row), or, for a context without matrices, the integer-pipe body, its
-    runs in the balanced order, or with `cluster` = C the one-row tile on
-    a cluster of C blocks, row by row."""
+    csrc/redc_tile.cuh runs it for ctx: the int8 body (body True) against
+    its packed REDC matrices, the MMAs over `slots` row slots (default:
+    one a live row), or the integer-pipe body, its runs in the balanced
+    order, or with `cluster` = C the one-row tile on a cluster of C
+    blocks, row by row."""
     if cluster is not None:
         return np.stack([_emulate_cluster_product(x, y, ctx, square, cluster)
                          for x, y in zip(a, b)])
@@ -336,7 +336,7 @@ def _emulate_product(a, b, ctx, square, slots=None, cluster=None):
     T = np.zeros((E, 2 * L), np.int64)
     c1 = np.zeros((E, nr), np.int64)
     c2 = np.zeros((E, nr), np.int64)
-    cols = cm._pow_columns(ctx)
+    cols = cm._pow_columns(ctx) if body else None
     # The integer pipe takes its runs in the balanced order (a permutation
     # of every run and row; the values do not depend on it).
     order = (range(nr) if cols is not None else
@@ -521,8 +521,8 @@ def _cluster_phase(kind, A, Bf, L, C, square=False, diag=None, addend=None):
 
 
 def _emulate_cluster_product(a, b, ctx, square, C):
-    """The one-row tile's product of row a and b (a a when square) for a
-    context without REDC matrices, on a cluster of C blocks: a b, q =
+    """The one-row tile's product of row a and b (a a when square) in the
+    integer-pipe body, on a cluster of C blocks: a b, q =
     T_lo M' mod R and U = T + q M as cluster phases, the folds and / R as
     the integer-pipe body's."""
     L = ctx.num_limbs
@@ -549,15 +549,13 @@ def _emulate_cluster_product(a, b, ctx, square, C):
 @pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
 def test_kernel_product_walk_equals_plain_redc(which, mxu):
     M = _modulus(which)
-    ctx = mg.build_context(M, CPU, mxu=mxu)
+    ctx = mg.build_context(M, CPU)
     L = ctx.num_limbs
     R = 1 << (14 * L)
     Rinv = pow(R, -1, M)
     cols = cm._pow_columns(ctx)
     assert cm._pow_columns(ctx) is cols  # packed once per context
-    assert mg.has_matrices(ctx) == mxu == (cols is not None)
-    if mxu:
-        assert all(w.dtype == torch.int32 for w in cols)
+    assert all(w.dtype == torch.int32 for w in cols)
     rng = np.random.default_rng(L)
     E = 8
     a = _operands(rng, M, L, E)
@@ -565,7 +563,7 @@ def test_kernel_product_walk_equals_plain_redc(which, mxu):
     plain = mg.mont_mul_plain(torch.as_tensor(a), torch.as_tensor(b), ctx)
     for square in (False, True):
         bb = a if square else b
-        got = _emulate_product(a, bb, ctx, square)
+        got = _emulate_product(a, bb, ctx, square, body=mxu)
         want = [x * y * Rinv % M for x, y in zip(hl.limbs_to_ints(a),
                                                  hl.limbs_to_ints(bb))]
         vals = hl.limbs_to_ints(got)
@@ -576,19 +574,20 @@ def test_kernel_product_walk_equals_plain_redc(which, mxu):
             assert [v % M for v in hl.limbs_to_ints(plain.numpy())] == want
 
 
-def _emulate_mont_mul(a, b, ctx, E, rows, shared, cluster=None):
+def _emulate_mont_mul(a, b, ctx, E, rows, shared, cluster=None, body=True):
     """csrc/mont_mul.cu over a batch: block i holds rows i rows ... of a in
     its first live = min(rows, B - i rows) of E row slots, b's matching
     rows (or, shared, b itself in every live slot) as the factor, and runs
-    one product; with `cluster` = C (E = 1, one row a cluster), each row's
-    cluster of C blocks runs it."""
+    one product in the REDC body `body` (True: int8); with `cluster` = C
+    (E = 1, one row a cluster), each row's cluster of C blocks runs it."""
     B, L = a.shape
     out = np.zeros_like(a)
     for e0 in range(0, B, rows):
         live = min(rows, B - e0)
         factor = np.broadcast_to(b, (live, L)) if shared else b[e0: e0 + live]
         out[e0: e0 + live] = _emulate_product(a[e0: e0 + live], factor, ctx,
-                                              False, slots=E, cluster=cluster)
+                                              False, slots=E, cluster=cluster,
+                                              body=body)
     return out
 
 
@@ -635,10 +634,10 @@ def test_mont_mul_block_walk_equals_phe_tpu(which, E, rows, B, shared, mxu):
     a, want_limbs = a[:B], want_limbs[:B]
     if not shared:
         b = b[:B]
-    ctx = mg.build_context(M, CPU, mxu=mxu)
+    ctx = mg.build_context(M, CPU)
     L = ctx.num_limbs
     assert L == {"256": 40, "p128": 8}[which]
-    got = _emulate_mont_mul(a, b, ctx, E, rows, shared)
+    got = _emulate_mont_mul(a, b, ctx, E, rows, shared, body=mxu)
     Rinv = pow(1 << (14 * L), -1, M)
     ys = hl.limbs_to_ints(np.broadcast_to(b, a.shape))
     want = [x * y * Rinv % M for x, y in zip(hl.limbs_to_ints(a), ys)]
@@ -669,7 +668,7 @@ def test_mont_mul_cluster_walk_equals_phe_tpu(which, C, B, shared):
     a, want_limbs = a[:B], want_limbs[:B]
     if not shared:
         b = b[:B]
-    ctx = mg.build_context(M, CPU, mxu=False)
+    ctx = mg.build_context(M, CPU)
     L = ctx.num_limbs
     got = _emulate_mont_mul(a, b, ctx, 1, 1, shared, cluster=C)
     Rinv = pow(1 << (14 * L), -1, M)
@@ -721,8 +720,8 @@ def test_cluster_product_walk_equals_plain_redc_and_phe_tpu(which, L, C):
     phe_tpu's Pallas integer-pipe product (interpret mode, a matrix-less
     context), limbs in [0, 2^14], value < 1.01 M."""
     M, a, b, theirs = _phe_tpu_int_products(which)
-    ctx = mg.build_context(M, CPU, mxu=False)
-    assert ctx.num_limbs == L and not mg.has_matrices(ctx)
+    ctx = mg.build_context(M, CPU)
+    assert ctx.num_limbs == L
     Rinv = pow(1 << (14 * L), -1, M)
     for square, y, their in ((False, b, theirs[0]), (True, a, theirs[1])):
         got = _emulate_product(a, y, ctx, square, cluster=C)
@@ -902,13 +901,12 @@ def _bare_modulus(L):
 @pytest.mark.parametrize("L", _PATH_LIMBS)
 def test_body_rule_follows_the_shape_alone(monkeypatch, L, B):
     """cuda_modexp._body(L, B, sms) is a function of the launch's shape
-    and the card's SMs alone: no environment variable or context moves
-    it, and it gives the body the sweep measured the faster for the
-    modexps at every shape it ran (_SWEEP_WINNERS: int8 at 16,384 rows
-    and L = 152 and 296, the integer pipe at L = 1,176 on 512 and 16
-    rows). A launch's REDC constants follow it where the context has REDC
-    matrices; a context without them takes the integer pipe (M' and M) at
-    every shape, and refuses the int8 body."""
+    and the card's SMs alone, and it gives the body the sweep measured
+    the faster for the modexps at every shape it ran (_SWEEP_WINNERS:
+    int8 at 16,384 rows and L = 152 and 296, the integer pipe at L = 1,176
+    on 512 and 16 rows). A launch's REDC constants follow it (the packed
+    matrices, or M' and M), and the launch helpers' private body argument
+    holds either body."""
     import inspect
 
     assert list(inspect.signature(cm._body).parameters) == ["L", "B", "sms"]
@@ -927,26 +925,15 @@ def test_body_rule_follows_the_shape_alone(monkeypatch, L, B):
     if B <= H100_SMS:
         assert got == (L <= cm.BODY_ONE_ROW_LIMBS)
     monkeypatch.setattr(cuda_rns, "_sms", lambda device: H100_SMS)
-    monkeypatch.setattr(cm, "_pow_columns", lambda ctx: (
-        torch.zeros(1, dtype=torch.int32),) * 4 if mg.has_matrices(ctx)
-        else None)
-    M = _bare_modulus(L)
-    bare = mg.build_context(M, CPU, mxu=False)
-    with_matrices = mg.build_context(M, CPU)
-    assert bare.num_limbs == with_matrices.num_limbs == L
-    assert mg.has_matrices(with_matrices) and not mg.has_matrices(bare)
-    assert cm._redc_args(bare, CPU, L, B) == (
-        False, (bare.m_prime.data_ptr(), bare.m.data_ptr()))
-    assert cm._redc_args(with_matrices, CPU, L, B)[0] is got
-    assert cm._redc_args(with_matrices, CPU, L, B, body=not got)[0] is (
-        not got)
-    with pytest.raises(ValueError, match="REDC matrices"):
-        cm._redc_args(bare, CPU, L, B, body=True)
-    for name, value in (("PHE_TPU_TORCH_MXU", "0"),
-                        ("PHE_TPU_TORCH_ENGINE", "limb")):
-        monkeypatch.setenv(name, value)
-        assert cm._body(L, B, H100_SMS) is got
-        assert cm._redc_args(with_matrices, CPU, L, B)[0] is got
+    cols = (torch.zeros(1, dtype=torch.int32),) * 4
+    monkeypatch.setattr(cm, "_pow_columns", lambda ctx: cols)
+    ctx = mg.build_context(_bare_modulus(L), CPU)
+    assert ctx.num_limbs == L
+    int8 = (True, tuple(t.data_ptr() for t in cols))
+    integer = (False, (ctx.m_prime.data_ptr(), ctx.m.data_ptr()))
+    assert cm._redc_args(ctx, CPU, L, B) == (int8 if got else integer)
+    assert cm._redc_args(ctx, CPU, L, B, body=True) == int8
+    assert cm._redc_args(ctx, CPU, L, B, body=False) == integer
 
 
 def _launch_tiles(L, B, body):
@@ -979,11 +966,11 @@ def _entry_point(calls, int8, integer):
 def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
     """MAX_MUL_LIMBS is the widest L whose E = 8 block fits, for either
     body; the wrapper launches the entry point of the body _body picks at
-    the launch's shape (with REDC matrices; the integer pipe at every
-    shape without them) at the chosen E with the chosen rows (the packed
-    matrices, or M' and M), counts one launch a call under its body's
-    name, and refuses a width it cannot hold. At L = 40 a context with
-    matrices takes the int8 body at every batch, at L = 1,176 the
+    the launch's shape (mxu; int: the integer pipe at every shape, held
+    by the launch's private body argument) at the chosen E with the
+    chosen rows (the packed matrices, or M' and M), counts one launch a
+    call under its body's name, and refuses a width it cannot hold. At
+    L = 40 _body takes the int8 body at every batch, at L = 1,176 the
     integer pipe."""
     for body in (True, False):
         assert cm._pow_smem(cm.MAX_MUL_LIMBS, 8, body) <= cm.MAX_SMEM
@@ -1000,13 +987,14 @@ def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
             monkeypatch.setitem(cm.launches, name + suffix, 0)
     batches = (1, 9, 2 * H100_SMS + 1, 32 * H100_SMS + 1)
     want = []
-    contexts = {L: mg.build_context(_modulus(which), CPU, mxu=mxu)
+    held = None if mxu else False
+    contexts = {L: mg.build_context(_modulus(which), CPU)
                 for which, L in (("256", 40), ("8192", 1176))}
     for L, ctx in contexts.items():
         for B in batches:
             a = torch.zeros((B, L), dtype=torch.int64)
-            cm._launch(a, a, ctx, shared=False)
-            cm._launch(a, a[0], ctx, shared=True)
+            cm._launch(a, a, ctx, shared=False, body=held)
+            cm._launch(a, a[0], ctx, shared=True, body=held)
             body = mxu and L == 40
             assert body == (mxu and cm._body(L, B, H100_SMS))
             want += [(shared, body, cm._pow_elems(L, B, H100_SMS, body)[0])
@@ -1039,16 +1027,15 @@ def test_mont_mul_limits_and_launch_tiles(monkeypatch, mxu):
 @pytest.mark.parametrize("mxu", [True, False], ids=["mxu", "int"])
 def test_mont_pow_launch_tiles_and_bodies(monkeypatch, mxu):
     """The modexp's twin of the product's launch test: both forms launch
-    the entry point of the body _body picks at the launch's shape (with
-    REDC matrices; the integer pipe at every shape without them), at the
-    chosen E, rows and clusters, with the table scratch those imply,
-    counted once a call under the body's name; the launch's private body
-    argument holds either body where the context has REDC matrices, and
-    the int8 body refuses a context without them. At L = 296 (the
-    2048-bit key's n^2) a context with matrices takes the int8 body at
-    4,225 rows (blocks of 32) and the integer pipe at 512 and 16; at
-    L = 1,176 the integer pipe at 512 rows (the 8192-bit encrypt's r^n,
-    4 rows a block of E = 8) and at 16."""
+    the entry point of the body _body picks at the launch's shape (mxu;
+    int: the integer pipe at every shape, held by the launch's private
+    body argument), at the chosen E, rows and clusters, with the table
+    scratch those imply, counted once a call under the body's name; the
+    private body argument holds either body. At L = 296 (the 2048-bit
+    key's n^2) _body takes the int8 body at 4,225 rows (blocks of 32) and
+    the integer pipe at 512 and 16; at L = 1,176 the integer pipe at 512
+    rows (the 8192-bit encrypt's r^n, 4 rows a block of E = 8) and at
+    16."""
     calls, tables = [], []
     # The pointers, then (B, rows[, C], L, windows, window, stream).
     monkeypatch.setattr(cm, "_pow_lib", _entry_point(calls, (9, 15),
@@ -1064,9 +1051,10 @@ def test_mont_pow_launch_tiles_and_bodies(monkeypatch, mxu):
         for suffix in ("", "_int"):
             monkeypatch.setitem(cm.launches, name + suffix, 0)
     want, bodies = [], []
+    held = None if mxu else False
     for bits, L, batches in ((2048, 296, (16, 512, 32 * H100_SMS + 1)),
                              (8192, 1176, (16, 512))):
-        ctx = mg.build_context(_modulus(str(bits)), CPU, mxu=mxu)
+        ctx = mg.build_context(_modulus(str(bits)), CPU)
         assert ctx.num_limbs == L
         for B in batches:
             base = torch.zeros((B, L), dtype=torch.int64)
@@ -1074,7 +1062,7 @@ def test_mont_pow_launch_tiles_and_bodies(monkeypatch, mxu):
             bodies.append((L, B, body))
             for vec in (False, True):
                 cm._pow_launch(base, np.ones((B, 3), np.int8) if vec
-                               else [1, 2, 3], ctx, 4, vec)
+                               else [1, 2, 3], ctx, 4, vec, held)
                 want.append((vec, body,
                              cm._pow_elems(L, B, H100_SMS, body)[0])
                             + _launch_tiles(L, B, body) + (L, 3, 4))
@@ -1086,9 +1074,6 @@ def test_mont_pow_launch_tiles_and_bodies(monkeypatch, mxu):
                 cm._pow_launch(base, [1], ctx, 4, False, body=body)
                 want.append((False, body, 8) + _launch_tiles(L, 512, body)
                             + (L, 1, 4))
-        else:
-            with pytest.raises(ValueError, match="REDC matrices"):
-                cm._pow_launch(base, [1], ctx, 4, False, body=True)
     assert calls == want
     assert bodies == [(296, 16, False), (296, 512, False), (296, 4225, mxu),
                       (1176, 16, False), (1176, 512, False)]

@@ -325,7 +325,6 @@ class _StubGraphs:
 def _body(x, ctx, k):
     cuda_modexp.launches["mont_mul"] += 1
     cuda_rns.launches["rns_ladder"] += 2
-    cuda_rns.block_elems[32] += 2
     return x * ctx.scale + k, x.sum(dim=-1)
 
 
@@ -341,7 +340,6 @@ def _moves(fn):
 def test_device_program_captures_once_and_counts_each_replay(monkeypatch):
     monkeypatch.setitem(cuda_modexp.launches, "mont_mul", 0)
     monkeypatch.setitem(cuda_rns.launches, "rns_ladder", 0)
-    monkeypatch.setitem(cuda_rns.block_elems, 32, 0)
     prog = programs.device_program(_body, static_argnames=("k",))
     stub = _StubGraphs()
     ctx = _Ctx(torch.tensor([2, 3, 5]))
@@ -357,8 +355,8 @@ def test_device_program_captures_once_and_counts_each_replay(monkeypatch):
     assert (stub.warmups, stub.captures, stub.replays) == (1, 1, 2)
     assert len(prog.graphs) == prog.captured == 1
     (entry,) = prog.graphs.values()
-    assert entry.counts == [{"mont_mul": 1}, {"rns_ladder": 2}, {32: 2}]
-    assert cuda_rns.block_elems[32] == 2 * len(xs)
+    assert entry.counts == [{"mont_mul": 1}, {"rns_ladder": 2}]
+    assert cuda_rns.launches["rns_ladder"] == 2 * len(xs)
     assert [r() for r in entry.refs] == [ctx.scale]
     for x, out in zip(xs, outs):
         want = _body(x, ctx, 7)
