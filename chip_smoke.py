@@ -1,13 +1,16 @@
 """Drive phe_tpu_torch's main path on one NVIDIA GPU and check every kernel.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent DIR]
+
+(DIR: the root of another checkout, such as the parent commit unpacked
+with git archive, whose RNS ladder phase 2 times against this one's.)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Build every CUDA kernel from the checkout's sources (one nvcc per
    source, started together); print the build seconds, the compiler's
-   per-kernel register and spill report, and the card's name and power
-   limit. Read the SASS (cuobjdump) of the ladder, the limb-engine modexp
+   per-kernel register and spill report (the ladder's four
+   instantiations by name), and the card's name and power limit. Read the SASS (cuobjdump) of the ladder, the limb-engine modexp
    and the Montgomery product: every instantiation of each runs its digit
    products (the ladder's base extensions, the two REDC products of the
    modexp and the product) on the int8 tensor cores (IMMA) and none on
@@ -31,9 +34,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    9 rows) on every row, and at E = 32 (a last block of 1 and of 31
    elements) on their first rows and last two blocks. One product's time
    at every E (k = 304 and 456 over 16,384 rows, k = 624 over 512; at
-   k = 456 the whole r^n ladder at every E too) and torch._int_mm over
-   the extension GEMMs (a yardstick the port never calls) split the
-   ladder's time. The tolerance is zero everywhere: this is exact integer
+   k = 456 the whole r^n ladder at every E too; each with its clusters'
+   width and the matrices' L2 bytes an element-product) and
+   torch._int_mm over the extension GEMMs (a yardstick the port never
+   calls) split the ladder's time. With --parent, the ladder of both
+   checkouts at LADDER_TURNS' shapes, each in a process of its own, in
+   turns parent, change, change, parent, beside ladder_bound, their
+   residues equal. The tolerance is zero everywhere: this is exact integer
    arithmetic.
    The per-element-exponent kernels run at their path's shapes too: the
    RNS ladder at window 4 on 64-bit schedules, at k = 304 over 65,536
@@ -1099,14 +1106,145 @@ def tensor_core_sass(source, kernel, elems, int_pipe=False):
     return counts
 
 
+def ptxas_report(log, kernel):
+    """{instantiation: (registers, spill-store bytes, spill-load bytes)}
+    of `kernel` in a library's ptxas -v log (its entry functions named
+    as tensor_core_sass names them)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(kernel + r"ILb([01])ELi(\d+)E", line)
+            name = m and "%s<%s, %s>" % (
+                kernel, ("false", "true")[int(m.group(1))], m.group(2))
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            out[name] = [0, int(m.group(1)), int(m.group(2))]
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, [0, 0, 0])[0] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return {n: tuple(v) for n, v in out.items()}
+
+
+# The ladder shapes timed parent against change (label, key bits, the
+# modulus n^2 or p^2, rows, per-element exponents): the r^n ladders of the
+# 2048- and 3072-bit keys at the encrypt batch and at the short call, the
+# decrypt halves of the 2048- and 8192-bit keys, and the
+# alignment's per-element ladders.
+LADDER_TURNS = (
+    ("r^n k=304", 2048, "n2", BATCH, False),
+    ("r^n k=456", 3072, "n2", BATCH, False),
+    ("p-1 k=152", 2048, "p2", BATCH, False),
+    ("r^n k=304 short", 2048, "n2", 4096, False),
+    ("r^n k=456 short", 3072, "n2", 4096, False),
+    ("p-1 k=624", 8192, "p2", LIMB_ROWS, False),
+    ("p-1 k=624 wide", 8192, "p2", 4224, False),
+    ("vec k=304", 2048, "n2", BATCH, True),
+    ("vec k=456", 3072, "n2", BATCH, True),
+)
+
+# One turn, run by a checkout's own Python from its root: the ladder at
+# each shape through the public wrappers (whose packing and kernel are
+# that checkout's), on seeded inputs, its CUDA-event milliseconds and a
+# digest of its residues.
+_TURN = r"""
+import hashlib, json, sys, torch
+from phe_tpu_torch import benchmarks
+from phe_tpu_torch.ops import cuda_rns, rns
+dev = torch.device("cuda")
+out = {}
+for label, bits, which, rows, vec in json.loads(sys.argv[1]):
+    pub, priv = benchmarks.fixed_key(bits)
+    M = pub.nsquare if which == "n2" else priv.psquare
+    e = pub.n if which == "n2" else priv.p - 1
+    sys_ = rns.build_rns(M, dev)
+    g = torch.Generator().manual_seed(rows + sys_.k)
+    x = (torch.randint(0, 1 << 14, (rows, sys_.cpad), generator=g)
+         % sys_.m.cpu()).to(dev).contiguous()
+    if vec:
+        d = torch.randint(0, 16, (rows, 16), generator=g,
+                          dtype=torch.int8).to(dev)
+        run = lambda: cuda_rns.ladder_vec(x, d, sys_, window=4)
+    else:
+        d = torch.as_tensor(rns.rns_pow_digits(e, e.bit_length(), 5),
+                            dtype=torch.int64, device=dev)
+        run = lambda: cuda_rns.ladder(x, d, sys_, window=5)
+    y = run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(2):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    out[label] = [a.elapsed_time(b) / 2, sys_.k, d.shape[-1],
+                  hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()]
+print("TURN " + json.dumps(out))
+"""
+
+
+def ladder_turns(parent, card):
+    """Phase 2, with --parent: the ladder of this checkout against the one
+    at `parent` (a checkout's root) at LADDER_TURNS' shapes, each side in
+    a process of its own from its own root, in turns parent, change,
+    change, parent, beside ladder_bound; the residues of every turn are
+    the same. {label: record}."""
+    import subprocess
+
+    from phe_tpu_torch.ops import cuda_rns
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    shapes = json.dumps(LADDER_TURNS)
+
+    def turn(root):
+        env = dict(os.environ, PYTHONPATH=root)
+        got = subprocess.run([sys.executable, "-c", _TURN, shapes], cwd=root,
+                             env=env, capture_output=True, text=True,
+                             timeout=1200)
+        line = [ln for ln in got.stdout.splitlines() if ln.startswith("TURN ")]
+        check(got.returncode == 0 and line, "ladder turn in %s failed:\n%s"
+              % (root, got.stdout[-3000:] + got.stderr[-3000:]))
+        return json.loads(line[-1][5:])
+
+    turns = [("parent", turn(os.path.abspath(parent))), ("change", turn(here)),
+             ("change", turn(here)), ("parent", turn(os.path.abspath(parent)))]
+    sms = cuda_rns._sms(torch.device("cuda"))
+    record = {}
+    for label, bits, which, rows, vec in LADDER_TURNS:
+        ms = {"parent": [], "change": []}
+        for side, t in turns:
+            ms[side].append(t[label][0])
+        _, k, n_windows, _ = turns[0][1][label]
+        check(len({t[label][3] for _, t in turns}) == 1,
+              "ladder turns %s: parent and change residues differ" % label)
+        bms, by = ladder_bound(rows, k, n_windows, 4 if vec else 5, vec=vec)
+        E = cuda_rns._elems(k, rows, sms)
+        ratio = sum(ms["change"]) / sum(ms["parent"])
+        print("ladder turns %s, %d rows (E = %d, clusters of %d): parent %s "
+              "ms, change %s ms (change / parent %.3f), bound %.3f ms (%s); "
+              "residues equal [%s]"
+              % (label, rows, E, cuda_rns.CLUSTER,
+                 " ".join("%.3f" % v for v in ms["parent"]),
+                 " ".join("%.3f" % v for v in ms["change"]), ratio, bms, by,
+                 card))
+        record[label] = dict(k=k, rows=rows, elems=E,
+                             width=cuda_rns.CLUSTER, parent_ms=ms["parent"],
+                             change_ms=ms["change"], change_over_parent=ratio,
+                             bound_ms=bms, bound_by=by)
+    return record
+
+
 def one_product_split(rsys, rows, dev, card, yardstick=False, digits=None):
     """Phase 2, what one ladder product's time follows. Window 1 runs two
     products a row (entry and exit) and two more for each digit, so the
     difference between 31 zero digits (64 products) and none (2) is 62
     products without the launch's fixed costs. Each width E whose block
     fits runs both on the same rows, with the same MMA and int32 work and
-    the extension matrices read from L2 once per block-product, so their
-    L2 bytes fall as 1 / E. With digits (a window-5 schedule), the whole
+    the extension matrices read from L2 once per cluster-product (each
+    block copies 1 / width of every stage to the cluster's blocks), so
+    their L2 bytes fall as 1 / (E width). With digits (a window-5 schedule), the whole
     ladder at each width too, beside ladder_bound. With yardstick,
     torch._int_mm over both extensions' GEMMs alone ([B, 2k] x
     [2k, 3(k+8)] twice) beside it: no one PyTorch call computes the
@@ -1130,15 +1268,21 @@ def one_product_split(rsys, rows, dev, card, yardstick=False, digits=None):
         outs.append(run(zeros))
         ms2, ms64 = cuda_ms(lambda: run(none), 5), cuda_ms(lambda: run(zeros), 3)
         ns = 1e6 * (ms64 - ms2) / (62 * rows)
-        l2_bytes = -(-rows // E) * 62 * (2 * 3 * K1p * Kp)
+        width = cuda_rns.CLUSTER
+        blocks = -(-rows // E)
+        l2_bytes = -(-blocks // width) * 62 * (2 * 3 * K1p * Kp)
         split[E] = dict(ms_2_products=ms2, ms_64_products=ms64,
-                        ns_per_element_product=ns,
+                        ns_per_element_product=ns, width=width,
+                        l2_kb_per_element_product=(
+                            2 * 3 * K1p * Kp / (E * width) / 1e3),
                         l2_tb_per_s=l2_bytes / ((ms64 - ms2) * 1e9))
-        print("one product, k=%d, E=%d: %.4f ms for 2 products a row, %.4f "
-              "ms for 64, over %d rows (%d blocks): %.3f ns an "
-              "element-product; extension matrices from L2 at %.3f TB/s [%s]"
-              % (k, E, ms2, ms64, rows, -(-rows // E), ns,
-                 split[E]["l2_tb_per_s"], card))
+        print("one product, k=%d, E=%d, clusters of %d: %.4f ms for 2 "
+              "products a row, %.4f ms for 64, over %d rows (%d blocks): "
+              "%.3f ns an element-product; extension matrices from L2 at "
+              "%.3f TB/s, %.1f KB an element-product [%s]"
+              % (k, E, width, ms2, ms64, rows, blocks, ns,
+                 split[E]["l2_tb_per_s"],
+                 split[E]["l2_kb_per_element_product"], card))
         if digits is not None:
             fulls.append(run(digits, 5))
             ms = split[E]["ms_ladder"] = cuda_ms(lambda: run(digits, 5), 1)
@@ -2259,6 +2403,9 @@ def programs_phase(keys, dev, card):
 
 def main():
     started = time.time()
+    parent = None
+    if "--parent" in sys.argv:
+        parent = sys.argv[sys.argv.index("--parent") + 1]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2287,6 +2434,12 @@ def main():
     print("torch %s, CUDA %s, %s x%d" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
+    ladder_regs = ptxas_report(logs["rns_ladder"], "rns_ladder_kernel")
+    check(len(ladder_regs) == 2 * len(cuda_rns.ELEMS),
+          "ptxas reports %d rns_ladder_kernel instantiations" % len(ladder_regs))
+    for name, (regs, st, ldb) in sorted(ladder_regs.items()):
+        print("rns_ladder ptxas %s: %d registers, %d bytes spill stores, %d "
+              "bytes spill loads" % (name, regs, st, ldb))
     sass = tensor_core_sass("rns_ladder", "rns_ladder_kernel", cuda_rns.ELEMS)
     pow_sass = tensor_core_sass("mont_pow", "mont_pow_kernel",
                                 cuda_modexp.POW_ELEMS, int_pipe=True)
@@ -2403,6 +2556,7 @@ def main():
     split_624 = one_product_split(rsys8, LIMB_ROWS, dev, card)
     split_456 = one_product_split(st3.rsys, BATCH, dev, card,
                                   digits=dc3.n_digits)
+    turns = ladder_turns(parent, card) if parent else None
     vec_checks = check_vec_kernels(pub, dev, rng)
     # The 3072-bit key's alignment ladder (k = 456) at its 16,384 rows.
     vec_456 = check_ladder_vec(pub3, dev, rng, BATCH)
@@ -2518,6 +2672,11 @@ def main():
     ladder_checks[2]["one_product_split"] = split_624
     ladder_checks[3]["one_product_split"] = split_456
     ladder_checks[0]["sass_imma_idp4a"] = sass
+    ladder_checks[0]["ptxas"] = {n: dict(registers=r, spill_stores=a,
+                                         spill_loads=b)
+                                 for n, (r, a, b) in ladder_regs.items()}
+    if turns:
+        ladder_checks[0]["parent_turns"] = turns
     vec_checks["mont_pow"]["sass_imma_idp4a"] = pow_sass
     mul_checks["mont_mul"][0]["sass_imma_idp4a"] = mul_sass
     checks = {"mont_mul": mul_checks["mont_mul"],

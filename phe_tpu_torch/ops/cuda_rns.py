@@ -10,14 +10,17 @@ version are bit-equal: the same integers at every step.
 
 The kernel runs both base extensions of each product as int8 tensor-core
 products (``mma.sync`` m16n8k32) with the block's elements as the N
-dimension. What it needs from the host lives here, where the CPU tests
-reach it: the padded geometry (``_geometry``), the extension matrices
-packed in the MMA's A-fragment order (``pack_blocks``), the block's
-shared memory (``_smem``) and the elements a block holds (``_elems``),
-chosen per launch from (k, B) among the kernel's instantiations.
+dimension, their A fragments streamed through a ring of stages in shared
+memory by bulk copies that a cluster of blocks shares. What it needs from
+the host lives here, where the CPU tests reach it: the padded geometry
+(``_geometry``), the warps a block (``_warps``), the extension matrices
+packed in the MMA's A-fragment order stage by stage (``pack_blocks``), the
+ring (``_ring``), the block's shared memory (``_smem``), the elements a
+block holds (``_elems``), chosen per launch from (k, B) among the kernel's
+instantiations, and the blocks a cluster (``CLUSTER``).
 
-``launches`` counts the kernel launches of each form; nothing else changes
-it.
+``launches`` counts the kernel launches of each form; nothing else
+changes it.
 """
 
 import ctypes
@@ -41,6 +44,13 @@ _packed = WeakIdKeyDictionary()
 # Elements a block holds: the kernel's instantiations, widest first.
 ELEMS = (32, 8)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+# A block's bytes when two share an SM: 228 KB less 1 KB for each block.
+PAIR_LIMIT = 115712
+MAX_WARPS = 11  # consumer warps a block; one more warp produces
+TILE_BYTES = 3 * 512  # a slab's three digit-block tiles at one K-step
+MAX_STAGE_STEPS = 4  # K-steps a stage of the ring holds at most
+# Blocks of a cluster (csrc/rns_ladder.cu's kCluster), at either E.
+CLUSTER = 2
 
 
 def _lib(vec, elems):
@@ -68,13 +78,46 @@ def _geometry(k):
     return -(-(k + 8) // 16) * 16, -(-2 * k // 32) * 32
 
 
-def _smem(k, elems):
-    """Shared-memory bytes of one block (csrc/rns_ladder.cu's smem_bytes):
-    per element one residue row (cpad + 4 uint32: a 4-word skew), the
-    digit row (Kp bytes and a 16-byte skew) and one word for S row k, then
-    beta."""
+def _warps(k):
+    """Consumer warps a block (csrc/rns_ladder.cu's warps_for): the
+    K1p / 16 row slabs spread evenly over at most MAX_WARPS warps, one
+    slab a warp in each round."""
+    slabs = _geometry(k)[0] // 16
+    rounds = -(-slabs // MAX_WARPS)
+    return -(-slabs // rounds)
+
+
+def _base(k, elems):
+    """Bytes of the elements' rows: per element one residue row (cpad + 4
+    uint32: a 4-word skew) and the digit row (Kp bytes and a 16-byte skew,
+    which holds the element's word, S row k and then beta, and one of the
+    ring's barriers)."""
     _, Kp = _geometry(k)
-    return elems * (4 * (2 * k + 12) + Kp + 16 + 4)
+    return elems * (4 * (2 * k + 12) + Kp + 16)
+
+
+def _ring(k, elems):
+    """(kc, depth) of the kernel's ring (ring_shape): `depth` stages of kc
+    K-steps of a whole round's tiles, as many as the bytes the rows leave
+    hold and the digit rows have barriers for (two a slot, one a row), of
+    the most K-steps up to MAX_STAGE_STEPS of which two fit. Eight-element
+    blocks leave room for a second block on the SM (PAIR_LIMIT). Where not
+    even two one-K-step stages fit, (1, 2), which puts _smem past the
+    limit."""
+    round_bytes = _warps(k) * TILE_BYTES
+    left = (PAIR_LIMIT if elems == 8 else SMEM_LIMIT) - _base(k, elems)
+    for kc in range(MAX_STAGE_STEPS, 0, -1):
+        depth = min(left // (kc * round_bytes), elems // 2)
+        if depth >= 2:
+            return kc, depth
+    return 1, 2
+
+
+def _smem(k, elems):
+    """Shared-memory bytes of one block (csrc/rns_ladder.cu's
+    smem_bytes): the ring's stages, then the rows."""
+    kc, depth = _ring(k, elems)
+    return _base(k, elems) + depth * kc * _warps(k) * TILE_BYTES
 
 
 def _elems(k, B, sms):
@@ -98,50 +141,79 @@ def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def pack_blocks(w, nb):
-    """int8 [nb * rows, K] -> int32 [S, KS, nb, 32, 4] in mma.sync's A order.
+def _stage_order(S, KS, per):
+    """Slab-by-slab tile numbers (s KS + ks) in stage order: rounds of
+    `per` slabs (the last maybe fewer), each K-step by K-step, each
+    K-step its round's slabs in order."""
+    order = []
+    for r0 in range(0, S, per):
+        nr = min(per, S - r0)
+        order += [(r0 + i) * KS + ks for ks in range(KS) for i in range(nr)]
+    return torch.as_tensor(order)
+
+
+def pack_blocks(w, nb, per=1):
+    """int8 [nb * rows, K] -> int32 [S KS, nb, 32, 4] in mma.sync's A
+    order, tile by tile in stage order.
 
     The matrix is cut into its nb row blocks (rows b rows ... (b+1) rows),
     each zero-padded to [Rp, Kp] (rows to the MMA's 16-row slabs, K to its
     32-digit K-steps), then into S = Rp / 16 row slabs and KS = Kp / 32
-    K-steps. Entry [s, ks, b, lane] holds the four registers of lane's
-    m16n8k32 A fragment of block b's tile (s, ks): with g = lane / 4 and
-    t = lane % 4, register j holds the four digits of row
+    K-steps. Each tile (s, ks) is [nb, 32, 4]: entry [b, lane] holds the
+    four registers of lane's m16n8k32 A fragment of block b's tile: with
+    g = lane / 4 and t = lane % 4, register j holds the four digits of row
     16 s + g + 8 (j % 2) at columns 32 ks + 4 t + 16 (j / 2), the lowest
     column in the lowest byte. A warp reads one tile of one block as 512
-    contiguous bytes, 16 a lane.
+    contiguous bytes, 16 a lane. The tiles come round by round, `per`
+    slabs a round and the last round the slabs left, each round K-step by
+    K-step: so a run of K-steps of one round, or a run of its slabs at one
+    K-step, is one run of bytes (a stage of the ladder's ring). With
+    per = 1 the tiles lie slab by slab, as the limb kernels read them.
     """
     rows, K = w.shape[0] // nb, w.shape[1]
-    Rp, Kp = -(-rows // 16) * 16, -(-K // 32) * 32
-    S, KS = Rp // 16, Kp // 32
-    blocks = torch.zeros((nb, Rp, Kp), dtype=torch.int8, device=w.device)
+    S, KS = -(-rows // 16), -(-K // 32)
+    blocks = torch.zeros((nb, 16 * S, 32 * KS), dtype=torch.int8,
+                         device=w.device)
     blocks[:, :rows, :K] = w.reshape(nb, rows, K)
     # [b, s, h, g, ks, jh, t, byte] -> [s, ks, b, g, t, jh, h, byte]
     tiles = blocks.reshape(nb, S, 2, 8, KS, 2, 4, 4)
-    tiles = tiles.permute(1, 4, 0, 3, 6, 5, 2, 7).contiguous()
-    return tiles.view(torch.int32).reshape(S, KS, nb, 32, 4)
+    tiles = tiles.permute(1, 4, 0, 3, 6, 5, 2, 7).reshape(S * KS, nb * 512)
+    if per > 1:
+        tiles = tiles[_stage_order(S, KS, per).to(w.device)]
+    return tiles.contiguous().view(torch.int32).reshape(S * KS, nb, 32, 4)
 
 
-def unpack_blocks(packed):
-    """The inverse of pack_blocks: int8 [nb Rp, Kp], padding kept."""
-    S, KS, nb = packed.shape[:3]
-    tiles = packed.reshape(S, KS, nb, 8, 4, 2, 2, 1).view(torch.int8)
+def unpack_blocks(packed, K, per=1):
+    """The inverse of pack_blocks for a matrix of K columns: int8
+    [nb Rp, Kp], padding kept."""
+    T, nb = packed.shape[:2]
+    KS = -(-K // 32)
+    S = T // KS
+    tiles = packed
+    if per > 1:
+        tiles = torch.empty_like(packed)
+        tiles[_stage_order(S, KS, per).to(packed.device)] = packed
+    tiles = tiles.reshape(S, KS, nb, 8, 4, 2, 2, 1).view(torch.int8)
     return tiles.permute(2, 0, 6, 3, 1, 5, 4, 7).reshape(nb * 16 * S, 32 * KS)
 
 
 def _table(B, elems, window, cpad, dev):
     """The kernel's table scratch: 2^window rows of cpad words for each
-    of the ceil(B / elems) * elems elements its blocks hold."""
-    return torch.empty((-(-B // elems) * elems, 1 << window, cpad),
-                       dtype=torch.int32, device=dev)
+    element its blocks hold, ceil(B / elems) blocks rounded up to whole
+    clusters (the last cluster's spare block computes on zeros)."""
+    blocks = -(-B // elems)
+    return torch.empty((-(-blocks // CLUSTER) * CLUSTER * elems, 1 << window,
+                        cpad), dtype=torch.int32, device=dev)
 
 
 def _columns(sys_):
-    """(w_ext1, w_ext2) packed for the kernel, once per system."""
+    """(w_ext1, w_ext2) packed for the kernel, once per system: rounds of
+    one slab for each of the block's warps."""
     cols = _packed.get(sys_.w_ext1)
     if cols is None:
-        cols = _packed[sys_.w_ext1] = (pack_blocks(sys_.w_ext1, 3),
-                                       pack_blocks(sys_.w_ext2, 3))
+        per = _warps(sys_.k)
+        cols = _packed[sys_.w_ext1] = (pack_blocks(sys_.w_ext1, 3, per),
+                                       pack_blocks(sys_.w_ext2, 3, per))
     return cols
 
 
@@ -197,8 +269,9 @@ def _row(t, name, C, dev):
 
 def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec, elems):
     """One launch of the kernel's instantiation for `elems` elements a
-    block. The wrappers take elems from _elems; chip_smoke.py's
-    one-product split compares instantiations on the same rows."""
+    block, in clusters of CLUSTER blocks. The wrappers take elems from
+    _elems; chip_smoke.py's one-product split compares instantiations on
+    the same rows."""
     dev = x_res.device
     C, k = sys_.cpad, sys_.k
     if x_res.dim() != 2 or x_res.shape[1] != C:
@@ -235,7 +308,8 @@ def _launch(x_res, digits, sys_, window, exit_res, entry_res, vec, elems):
     rc = fn(
         x_res.data_ptr(), out.data_ptr(), table.data_ptr(), B, k, C,
         *rows, w1p.data_ptr(), w2p.data_ptr(),
-        digits.data_ptr(), digits.shape[-1], window, _build.stream_handle(dev),
+        digits.data_ptr(), digits.shape[-1], window,
+        _build.stream_handle(dev),
     )
     name = "rns_ladder_vec" if vec else "rns_ladder"
     if rc != 0:

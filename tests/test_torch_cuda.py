@@ -831,10 +831,13 @@ def _rns_geometry(which):
 def _widths(dev):
     """(B, E): batches of 1, E - 1, E, E + 1 and 21 rows at E = 8, and at
     E = 32 the smallest batches that take that width on this card with
-    their last block holding 1, E - 1 and E elements."""
+    their last block holding 1, E - 1 and E elements, and a batch of an
+    odd count of blocks, whose last cluster of two holds a spare block."""
     sms = cuda_rns._sms(dev)
+    odd = (sms | 1) + 2
     return [(B, 8) for B in (1, 7, 8, 9, 21)] + [
-        ((sms - 1) * 32 + 1, 32), (sms * 32 - 1, 32), (sms * 32, 32)]
+        ((sms - 1) * 32 + 1, 32), (sms * 32 - 1, 32), (sms * 32, 32),
+        (odd * 32 - 5, 32)]
 
 
 def _ladder_inputs(which, vec, rows, dev):
@@ -887,14 +890,18 @@ def test_ladder_every_width_and_ragged_batch_bit_equal(dev, which, vec):
 
 @pytest.mark.parametrize("vec", [False, True], ids=["shared", "vec"])
 def test_ladder_at_k_624(dev, vec):
-    """The 8192-bit key's p^2 (k = 624): 50,464 bytes a block at E = 8 and
-    201,856 at E = 32, bit-equal at both on ragged batches; and at k = 720,
-    past the channel supply, where 32 elements would take 232,576 bytes,
+    """The 8192-bit key's p^2 (k = 624): 111,872 bytes a block at E = 8
+    (two stages of two K-steps of a whole round) and 232,448 at E = 32
+    (two stages of one K-step: all a block may have), bit-equal at both
+    on ragged batches, an odd count of blocks among them; and at k = 720,
+    past the channel supply, where 32 elements would take 263,168 bytes,
     that width raises before any launch."""
     sms = cuda_rns._sms(dev)
-    sys_, x, digits = _ladder_inputs("p2_8192", vec, sms * 32, dev)
-    assert sys_.k == 624
-    for B, E in ((9, 8), ((sms - 1) * 32 + 1, 32), (sms * 32, 32)):
+    odd = (sms | 1) + 2
+    sys_, x, digits = _ladder_inputs("p2_8192", vec, odd * 32, dev)
+    assert sys_.k == 624 and cuda_rns._ring(624, 32) == (1, 2)
+    for B, E in ((9, 8), ((sms - 1) * 32 + 1, 32), (sms * 32, 32),
+                 (odd * 32 - 3, 32)):
         _ladder_check(sys_, x, digits, vec, B, E)
     k = 720
     C = 2 * k + 8
@@ -906,18 +913,46 @@ def test_ladder_at_k_624(dev, vec):
     dw = (torch.zeros((1, 16), dtype=torch.int8, device=dev) if vec
           else torch.zeros(16, dtype=torch.int64, device=dev))
     counts = dict(cuda_rns.launches)
-    assert cuda_rns._smem(k, 32) == 232576 > cuda_rns.SMEM_LIMIT
+    assert cuda_rns._smem(k, 32) == 263168 > cuda_rns.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         cuda_rns._launch(xw, dw, wide, 4, None, None, vec, 32)
     assert cuda_rns.launches == counts
 
 
 def test_ladder_smem_formula_matches_the_kernel(dev):
+    """The kernel's shared memory, ring included, is _smem's at every k."""
     cuda_rns._lib(False, 8)
     lib = cuda_rns._build.load("rns_ladder")
-    for k in (8, 40, 152, 304, 392, 456, 624, 664, 720):
+    for k in (8, 40, 152, 176, 304, 392, 456, 624, 664, 667, 720):
         for E in cuda_rns.ELEMS:
             assert lib.phe_rns_ladder_smem(k, E) == cuda_rns._smem(k, E)
+
+
+def test_cluster_launch_counts_once_and_each_replay(dev):
+    """A 16,384-row ladder at k = 304 runs E = 32 in clusters of two, on
+    blocks rounded up to whole clusters, bit-equal to the plain ladder:
+    cuda_rns.launches moves once for it, and once for each call of the
+    encrypt program (warm-up, capture, replays), as its one ladder launch
+    does."""
+    sms = cuda_rns._sms(dev)
+    assert cuda_rns._elems(304, 16384, sms) == 32 and cuda_rns.CLUSTER == 2
+    sys_, x, digits = _ladder_inputs("n2", False, 16384, dev)
+    before = dict(cuda_rns.launches)
+    y = cuda_rns.ladder(x, digits, sys_, window=4)
+    assert cuda_rns.launches == dict(before, rns_ladder=before["rns_ladder"]
+                                     + 1)
+    rows = [0, 1, 16383]
+    assert torch.equal(y[rows], rns.ladder_plain(x[rows], digits, sys_,
+                                                 window=4))
+    pub, priv = benchmarks.fixed_key(2048)
+    values = [0.5 * v for v in range(16384)]
+    for _ in range(4):
+        before = dict(cuda_rns.launches)
+        batch = tbatch.EncryptedBatch.encrypt(pub, values, device=dev)
+        torch.cuda.synchronize()
+        assert cuda_rns.launches == dict(
+            before, rns_ladder=before["rns_ladder"] + 1)
+    assert batch.decrypt(priv) == values
 
 
 def test_key_constants_built_once_per_card(dev):

@@ -142,6 +142,13 @@ def test_redc_matrices_past_phe_tpus_ceiling_against_python_ints():
         assert (T + qm) % R == 0
 
 
+def _slabwise(packed, K):
+    """pack_blocks' tiles of a K-column matrix, slab by slab (its order
+    with one slab a round), as [S, KS, nb, 32, 4]."""
+    KS = -(-K // 32)
+    return packed.reshape(-1, KS, *packed.shape[1:])
+
+
 def _walk_mma(packed, dig):
     """[nb, Rp, N] block sums as the kernel's warps compute them over N
     row slots (N a multiple of 8): each lane's A registers (rows g, g + 8
@@ -365,7 +372,8 @@ def _emulate_product(a, b, ctx, square, slots=None, cluster=None,
     else:
         wq, wm = cols[0], cols[1]
         cq, cmv = (c.numpy().astype(np.int64) for c in cols[2:])
-        C = _walk_mma(wq, _digits(T[:, :L], L, ds, slots))[:, :, :E]
+        C = _walk_mma(_slabwise(wq, 2 * L), _digits(T[:, :L], L, ds, slots))[
+            :, :, :E]
         slot = (C[0, :L].T + cq[None, :L]) + ((C[1, :L].T + cq[None, L:]) << 7)
         H = np.zeros((E, 2 * L), np.int64)
         H[:, :L], H[:, L:] = slot & MASK, slot >> 14
@@ -373,7 +381,7 @@ def _emulate_product(a, b, ctx, square, slots=None, cluster=None,
         _split(qlo, H[:, L:], c1, L // r)
         _ripple(qlo, c1, c2, L // r)
         q = np.stack([_limb(qlo, c2, c) for c in range(L)], axis=1)
-        C = _walk_mma(wm, _digits(q, L, ds, slots))[:, :, :E]
+        C = _walk_mma(_slabwise(wm, 2 * L), _digits(q, L, ds, slots))[:, :, :E]
         u = T + (C[0].T + cmv[None, : 2 * L]) + ((C[1].T + cmv[None, 2 * L:])
                                                  << 7)
         T, H = u & MASK, u >> 14
@@ -769,11 +777,12 @@ def test_pack_blocks_round_trips_the_redc_matrices(which):
     for w, rows in ((mats.w_mq, L), (mats.w_m, 2 * L)):
         packed = cuda_rns.pack_blocks(w, 2)
         Rp = -(-rows // 16) * 16
-        assert tuple(packed.shape) == (Rp // 16, Kp // 32, 2, 32, 4)
-        back = cuda_rns.unpack_blocks(packed).reshape(2, Rp, Kp)
+        assert tuple(packed.shape) == (Rp // 16 * (Kp // 32), 2, 32, 4)
+        back = cuda_rns.unpack_blocks(packed, 2 * L).reshape(2, Rp, Kp)
         assert torch.equal(back[:, :rows, : 2 * L], w.reshape(2, rows, 2 * L))
         assert not back[:, rows:].any() and not back[:, :, 2 * L:].any()
-        C = _walk_mma(packed, np.eye(Kp, dtype=np.int64)[: 2 * L])
+        C = _walk_mma(_slabwise(packed, 2 * L),
+                      np.eye(Kp, dtype=np.int64)[: 2 * L])
         np.testing.assert_array_equal(
             C[:, :rows, :].reshape(2 * rows, 2 * L),
             w.numpy().astype(np.int64))

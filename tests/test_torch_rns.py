@@ -245,7 +245,7 @@ def test_ladder_wrapper_host_preparation(small):
     K1, k = sys_.k + 8, sys_.k
     for packed, w in ((w1p, sys_.w_ext1), (w2p, sys_.w_ext2)):
         assert packed.dtype == torch.int32 and packed.is_contiguous()
-        blocks = cuda_rns.unpack_blocks(packed)
+        blocks = cuda_rns.unpack_blocks(packed, 2 * k, cuda_rns._warps(k))
         blocks = blocks.reshape(3, -1, blocks.shape[-1])
         assert torch.equal(blocks[:, :K1, : 2 * k], w.reshape(3, K1, 2 * k))
     digits = rns.rns_pow_digits(pub.n, pub.n.bit_length(), 5)
