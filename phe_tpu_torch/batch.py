@@ -139,7 +139,8 @@ def _signed_mantissas_fast(public_key, scalars):
     the mantissa from one power-of-two ldexp, np.rint the same
     round-half-even as round()), so |mantissa| and the sign come out
     without the n-sized residue of the negative window. Homogeneous
-    int64-range int lists reduce to abs and sign. Returns None whenever an
+    int64-range int lists reduce to abs and sign; a float64 array takes the
+    float path as it is, with no list. Returns None whenever an
     element needs the exact rational path (mixed or other types,
     non-finite values, a mantissa past max_int at small keys): callers then
     take EncodedNumber.encode_many, which raises the reference's errors.
@@ -151,7 +152,8 @@ def _signed_mantissas_fast(public_key, scalars):
     if EncodedNumber.BASE != 16 or len(scalars) == 0:
         return None
     max_int = public_key.max_int
-    if all(type(s) is float for s in scalars):
+    if (isinstance(scalars, np.ndarray) and scalars.dtype == np.float64
+            or all(type(s) is float for s in scalars)):
         a = np.asarray(scalars, dtype=np.float64)
         if not np.isfinite(a).all():
             return None
@@ -174,6 +176,78 @@ def _signed_mantissas_fast(public_key, scalars):
             return None
         return k, (a < 0).astype(np.uint8), np.zeros(len(a), np.int64)
     return None
+
+
+def _encoded_at_most(public_key, scalars, max_exponents):
+    """(residues mod n, int64 exponents) of scalars as
+    EncodedNumber.encode(public_key, s, max_exponent=m) encodes them, from
+    _signed_mantissas_fast's arrays: the exponent the lower of the natural
+    one and m, the mantissa scaled up exactly by BASE ** the difference.
+    None where _signed_mantissas_fast gives None or a scaled mantissa
+    passes max_int: callers then take EncodedNumber.encode, which raises
+    the reference's errors.
+    """
+    fast = _signed_mantissas_fast(public_key, scalars)
+    if fast is None:
+        return None
+    ks, neg, exps = fast
+    target = np.minimum(exps, max_exponents)
+    shifts = int(EncodedNumber.LOG2_BASE) * (exps - target)
+    n, max_int = public_key.n, public_key.max_int
+    residues = []
+    for k, shift, negative in zip(ks.tolist(), shifts.tolist(),
+                                  neg.tolist()):
+        m = k << shift
+        if m > max_int:
+            return None
+        residues.append(n - m if negative else m)
+    return residues, target
+
+
+def _bit_lengths(k):
+    """Exact bit lengths of a non-negative int64 array."""
+    u = k.astype(np.uint64)
+    e = np.frexp(u.astype(np.float64))[1].astype(np.int64)
+    # A value just under a power of two rounds up to it as a float.
+    e -= np.left_shift(np.uint64(1), np.maximum(e - 1, 0).astype(
+        np.uint64)) > u
+    return np.where(u > 0, e, 0)
+
+
+def _grid_schedules(ks, x_exps, w_exps):
+    """matvec's schedules from arrays: ([B, D, n_windows] int8, [B] row
+    exponents).
+
+    ks, x_exps: int64 [B, D] |mantissa| and exponent of each matrix
+    entry (_signed_mantissas_fast's); w_exps: int64 [D], the
+    ciphertexts' exponents. Entry (j, i) raises its ciphertext to
+    ks[j, i] * BASE**diff, diff its product exponent less row j's least.
+    At DEFAULT_WINDOW = log2(BASE) one window is one base-16 digit, so
+    that schedule is ks[j, i]'s digits moved up diff windows: no Python
+    int is formed. Bit-equal to _digits_rows over those products.
+    """
+    exp_grid = w_exps[None, :] + x_exps
+    row_min = exp_grid.min(axis=1)
+    diffs = exp_grid - row_min[:, None]
+    bits = np.where(ks > 0, _bit_lengths(ks) + DEFAULT_WINDOW * diffs, 0)
+    n_windows = _bucket_bits(max(int(bits.max()), 1)) // DEFAULT_WINDOW
+    places = 64 // DEFAULT_WINDOW  # the digits of a 64-bit |mantissa|
+    shifts = np.arange(places - 1, -1, -1, dtype=np.uint64) * np.uint64(
+        DEFAULT_WINDOW)
+    msb_first = ((ks.reshape(-1).astype(np.uint64)[:, None] >> shifts)
+                 & np.uint64((1 << DEFAULT_WINDOW) - 1)).astype(np.int8)
+    flat_diffs = diffs.reshape(-1)
+    out = np.zeros((len(flat_diffs), n_windows), np.int8)
+    for d in np.unique(flat_diffs).tolist():
+        # ks's digits end diff windows above the last; those that would
+        # fall before the first window are zero (bits <= 4 n_windows).
+        end = n_windows - d
+        if end <= 0:  # only |mantissa| 0 reaches past the schedule
+            continue
+        rows = flat_diffs == d
+        start = max(end - places, 0)
+        out[rows, start:end] = msb_first[rows, places - (end - start):]
+    return out.reshape(ks.shape + (n_windows,)), row_min
 
 
 def _as_list(value, length):
@@ -361,12 +435,14 @@ def _tree_reduce_masked(mont, valid, ctx):
 def _matvec(mont, inv_mont, neg_mask, digits, ctx, rstate):
     """Encrypted matvec: base select, one grid pow, tree over D.
 
-    mont / inv_mont: [D, L] encrypted weights and their inverses
-    (Montgomery domain); neg_mask: bool [B, D] on their device, selecting
-    the inverse base (the reference's inverse trick, phe/paillier.py:
-    745-749, over the whole grid); digits: [B, D, W] schedules of
-    |mantissa| * BASE**align_diff — the alignment is fused into the
-    exponent, (c^x)^(BASE^d) = c^(x BASE^d).
+    mont / inv_mont: [D, L] any encrypted vector and its inverses
+    (Montgomery domain): D encrypted weights against B plaintext rows
+    (scoring), or D rows' encrypted residuals against B features (hetero
+    LR's X^T [[d]], B << D); neg_mask: bool [B, D] on their device,
+    selecting the inverse base (the reference's inverse trick,
+    phe/paillier.py:745-749, over the whole grid); digits: [B, D, W]
+    schedules of |mantissa| * BASE**align_diff — the alignment is fused
+    into the exponent, (c^x)^(BASE^d) = c^(x BASE^d).
     """
     B = digits.shape[0]
     grid = (B,) + tuple(mont.shape)
@@ -1293,20 +1369,28 @@ class EncryptedBatch:
         encryption of the scalar (r = 1, :673).
         """
         scalars = _as_list(scalars, len(self))
-        encodings = [
-            s if isinstance(s, EncodedNumber)
-            else EncodedNumber.encode(self.public_key, s, max_exponent=int(e))
-            for s, e in zip(scalars, self.exponents)
-        ]
-        b_exps = np.array([e.exponent for e in encodings], dtype=np.int64)
-        target = np.minimum(self.exponents, b_exps)
-        aligned = [
-            e if e.exponent == t else e.decrease_exponent_to(int(t))
-            for e, t in zip(encodings, target)
-        ]
+        with profiling.span("batch.encode"):
+            fast = _encoded_at_most(self.public_key, scalars,
+                                    self.exponents)
+            if fast is not None:
+                residues, target = fast
+            else:
+                encodings = [
+                    s if isinstance(s, EncodedNumber)
+                    else EncodedNumber.encode(self.public_key, s,
+                                              max_exponent=int(e))
+                    for s, e in zip(scalars, self.exponents)
+                ]
+                b_exps = np.array([e.exponent for e in encodings],
+                                  dtype=np.int64)
+                target = np.minimum(self.exponents, b_exps)
+                residues = [
+                    e.encoding if e.exponent == t
+                    else e.decrease_exponent_to(int(t)).encoding
+                    for e, t in zip(encodings, target)
+                ]
         dc = self._dc
-        m = dc.pack_messages([e.encoding for e in aligned],
-                             pad_rows=self.mont.shape[0])
+        m = dc.pack_messages(residues, pad_rows=self.mont.shape[0])
         if (self.exponents == target).all():
             mont = _add_encoded_dev(self.mont, m, dc.nr2_limbs, dc.ctx, dc.Ln)
         else:
@@ -1424,45 +1508,77 @@ class EncryptedBatch:
         (examples/logistic_regression_encrypted_model.py:170-177)."""
         return self.mul_scalars(plain_vector).sum()
 
+    def _grid(self, matrix):
+        """matvec's host build for a [B, D] matrix: (int8 [B, D, W]
+        schedules of |mantissa| * BASE**diff, bool [B, D] negative mask,
+        int64 [B] row exponents).
+
+        Floats and int64-range ints encode as arrays
+        (_signed_mantissas_fast) and their schedules are built as arrays
+        (_grid_schedules). Anything else, or a mantissa past max_int at a
+        small key, takes encode_many and Python ints, which raise the
+        reference's errors. Both give the same schedules.
+        """
+        B, D = matrix.shape
+        w_exps = self.exponents[:D]
+        with profiling.span("batch.encode"):
+            flat = matrix.ravel()
+            fast = _signed_mantissas_fast(
+                self.public_key,
+                flat if flat.dtype == np.float64 else flat.tolist())
+            if fast is None:
+                encodings = [
+                    EncodedNumber.encode_many(self.public_key, row)
+                    for row in matrix.tolist()
+                ]
+        with profiling.span("batch.schedule"):
+            if fast is not None:
+                ks, neg, x_exps = fast
+                digits, row_min = _grid_schedules(
+                    ks.reshape(B, D), x_exps.reshape(B, D), w_exps)
+                return digits, neg.astype(bool).reshape(B, D), row_min
+            # The signed split over the grid: negative entries cost short
+            # exponents on the inverted ciphertext, not n-sized residues.
+            flat = [e for row in encodings for e in row]
+            ks, neg = self._signed_exponents(flat)
+            # Product exponents e_c[i] + e_x[j, i]; each row aligns to its
+            # minimum inside the modexp:
+            # (c^+-|k|)^(BASE^d) = c^(+-|k| BASE^d).
+            exp_grid = w_exps[None, :] + np.array(
+                [[e.exponent for e in row] for row in encodings],
+                dtype=np.int64)
+            row_min = exp_grid.min(axis=1)
+            diffs = (exp_grid - row_min[:, None]).reshape(-1)
+            exps = [k * EncodedNumber.BASE ** int(d)
+                    for k, d in zip(ks, diffs)]
+            bits = max(max(e.bit_length() for e in exps), 1)
+            return (_digits_rows(exps, bits).reshape(B, D, -1),
+                    np.array(neg, dtype=bool).reshape(B, D), row_min)
+
     def matvec(self, matrix):
-        """scores = matrix @ self for a plaintext [B, D] matrix against D
-        encrypted weights: one [B, D] grid of per-element modexps with the
-        exponent alignment fused in, and a Montgomery-product tree over D,
-        against the reference's B * D sequential powmods
-        (examples/logistic_regression_encrypted_model.py:170-177). Returns
-        an EncryptedBatch of B encrypted dot products.
+        """matrix @ self for a plaintext [B, D] matrix against any
+        encrypted vector of D elements: one [B, D] grid of per-element
+        modexps with the exponent alignment fused in, and a
+        Montgomery-product tree over D, against the reference's B * D
+        sequential powmods. Scoring B rows against D encrypted weights
+        (models/logreg.py; examples/logistic_regression_encrypted_model.py:
+        170-177) takes B >> D; hetero LR's gradient X^T [[d]]
+        (models/hetero_lr.py) the transpose, D the batch's rows and B its
+        features. Returns an EncryptedBatch of B encrypted dot products.
         """
         matrix = np.asarray(matrix)
         if matrix.ndim != 2 or matrix.shape[1] != len(self):
             raise ValueError(
                 "expected [B, %d] matrix, got %r" % (len(self), matrix.shape)
             )
-        B, D = matrix.shape
+        D = matrix.shape[1]
         dc = self._dc
         w_mont = self.mont[:D]  # the grid is logical-D: trim the padding
-        encodings = [
-            EncodedNumber.encode_many(self.public_key, row)
-            for row in matrix.tolist()
-        ]
-        # The signed split over the grid: negative entries cost short
-        # exponents on the inverted weight, not n-sized residues.
-        flat = [e for row in encodings for e in row]
-        ks, neg = self._signed_exponents(flat)
-        # Product exponents e_w[i] + e_x[j, i]; each row aligns to its
-        # minimum inside the modexp: (c^+-|k|)^(BASE^d) = c^(+-|k| BASE^d).
-        exp_grid = self.exponents[None, :D] + np.array(
-            [[e.exponent for e in row] for row in encodings], dtype=np.int64
-        )
-        row_min = exp_grid.min(axis=1)
-        diffs = (exp_grid - row_min[:, None]).reshape(-1)
-        exps = [k * EncodedNumber.BASE ** int(d) for k, d in zip(ks, diffs)]
-        bits = max(max(e.bit_length() for e in exps), 1)
+        digits, neg, row_min = self._grid(matrix)
         with profiling.span("batch.schedule"):
-            digits = _digits_on(_digits_rows(exps, bits).reshape(B, D, -1),
-                                dc.device)
-        inv_mont = self.inverse_mont()[:D] if any(neg) else w_mont
-        mask = config.to_device(np.array(neg, dtype=bool).reshape(B, D),
-                                dc.device)
+            digits = _digits_on(digits, dc.device)
+        inv_mont = self.inverse_mont()[:D] if neg.any() else w_mont
+        mask = config.to_device(neg, dc.device)
         mont = _matvec_dev(w_mont, inv_mont, mask, digits, dc.ctx,
                            dc.rns_state())
         return EncryptedBatch(self.public_key, mont, row_min, False)

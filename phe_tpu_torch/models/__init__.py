@@ -1,7 +1,9 @@
 """Model families: privacy-preserving ML protocols on the batch engine.
 
-The PyTorch counterparts of phe_tpu.models: encrypted logistic-regression
-scoring and federated gradient aggregation, built on EncryptedBatch.
+The PyTorch counterparts of phe_tpu.models, encrypted logistic-regression
+scoring and federated gradient aggregation, and vertical federated
+logistic regression (Hardy et al.'s masked gradient, hetero_lr), built on
+EncryptedBatch.
 """
 
 from phe_tpu_torch.models.federated import (
@@ -10,6 +12,7 @@ from phe_tpu_torch.models.federated import (
     aggregate_encrypted_gradients,
     run_federated_learning,
 )
+from phe_tpu_torch.models.hetero_lr import Arbiter, Guest, Host, train_step
 from phe_tpu_torch.models.logreg import EncryptedScorer, train_spam_classifier
 
 __all__ = [
@@ -19,4 +22,8 @@ __all__ = [
     "run_federated_learning",
     "EncryptedScorer",
     "train_spam_classifier",
+    "Arbiter",
+    "Guest",
+    "Host",
+    "train_step",
 ]

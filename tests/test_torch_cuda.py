@@ -27,8 +27,10 @@ block width on ragged batches at L = 80 and 296, and the one-row tile on
 thread-block clusters at L = 1,176 on 16 and ragged rows. Both layouts'
 shared-memory formulas match the kernels', and the limb engine, reached
 with rns.fits made to refuse the key's moduli, gives the RNS engine's
-pinned-r ciphertexts at 2048 bits. Tolerance zero throughout: all exact
-integer arithmetic.
+pinned-r ciphertexts at 2048 bits. The transposed matvec of vertical LR
+(8,200 ciphertexts, two batch-inversion chunks) decrypts to the plain
+reference's exact sums at 2048 bits. Tolerance zero throughout: all
+exact integer arithmetic.
 """
 
 import functools
@@ -443,6 +445,31 @@ def test_algebra_on_the_card_goes_through_the_kernels(dev):
         pub, vals, obfuscation="short", device=dev))
     assert got.is_obfuscated and got.decrypt(priv) == vals
     assert n["mont_pow"] == 1 and n["mont_mul"] == 1
+
+
+def test_transposed_matvec_at_2048_bits_over_two_inverse_chunks(dev):
+    """X^T [[d]] as hetero LR forms it (models/hetero_lr.py): 8,200
+    ciphertexts, whose 16,384-row bucket takes two batch-inversion
+    chunks, against 3 feature rows of mixed sign on the fixed 2048-bit
+    key; the decrypted sums equal the plain reference's exact ones."""
+    from paillier_bench.reference import paillier as ref
+
+    pub, priv = benchmarks.fixed_key(2048)
+    rng = np.random.default_rng(25)
+    rows = 8200
+    d = rng.normal(0.0, 0.3, rows)
+    X = rng.normal(0.0, 1.0, (rows, 3))
+    batch = pt.EncryptedBatch.encrypt(pub, d.tolist(), device=dev)
+    assert batch.mont.shape[0] == 2 * batch._INVERSE_CHUNK
+    got = batch.matvec(X.T)
+    mv, ev = ref.encode_array(d)
+    mx, ex = ref.encode_array(X)
+    totals = ref.aligned_sums(mv.astype(object)[:, None] * mx,
+                              ev[:, None] + ex)
+    exps = (ev[:, None] + ex).min(axis=0)
+    assert got.exponents.tolist() == exps.tolist()
+    assert got.decrypt(priv) == [ref.decode(t, int(e))
+                                 for t, e in zip(totals, exps)]
 
 
 def test_round_trip_on_the_card_goes_through_the_kernels(dev):
