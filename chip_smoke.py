@@ -53,7 +53,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shared-exponent form with the exponent n on one row and on 128 rows;
    both forms on ragged batches at E = 8 (1, 7 and 9 rows) and E = 32 (a
    last block of 1 and of 31 rows), against their plain versions and
-   Python pow.
+   Python pow. The shared-table matvec's select kernel
+   (check_table_select) is bit-equal to its plain version at
+   vfl_credit-2048's grids (30,000 bases, 13 and 11 rows, 24 windows,
+   both signs, and 13 rows with one sign) and a ragged one (5 x 257 x
+   33), one launch a chunk of bases as batch._matvec takes them,
+   and no faster than its bound.
 3. The main path at 16,384 ciphertexts: EncryptedBatch.encrypt of seeded
    uniform floats in +-1e6, then decrypt, with every kernel's launch count
    read around it; a pinned-r batch against the host's raw_encrypt; one
@@ -68,8 +73,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    under profiling.trace) and aligned over
    65,536, add_scalars aligned, mul_scalars with mixed-sign floats over
    65,536 rows, sum and dot at mixed exponents, encrypted
-   logistic-regression scoring of 1,024 examples x 21 weights, federated
-   aggregation of 5 x 16,384 gradients, and short-obfuscated encryption.
+   logistic-regression scoring of 1,024 examples x 21 weights (the shared
+   table's launches pinned), federated aggregation of 5 x 16,384
+   gradients, and short-obfuscated encryption. Then the matvec program
+   against per-element modexps and a tree, the parent's algorithm
+   (matvec_small_grids), at MATVEC_SHAPES' small grids of the 2048-,
+   3072- and 8192-bit keys: their ciphertexts equal, each timed in turns.
    Phase 2 also holds the issue-rate chain (phe_tpu_torch.microbench's
    kernel) bit-equal to its plain version for all five bodies on the full
    [256, 512] tile at K = 4,000, no faster than its bound (CHAIN_ISSUE),
@@ -191,6 +200,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # two pipes. Each pipe retires 64 lanes a clock an SM, INT32_OPS_PER_S.
 CHAIN_ISSUE = {"mul": (0, 1), "add": (0.5, 0), "muladd": (0, 1),
                "shiftmul": (1, 1), "barrett": (4, 4)}
+# The select kernel's grids (B rows, D bases, W windows, signs):
+# vfl_credit-2048's two (13 and 11 features against 30,000 residuals at 24
+# windows), the first with one sign, and a ragged one.
+SELECT_SHAPES = ((13, 30000, 24, 2), (11, 30000, 24, 2), (13, 30000, 24, 1),
+                 (5, 257, 33, 2))
+# The small matvec grids (B, D) by key size: one element; one example
+# scored against 21 weights and more examples (models/logreg.py); a
+# feature's rows of X^T [[d]] (models/hetero_lr.py) at a few batch sizes;
+# on the RNS route (2048 and 3072 bits) and the limb route (8192 bits).
+MATVEC_SHAPES = {
+    2048: ((1, 1), (1, 21), (16, 21), (13, 128), (13, 1024)),
+    3072: ((1, 21), (13, 128)),
+    8192: ((1, 21), (4, 21), (13, 32)),
+}
+MATVEC_MS = 30.0  # the least CUDA-event milliseconds of one timed turn
 
 
 def fail(msg):
@@ -690,6 +714,131 @@ def check_vec_kernels(pub, dev, rng):
     return out
 
 
+def check_table_select(dev):
+    """Phase 2, the shared-table matvec's select kernel
+    (cuda_modexp.table_select) bit-equal to its plain version over each
+    SELECT_SHAPES grid in the chunks of bases batch._matvec takes:
+    vfl_credit-2048's two grids (30,000 bases, 13 and 11 rows, 24
+    windows, both signs; 13 rows with one sign) and a ragged one, at L =
+    296, on seeded limbs in [0, 2^14], digits and signs. Its time over the
+    whole grid (one launch a chunk) beside its plain version's and its
+    bound: the selections written and the tables, digits and signs read
+    once. Returns the records, the first the widest grid."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch.ops import cuda_modexp
+
+    L = 296
+    g = torch.Generator(device=dev)
+    out = []
+    for B, D, W, signs in SELECT_SHAPES:
+        g.manual_seed(SEED + B * 100003 + D * 7 + signs)
+        table = torch.randint(0, (1 << 14) + 1, (16, signs, D, L),
+                              dtype=torch.int64, device=dev, generator=g)
+        digits = torch.randint(0, 16, (B, D, W), dtype=torch.int8,
+                               device=dev, generator=g)
+        neg = torch.rand((B, D), device=dev, generator=g) < 0.5
+        step = tbatch._select_bases(B, D, W, L)
+        starts = [(i0, min(step, D - i0)) for i0 in range(0, D, step)]
+        before = cuda_modexp.launches["table_select"]
+        err = 0
+        for i0, dc in starts:
+            got = cuda_modexp.table_select(table, digits, neg, i0, dc)
+            want = cuda_modexp.table_select_plain(table, digits, neg, i0, dc)
+            check(torch.equal(got, want), "table_select B=%d D=%d W=%d "
+                  "signs=%d: bases [%d, %d) differ from the plain version"
+                  % (B, D, W, signs, i0, i0 + dc))
+            err = max(err, int((got - want).abs().max()))
+            del got, want
+        check(cuda_modexp.launches["table_select"] == before + len(starts),
+              "table_select: %d launches for %d chunks"
+              % (cuda_modexp.launches["table_select"] - before, len(starts)))
+
+        def run(fn):
+            for i0, dc in starts:
+                fn(table, digits, neg, i0, dc)
+
+        ms = cuda_ms(lambda: run(cuda_modexp.table_select), 3)
+        plain_ms = cuda_ms(lambda: run(cuda_modexp.table_select_plain), 1)
+        nbytes = 8 * L * (D * B * W + 16 * signs * D) + B * D * (W + 1)
+        bms, by = bound_ms(nbytes)
+        print("table_select B=%d D=%d W=%d signs=%d L=%d: bit-equal over %d "
+              "launches (chunks of %d bases); kernel %.3f ms, plain %.3f ms, "
+              "bound %.3f ms (%s: %.3f GB)" % (B, D, W, signs, L,
+                                              len(starts), step, ms,
+                                              plain_ms, bms, by, nbytes / 1e9))
+        check(ms >= bms, "table_select ran under its bound")
+        out.append(dict(B=B, D=D, W=W, signs=signs, L=L, chunk=step,
+                        launches=len(starts), max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, rows=B * D * W,
+                        plain_rows=B * D * W, bound_ms=bms, bound_by=by))
+        del table, digits, neg
+    return out
+
+
+def matvec_small_grids(keys, dev, card):
+    """Phase 4, the matvec program (batch._matvec_dev, the shared table)
+    against the parent's algorithm, one modexp a grid element and a tree
+    (batch._pow_elems_dev, batch._tree_reduce_dev), at MATVEC_SHAPES'
+    grids of each key: D seeded encrypted floats against a [B, D] float
+    matrix through matvec's own grid build, the two ciphertexts equal mod
+    n^2, each timed on CUDA events in turns (shared, per element, per
+    element, shared) after its warm-up and capture. Returns the records."""
+    from phe_tpu_torch import batch as tbatch
+    from phe_tpu_torch import config
+    from phe_tpu_torch.batch import EncryptedBatch
+
+    out = []
+    for pub in keys:
+        dc = pub.device_context(dev)
+        rstate = dc.rns_state()
+        route = "limb" if rstate is None else "rns"
+        bits = pub.n.bit_length()
+        for B, D in MATVEC_SHAPES[bits]:
+            g = np.random.default_rng(SEED + 31 * B + D + bits)
+            a = EncryptedBatch.encrypt(pub, g.normal(0.0, 0.3, D).tolist(),
+                                       device=dev)
+            digits, neg, _ = a._grid(g.normal(0.0, 1.0, (B, D)))
+            W = digits.shape[-1]
+            mont, inv = a.mont[:D], a.inverse_mont()[:D]
+            mask = config.to_device(neg, dev)
+            digits = tbatch._digits_on(digits, dev)
+            base = torch.where(mask[..., None], inv.expand(B, D, dc.L),
+                               mont.expand(B, D, dc.L)).contiguous()
+            runs = {
+                "shared_table": lambda: tbatch._matvec_dev(
+                    mont, inv if neg.any() else None, mask, digits, dc.ctx),
+                "per_element": lambda: tbatch._tree_reduce_dev(
+                    tbatch._pow_elems_dev(base, digits, dc.ctx,
+                                          rstate).transpose(0, 1)
+                    .contiguous(), dc.ctx)[0],
+            }
+            ints = {}
+            for path, run in runs.items():
+                for _ in range(3):  # warm-up, capture, replay
+                    got = run()
+                ints[path] = dc.export_ints(got)
+            check(ints["shared_table"] == ints["per_element"],
+                  "matvec %d-bit B=%d D=%d: the shared table's ciphertexts "
+                  "differ from per-element modexps'" % (bits, B, D))
+            turns = {path: [] for path in runs}
+            for path in ("shared_table", "per_element", "per_element",
+                         "shared_table"):
+                one = cuda_ms(runs[path], 1)
+                reps = max(1, min(20, int(MATVEC_MS / max(one, 1e-3))))
+                turns[path].append(cuda_ms(runs[path], reps))
+            print("matvec %d-bit (%s route, L = %d) B=%d D=%d W=%d: equal; "
+                  "shared table %s ms, per-element modexps %s ms [%s]"
+                  % (bits, route, dc.L, B, D, W,
+                     " / ".join("%.3f" % t for t in turns["shared_table"]),
+                     " / ".join("%.3f" % t for t in turns["per_element"]),
+                     card))
+            out.append(dict(bits=bits, route=route, L=dc.L, B=B, D=D, W=W,
+                            shared_table_ms=turns["shared_table"],
+                            per_element_ms=turns["per_element"]))
+            del a, mont, inv, base, got
+    return out
+
+
 def ragged_sizes(sms):
     """{(E, rows a block, C): batches} of the ragged checks in the int8
     body: one row a block of E = 8 on 1, 7 and 9 rows; three rows a block
@@ -944,10 +1093,14 @@ def arithmetic_path(pub, priv, dev, card, totals):
     scorer = EncryptedScorer.from_model(pub, coef, intercept, device=dev)
     s, sec, n = run_step(lambda: scorer.encrypted_scores(X), totals)
     D = LR_FEATURES + 1
-    mm, mc = inverse_launches(scorer.weights.mont.shape[0], chunk)
-    expect_launches("LR scoring", n, {"rns_ladder_vec": 1,
-                                      "mont_mul": mm + tree_depth(D),
-                                      "mont_mul_const": mc})
+    # The shared table: the weights' and inverses' tables (14 products),
+    # one select and a 5-level tree over the 21 weights, Horner's 5
+    # products a window after the first of the grid's 24; besides, the
+    # batch inversion of the 32 bucketed weights (a 5-level scan and its
+    # product; 3 constant products).
+    expect_launches("LR scoring", n, {"table_select": 1,
+                                      "mont_mul": 6 + 14 + 5 + 5 * 23,
+                                      "mont_mul_const": 3})
     report("LR scoring, %d x %d grid" % (LR_EXAMPLES, D), LR_EXAMPLES * D,
            sec, n)
     weights = [Fraction(float(v)) for v in coef] + [Fraction(intercept)]
@@ -2214,8 +2367,7 @@ def program_cases(pub, priv, dev, rows, names):
         "_inverse_scan_dev": lambda: (chunk, ctx),
         "_finish_inverse_dev": lambda: (
             tbatch._inverse_scan(chunk, ctx)[0], a.mont[1], ctx),
-        "_matvec_dev": lambda: (a.mont[:D], inv[:D], neg_grid, grid, ctx,
-                                st),
+        "_matvec_dev": lambda: (a.mont[:D], inv[:D], neg_grid, grid, ctx),
         "_crt_powers_dev": lambda: (a.mont, ctx, pdc.consts),
         "_short_base_dev": lambda: (a.mont[:1], nd, ctx),
         "_obfuscate_short_dev": lambda: (a.mont, a.mont[0], short, ctx),
@@ -2560,6 +2712,7 @@ def main():
     vec_checks = check_vec_kernels(pub, dev, rng)
     # The 3072-bit key's alignment ladder (k = 456) at its 16,384 rows.
     vec_456 = check_ladder_vec(pub3, dev, rng, BATCH)
+    select_checks = check_table_select(dev)
 
     # -- 3. the main path --------------------------------------------------
     vals_rng = np.random.default_rng(SEED)
@@ -2623,6 +2776,10 @@ def main():
     # -- 4. the arithmetic path --------------------------------------------
     rates = arithmetic_path(pub, priv, dev, card, path_launches)
     print(json.dumps({"arithmetic_rows_per_s": rates, "card": card}))
+    t0 = time.time()
+    matvec_records = matvec_small_grids([pub, pub3, pub8], dev, card)
+    print("matvec small grids: %.1f s" % (time.time() - t0))
+    print(json.dumps({"matvec_small_grids": matvec_records, "card": card}))
 
     # -- 5. the calibration ------------------------------------------------
     calibration(card, path_launches)
@@ -2653,7 +2810,8 @@ def main():
            "rns_ladder_vec": "phe_tpu_torch/csrc/rns_ladder.cu",
            "mont_pow_shared": "phe_tpu_torch/csrc/mont_pow.cu",
            "mont_pow": "phe_tpu_torch/csrc/mont_pow.cu",
-           "vpu_microbench": "phe_tpu_torch/csrc/microbench.cu"}
+           "vpu_microbench": "phe_tpu_torch/csrc/microbench.cu",
+           "table_select": "phe_tpu_torch/csrc/table_select.cu"}
     # The integer-pipe REDC bodies: the same kernels' kMxu = false
     # instantiations, phe_tpu's mxu=False branch of the same Pallas calls.
     for name in cuda_modexp.FORMS:
@@ -2664,7 +2822,8 @@ def main():
                 "rns_ladder_vec": "phe_tpu/ops/pallas_rns.py:447",
                 "mont_pow_shared": "phe_tpu/ops/pallas_modexp.py:302",
                 "mont_pow": "phe_tpu/ops/pallas_modexp.py:570",
-                "vpu_microbench": "scripts/vpu_microbench.py:36"}
+                "vpu_microbench": "scripts/vpu_microbench.py:36",
+                "table_select": None}  # added for batch._matvec
     for name in list(src):
         if name.endswith("_int"):
             replaces[name] = replaces[name[:-4]]
@@ -2684,6 +2843,7 @@ def main():
               "rns_ladder": ladder_checks}
     checks.update({name: [c] for name, c in vec_checks.items()})
     checks["vpu_microbench"] = chain_checks
+    checks["table_select"] = select_checks
     for name, cs in wide_checks.items():
         checks[name].extend(cs)
     checks["rns_ladder_vec"].append(vec_456)

@@ -15,10 +15,12 @@ and:
   the hp/hq products and the CRT recombination on the device, and a compact
   decode that ships 3 words per element to the host;
 * homomorphic add is one Montgomery product mod n^2 (phe/paillier.py:
-  705-719); scalar multiply, exponent alignment, sums at mixed exponents
-  and matvec run one per-element-exponent modexp (_pow_elems,
+  705-719); scalar multiply, exponent alignment and sums at mixed
+  exponents run one per-element-exponent modexp (_pow_elems,
   phe/paillier.py:721-751), negative scalars on the batch-inverted
-  ciphertexts; sums are log-depth Montgomery-product trees.
+  ciphertexts; sums are log-depth Montgomery-product trees; matvec runs
+  its grid as a shared-table multi-exponentiation (each base's table
+  built once, one product tree a window; _matvec).
 
 Two modexp engines, as in phe_tpu: the RNS ladder (csrc/rns_ladder.cu)
 and the limb engine's windowed modexps (csrc/mont_pow.cu), chosen at
@@ -432,24 +434,80 @@ def _tree_reduce_masked(mont, valid, ctx):
     return _tree_fold(torch.where(valid[:, None], mont, one), ctx)
 
 
-def _matvec(mont, inv_mont, neg_mask, digits, ctx, rstate):
-    """Encrypted matvec: base select, one grid pow, tree over D.
+# Bytes of the matvec's selections at once (_matvec): its bases go in
+# chunks of at most this many, each folded before the next is selected.
+_SELECT_BYTES = 1 << 32
 
-    mont / inv_mont: [D, L] any encrypted vector and its inverses
-    (Montgomery domain): D encrypted weights against B plaintext rows
-    (scoring), or D rows' encrypted residuals against B features (hetero
-    LR's X^T [[d]], B << D); neg_mask: bool [B, D] on their device,
-    selecting the inverse base (the reference's inverse trick,
-    phe/paillier.py:745-749, over the whole grid); digits: [B, D, W]
-    schedules of |mantissa| * BASE**align_diff — the alignment is fused
-    into the exponent, (c^x)^(BASE^d) = c^(x BASE^d).
+
+def _select_bases(B, D, W, L):
+    """Bases a chunk of _matvec's selections: the largest power of two
+    within _SELECT_BYTES of int64 limbs (whole chunks fold with no odd
+    level, whose carry the tree copies), at least one base."""
+    fit = max(1, _SELECT_BYTES // (8 * B * W * L))
+    return min(D, 1 << (fit.bit_length() - 1))
+
+
+def _power_tables(bases, ctx):
+    """[16, S, D, L]: table[k, s, i] = bases[s, i]^k, Montgomery domain
+    (k = 0 is R mod M), for bases [S, D, L]: 14 launches of S D rows."""
+    L = ctx.num_limbs
+    x = bases.reshape(-1, L)
+    table = torch.empty((16,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device)
+    table[0] = ctx.one
+    table[1] = x
+    for k in range(2, 16):
+        table[k] = mg.mont_mul(table[k - 1], x, ctx)
+    return table.view((16,) + tuple(bases.shape))
+
+
+def _matvec(mont, inv_mont, neg_mask, digits, ctx):
+    """Encrypted matvec: prod_i (c_i^+-1)^x_ji for each row j, [B, L], as
+    a shared-table (Straus) multi-exponentiation.
+
+    mont: [D, L], any encrypted vector (Montgomery domain): D encrypted
+    weights against B plaintext rows (scoring), or D rows' encrypted
+    residuals against B features (hetero LR's X^T [[d]], B << D);
+    inv_mont: their inverses, or None where no entry is negative;
+    neg_mask: bool [B, D] on their device, selecting the inverse base (the
+    reference's inverse trick, phe/paillier.py:745-749, over the whole
+    grid); digits: [B, D, W] schedules of |mantissa| * BASE**align_diff,
+    MSB first — the alignment is fused into the exponent, (c^x)^(BASE^d)
+    = c^(x BASE^d).
+
+    Each base's (and inverse's) 16-row table is built once
+    (_power_tables); for each chunk of bases the select kernel gathers
+    table[digit, sign, i] for every (i, j, w) in constant time
+    (cuda_modexp.table_select) and a product tree over the chunk folds
+    them, so that P[j, w] = prod_i (c_i^+-1)^digit; then Horner a row:
+    acc = acc^16 P[j, w]. B W (D - 1) tree products and 5 (W - 1) B for
+    Horner, against B D (5 W + 14) for a modexp a grid element, in 14 +
+    a chunk's depth + 5 (W - 1) launches: fewer products at every grid,
+    and on the card less time too at every grid but the 8192-bit key's
+    smallest (PERF.md section 6).
     """
-    B = digits.shape[0]
-    grid = (B,) + tuple(mont.shape)
-    base = torch.where(neg_mask[..., None], inv_mont.expand(grid),
-                       mont.expand(grid))
-    powed = _pow_elems(base, digits, ctx, rstate)  # [B, D, L]
-    return _tree_fold(powed.transpose(0, 1), ctx)[0]
+    from phe_tpu_torch.ops import cuda_modexp
+
+    B, D, W = digits.shape
+    L = ctx.num_limbs
+    bases = mont[None] if inv_mont is None else torch.stack([mont,
+                                                             inv_mont])
+    table = _power_tables(bases, ctx)
+    step = _select_bases(B, D, W, L)
+    windows = None
+    for i0 in range(0, D, step):
+        part = _tree_fold(cuda_modexp.table_select(
+            table, digits, neg_mask, i0, min(step, D - i0)).view(
+                -1, B * W, L), ctx)[0]
+        windows = part if windows is None else mg.mont_mul(windows, part,
+                                                           ctx)
+    windows = windows.view(B, W, L)
+    acc = windows[:, 0]
+    for w in range(1, W):
+        for _ in range(DEFAULT_WINDOW):
+            acc = mg.mont_mul(acc, acc, ctx)
+        acc = mg.mont_mul(acc, windows[:, w], ctx)
+    return acc
 
 
 def _add_encrypted_aligned(a_mont, da, b_mont, db, ctx, rstate):
@@ -1557,14 +1615,18 @@ class EncryptedBatch:
 
     def matvec(self, matrix):
         """matrix @ self for a plaintext [B, D] matrix against any
-        encrypted vector of D elements: one [B, D] grid of per-element
-        modexps with the exponent alignment fused in, and a
-        Montgomery-product tree over D, against the reference's B * D
-        sequential powmods. Scoring B rows against D encrypted weights
-        (models/logreg.py; examples/logistic_regression_encrypted_model.py:
-        170-177) takes B >> D; hetero LR's gradient X^T [[d]]
-        (models/hetero_lr.py) the transpose, D the batch's rows and B its
-        features. Returns an EncryptedBatch of B encrypted dot products.
+        encrypted vector of D elements: a [B, D] grid of exponents with
+        the exponent alignment fused in, against the reference's B * D
+        sequential powmods. The grid runs as a shared-table
+        multi-exponentiation (_matvec: each ciphertext's and inverse's
+        16-row table built once, a constant-time select, a
+        Montgomery-product tree over D for each row and window, Horner a
+        row). Scoring B
+        rows against D encrypted weights (models/logreg.py;
+        examples/logistic_regression_encrypted_model.py:170-177) takes
+        B >> D; hetero LR's gradient X^T [[d]] (models/hetero_lr.py) the
+        transpose, D the batch's rows and B its features. Returns an
+        EncryptedBatch of B encrypted dot products.
         """
         matrix = np.asarray(matrix)
         if matrix.ndim != 2 or matrix.shape[1] != len(self):
@@ -1577,8 +1639,7 @@ class EncryptedBatch:
         digits, neg, row_min = self._grid(matrix)
         with profiling.span("batch.schedule"):
             digits = _digits_on(digits, dc.device)
-        inv_mont = self.inverse_mont()[:D] if neg.any() else w_mont
+        inv_mont = self.inverse_mont()[:D] if neg.any() else None
         mask = config.to_device(neg, dc.device)
-        mont = _matvec_dev(w_mont, inv_mont, mask, digits, dc.ctx,
-                           dc.rns_state())
+        mont = _matvec_dev(w_mont, inv_mont, mask, digits, dc.ctx)
         return EncryptedBatch(self.public_key, mont, row_min, False)

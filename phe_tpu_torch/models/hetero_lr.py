@@ -15,9 +15,11 @@ rows (``train_step``):
 2. the guest forms [[d]] = 0.25 [[u_A]] + (0.25 u_B - 0.5 y): one
    ``mul_scalars`` by the shared scalar, one ``add_scalars``;
 3. each party computes its encrypted gradient [[g]] = X^T [[d]] in one
-   ``EncryptedBatch.matvec``: a [features, rows] grid of per-element
-   modexps, negative features on the batch-inverted [[d]], and a product
-   tree over the rows;
+   ``EncryptedBatch.matvec``: a [features, rows] grid of exponents,
+   negative features on the batch-inverted [[d]], run as a shared-table
+   multi-exponentiation (each row's 16-row table of [[d_i]] and of its
+   inverse built once, one product tree over the rows a feature and
+   window, Horner a feature);
 4. each party masks its gradient with random plaintexts (``add_scalars``);
 5. the arbiter decrypts the masked coordinates only; each party unmasks
    its own and divides by the rows.

@@ -8,9 +8,11 @@ scores x.w for his examples (:170-177) and returns them; Alice decrypts
 the scores only (:151-152).
 
 Bob's whole example matrix scores in one EncryptedBatch.matvec: a [B, D]
-grid of per-element modexps with the alignment fused in, then a log-depth
-tree of Montgomery products. The intercept rides as an extra always-one
-feature column, so it stays encrypted too.
+grid of exponents with the alignment fused in, run as a shared-table
+multi-exponentiation (each weight's table built once, a log-depth tree of
+Montgomery products over the weights for each example and window, Horner
+an example). The intercept rides as an extra always-one feature column,
+so it stays encrypted too.
 """
 
 import numpy as np

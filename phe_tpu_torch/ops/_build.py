@@ -20,7 +20,8 @@ import subprocess
 
 from phe_tpu_torch import config
 
-SOURCES = ("mont_mul", "mont_pow", "rns_ladder", "microbench")
+SOURCES = ("mont_mul", "mont_pow", "rns_ladder", "microbench",
+           "table_select")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -27,8 +27,14 @@ M, not necessarily limb for limb. The products take L from 8 to
 MAX_MUL_LIMBS (1,200: the widest whose E = 8 block fits), the modexps
 from 16.
 
+``table_select`` launches the kernel of ``csrc/table_select.cu``: the
+shared-table matvec's constant-time select of windowed-table rows
+(batch._matvec); its plain version, ``table_select_plain``, indexes
+the tables.
+
 ``launches`` counts the kernel launches of each form and body (the
-integer-pipe ones under ``<form>_int``); nothing else changes it.
+integer-pipe ones under ``<form>_int``, the select under
+``table_select``); nothing else changes it.
 """
 
 import ctypes
@@ -47,6 +53,7 @@ MAX_SMEM = 232448
 MAX_MUL_LIMBS = 1200
 FORMS = ("mont_mul", "mont_mul_const", "mont_pow_shared", "mont_pow")
 launches = {name + body: 0 for body in ("", "_int") for name in FORMS}
+launches["table_select"] = 0
 # Rows a modexp block holds: the kernel's instantiations, widest first.
 POW_ELEMS = (32, 8)
 # The integer-pipe body's also the one-row tile (E = 1), each row on a
@@ -405,3 +412,73 @@ def mont_pow(base, digits, ctx, window=mg.DEFAULT_WINDOW):
     if base.device.type == "cpu":
         return mg.mont_pow_plain(base, digits, ctx, window=window)
     raise ValueError("no Montgomery modexp for device %s" % base.device)
+
+
+def table_select_plain(table, digits, neg, i0, dc):
+    """Plain version of table_select: the tables indexed."""
+    signs = table.shape[1]
+    d = torch.as_tensor(digits)[:, i0 : i0 + dc].to(table.device,
+                                                     torch.int64)
+    s = (neg[:, i0 : i0 + dc].to(torch.int64)[:, :, None] * (signs - 1)
+         ).expand(d.shape)
+    i = torch.arange(i0, i0 + dc, device=table.device)[None, :, None]
+    return table[d, s, i.expand(d.shape)].transpose(0, 1).contiguous()
+
+
+def _select_launch(table, digits, neg, i0, dc):
+    """One launch of the select kernel (csrc/table_select.cu)."""
+    if table.dim() != 4 or table.shape[0] != 16 or table.shape[1] not in (
+            1, 2):
+        raise ValueError("table must be [16, 1 or 2, D, L], got shape %s"
+                         % (tuple(table.shape),))
+    _, signs, D, L = table.shape
+    if digits.dim() != 3 or digits.shape[1] != D:
+        raise ValueError("digits must be [B, %d, W], got shape %s"
+                         % (D, tuple(digits.shape)))
+    B, _, W = digits.shape
+    if L % 2 or not 0 <= i0 < i0 + dc <= D:
+        raise ValueError("L = %d must be even and bases [%d, %d) inside "
+                         "[0, %d)" % (L, i0, i0 + dc, D))
+    dev = table.device
+    _check(table, "table", (16, signs, D, L), dev)
+    for t, name, dtype, shape in ((digits, "digits", torch.int8, (B, D, W)),
+                                  (neg, "neg", torch.bool, (B, D))):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError("%s must be a contiguous %s %s on %s, got %s %s "
+                             "on %s" % (name, dtype, shape, dev, t.dtype,
+                                        tuple(t.shape), t.device))
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    out = torch.empty((dc, B, W, L), dtype=torch.int64, device=dev)
+    fn = _build.load("table_select").phe_table_select
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(table.data_ptr(), digits.data_ptr(), neg.data_ptr(),
+            out.data_ptr(), D, B, W, i0, dc, signs, L,
+            _build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError("table_select kernel launch failed: CUDA error %d"
+                           % rc)
+    launches["table_select"] += 1
+    return out
+
+
+def table_select(table, digits, neg, i0, dc):
+    """out[i - i0, j, w] = table[digits[j, i, w], neg[j, i], i] for the
+    bases i in [i0, i0 + dc), in constant time: the shared-table matvec's
+    factors.
+
+    table: [16, signs, D, L] int64, table[k, s, i] the k-th power of base
+    i (s = 0) or of its inverse (s = 1; signs 2 only), limbs in [0, 2^14];
+    digits: [B, D, W] int8 schedules at the window of 4 bits; neg: [B, D]
+    bool, read only where signs is 2. Returns [dc, B, W, L] int64: the
+    kernel for tensors on the card, table_select_plain on the CPU.
+    """
+    if table.device.type == "cuda":
+        return _select_launch(table, digits, neg, i0, dc)
+    if table.device.type == "cpu":
+        return table_select_plain(table, digits, neg, i0, dc)
+    raise ValueError("no table select for device %s" % table.device)

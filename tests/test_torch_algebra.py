@@ -100,6 +100,9 @@ def _cases():
                 [rows_dot(s_float, A)]),
         "matvec_mixed_signs": (lambda a, b, a2: a.matvec(MATRIX),
                                [rows_dot(row, A) for row in MATRIX.tolist()]),
+        "matvec_non_negative": (
+            lambda a, b, a2: b.matvec(np.abs(MATRIX)),
+            [rows_dot(row, B) for row in np.abs(MATRIX).tolist()]),
     }
 
 

@@ -29,8 +29,10 @@ shared-memory formulas match the kernels', and the limb engine, reached
 with rns.fits made to refuse the key's moduli, gives the RNS engine's
 pinned-r ciphertexts at 2048 bits. The transposed matvec of vertical LR
 (8,200 ciphertexts, two batch-inversion chunks) decrypts to the plain
-reference's exact sums at 2048 bits. Tolerance zero throughout: all
-exact integer arithmetic.
+reference's exact sums at 2048 bits; the shared-table matvec's select
+kernel is bit-equal to its plain version at vfl_credit-2048's grids and
+ragged ones, and its matvec gives the ciphertexts of per-element
+modexps and a tree on both routes. Tolerance zero throughout: all exact integer arithmetic.
 """
 
 import functools
@@ -440,7 +442,7 @@ def test_algebra_on_the_card_goes_through_the_kernels(dev):
     assert got.decrypt(priv) == [
         a.mul_scalars([float(v) for v in row]).sum().decrypt(priv)[0]
         for row in X]
-    assert n["rns_ladder_vec"] == 1
+    assert n["table_select"] == 1 and "rns_ladder_vec" not in n
     got, n = counts(lambda: pt.EncryptedBatch.encrypt(
         pub, vals, obfuscation="short", device=dev))
     assert got.is_obfuscated and got.decrypt(priv) == vals
@@ -468,6 +470,82 @@ def test_transposed_matvec_at_2048_bits_over_two_inverse_chunks(dev):
                               ev[:, None] + ex)
     exps = (ev[:, None] + ex).min(axis=0)
     assert got.exponents.tolist() == exps.tolist()
+    assert got.decrypt(priv) == [ref.decode(t, int(e))
+                                 for t, e in zip(totals, exps)]
+
+
+@pytest.mark.parametrize("shape", [
+    (13, 30000, 24, 2, 296), (11, 30000, 24, 2, 296), (13, 30000, 24, 1, 296),
+    (3, 37, 8, 2, 80), (1, 1, 1, 1, 296), (5, 257, 33, 2, 296),
+    (600, 21, 16, 2, 296), (2, 9, 8, 2, 1176)],
+    ids=lambda s: "B%d-D%d-W%d-s%d-L%d" % s)
+def test_table_select_kernel_equals_plain(dev, shape):
+    """The shared-table matvec's select kernel bit-equal to its plain
+    version at the main path's shapes (vfl_credit-2048's grids: 30,000
+    bases, 13 and 11 rows, 24 windows, both signs, L = 296, over the
+    chunks of bases batch._matvec takes) and at ragged ones, one
+    launch a chunk."""
+    B, D, W, signs, L = shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(B * 100003 + D)
+    table = torch.randint(0, (1 << 14) + 1, (16, signs, D, L),
+                          dtype=torch.int64, device=dev, generator=g)
+    digits = torch.randint(0, 16, (B, D, W), dtype=torch.int8, device=dev,
+                           generator=g)
+    neg = torch.rand((B, D), device=dev, generator=g) < 0.5
+    step = tbatch._select_bases(B, D, W, L)
+    before = cuda_modexp.launches["table_select"]
+    for i0 in range(0, D, step):
+        dc = min(step, D - i0)
+        got = cuda_modexp.table_select(table, digits, neg, i0, dc)
+        want = cuda_modexp.table_select_plain(table, digits, neg, i0, dc)
+        assert torch.equal(got, want)
+        del got, want
+    assert cuda_modexp.launches["table_select"] == before + -(-D // step)
+
+
+@pytest.mark.parametrize("route", ["rns", "limb"])
+def test_shared_table_matvec_at_2048_bits(dev, monkeypatch, route):
+    """X^T [[d]] for 3,000 residuals against 13 features at 2048 bits
+    takes the shared table (a table_select launch, no per-element modexp)
+    and gives the ciphertexts of a modexp a grid element and a tree
+    (batch._pow_elems, batch._tree_fold) mod n^2 on either route, and the
+    plain reference's exact sums."""
+    from paillier_bench.reference import paillier as ref
+
+    if route == "limb":
+        refuse_rns(monkeypatch)
+    pub, priv = benchmarks.fixed_key(2048)
+    rng = np.random.default_rng(26)
+    rows = 3000
+    d = rng.normal(0.0, 0.3, rows)
+    X = rng.normal(0.0, 1.0, (rows, 13))
+    batch = pt.EncryptedBatch.encrypt(pub, d.tolist(), device=dev)
+    inv = batch.inverse_mont()
+    for c in (cuda_modexp.launches, cuda_rns.launches):
+        for key in c:
+            c[key] = 0
+    got = batch.matvec(X.T)
+    n = _by_form(_counts())
+    assert n["table_select"] == 1 and "rns_ladder_vec" not in n
+    assert "mont_pow" not in n
+    dc = batch._dc
+    assert (dc.rns_state() is None) == (route == "limb")
+    digits, neg, _ = batch._grid(X.T)
+    grid = (13, rows, dc.L)
+    base = torch.where(torch.as_tensor(neg).to(dev)[..., None],
+                       inv[:rows].expand(grid), batch.mont[:rows].expand(grid))
+    powed = tbatch._pow_elems(base, tbatch._digits_on(digits, dev), dc.ctx,
+                              dc.rns_state())
+    per = tbatch._tree_fold(powed.transpose(0, 1), dc.ctx)[0]
+    nsq = pub.nsquare
+    ints = lambda m: [v % nsq for v in hl.limbs_to_ints(m.cpu().numpy())]
+    assert ints(got.mont) == ints(per)
+    mv, ev = ref.encode_array(d)
+    mx, ex = ref.encode_array(X)
+    totals = ref.aligned_sums(mv.astype(object)[:, None] * mx,
+                              ev[:, None] + ex)
+    exps = (ev[:, None] + ex).min(axis=0)
     assert got.decrypt(priv) == [ref.decode(t, int(e))
                                  for t, e in zip(totals, exps)]
 

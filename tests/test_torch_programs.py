@@ -197,9 +197,8 @@ def _cases():
         "_tree_reduce_masked_dev": (lambda s: (s.mont, s.valid, s.dc.ctx),
                                     lambda s: (s.mont, s.valid, s.dc.ctx),
                                     "mont"),
-        "_matvec_dev": (
-            lambda s: (s.mont, s.inv, s.neg_grid, s.grid, s.dc.ctx,
-                       s.dc.rns_state()),
+        "_matvec_dev": (  # the shared table against phe_tpu's ladder grid
+            lambda s: (s.mont, s.inv, s.neg_grid, s.grid, s.dc.ctx),
             lambda s: (s.mont, s.inv, s.neg_grid, s.grid, s.dc.ctx,
                        s.dc.rns_state()), "mont"),
         "_crt_powers_dev": (
